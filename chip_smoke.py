@@ -6,23 +6,35 @@
 Phases, in order; any failure exits non-zero and no phase swallows an
 exception:
 
-  1. device   require CUDA (no CPU fallback), print the card;
-  2. build    compile the port's CUDA kernels from rag_tpu_torch/csrc with
-              nvcc (one process per source, all at once) and load them;
-  3. record   restore the committed 4-task checkpoint logs/canonical_learn_r4
-              onto the card and answer one 1x480x960 request per task path
-              with each kernel's PLAIN version in its wrapper's place,
-              recording every call each kernel would get (its shapes and
-              its real activations);
-  4. kernels  hold each kernel against its plain version on the card, at
-              every recorded main-path shape and at small shapes, and time
-              kernel, plain version and a library yardstick with CUDA events;
-  5. serve    set every launch count to 0, answer 3 requests per task path
-              through RoutedInference.predict, read the counts (each kernel
-              must have launched), and check every disparity: finite, in
-              [0, 191], and within tolerance of the plain path's;
-  6. report   one JSON line of kernels, the card's name and power limit, and
-              as the last line {"ok": true, "device": {...}}.
+  1. device        require CUDA (no CPU fallback), print the card;
+  2. build         compile the port's CUDA kernels from rag_tpu_torch/csrc
+                   with nvcc (one process per source, all at once), load them;
+  3. record        restore the committed 4-task checkpoint
+                   logs/canonical_learn_r4 onto the card and answer one
+                   1x480x960 request per task path with each kernel's PLAIN
+                   version in its wrapper's place, recording every call each
+                   kernel would get (its shapes and its real activations);
+  4. record-train  the same for one training step of each training
+                   configuration (task 3's fine-tune stage, task 0's stage;
+                   batch 4, 192x384 crops, maxdisp 192), keeping the plain
+                   step's updates and statistics;
+  5. kernels       hold all seven kernels (A-C forward, D-G backward) against
+                   their plain versions on the card, at every recorded shape
+                   and at small shapes, and time kernel, plain version and a
+                   library yardstick with CUDA events;
+  6. serve         set every launch count to 0, answer 3 requests per task
+                   path through RoutedInference.predict, read the counts
+                   (each forward kernel must have launched), and check every
+                   disparity: finite, in [0, 191], within tolerance of the
+                   plain path's;
+  7. train         set every launch count to 0, take 3 steps of each training
+                   configuration through make_train_step, read the counts
+                   (all seven kernels must have launched), check the loss and
+                   every updated leaf finite and the first step against the
+                   plain step of phase 4; print ms/step, training pairs/s and
+                   peak memory;
+  8. report        one JSON line of kernels, the card's name and power limit,
+                   and as the last line {"ok": true, "device": {...}}.
 
 Float32 throughout: TF32 is off for cuDNN and matmuls.
 """
@@ -30,6 +42,7 @@ Float32 throughout: TF32 is off for cuDNN and matmuls.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -46,15 +59,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from rag_tpu_torch.continual.inference import RoutedInference  # noqa: E402
 from rag_tpu_torch.continual.state import load_checkpoint  # noqa: E402
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
-from rag_tpu_torch.models import stereo as stereo_mod  # noqa: E402
-from rag_tpu_torch.ops import convbr_cf as convbr_cf_mod  # noqa: E402
+from rag_tpu_torch.ops import conv3d as conv3d_mod  # noqa: E402
 from rag_tpu_torch.ops import cuda_lib  # noqa: E402
-from rag_tpu_torch.ops.conv3d import conv3d_brc_cf, conv3d_brc_cf_plain  # noqa: E402
+from rag_tpu_torch.ops import cvstem as cvstem_mod  # noqa: E402
+from rag_tpu_torch.ops import disparity as disparity_mod  # noqa: E402
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
-from rag_tpu_torch.ops.cvstem import cvstem_brc, cvstem_brc_plain  # noqa: E402
-from rag_tpu_torch.ops.disparity import (  # noqa: E402
-    fused_soft_argmin,
-    soft_argmin_disparity,
+from rag_tpu_torch.train.trainer import (  # noqa: E402
+    cosine_lr,
+    make_optimizer,
+    make_train_step,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -63,6 +76,10 @@ H, W, MAXDISP = 480, 960, 192
 TRUE_DISP = 24                 # the synthetic pair is one fronto-parallel plane
 REQUESTS = 3                   # per task path; the first is reported apart
 REPS = 10                      # timed launches per kernel at main-path shapes
+TRAIN_B, TRAIN_H, TRAIN_W = 4, 192, 384  # the reference's training crops
+TRAIN_STEPS = 3                # per configuration; the first is reported apart
+TRAIN_EPOCHS = 10              # cosine schedule length; step i takes epoch i's lr
+LR, WD = 0.001, 0.003
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -72,6 +89,17 @@ PEAK_HBM_BYTES = 3.35e12
 CONV_RTOL = 1e-5   # of max |plain|: float32 sums of <= 27*48 products in
                    # another order; a wrong tap or channel is O(1) off
 DISP_ATOL = 1e-3   # px, kernel C alone: float32 softmin over 192 levels
+BWD_RTOL = 1e-4    # kernels D-F: of the largest sum of the products'
+                   # magnitudes (the plain version on |inputs|), the scale of
+                   # float32 error in sums of up to 2M (D, F) or 64 planes x
+                   # 27 taps x 12 (E) terms taken in another order, where
+                   # real gradients cancel; G: of max |plain|. A wrong tap or
+                   # mask is O(1) off
+STEP_RTOL = 1e-2   # a train step, kernels vs plain: relative L2 of dp/lr over
+                   # all trainable leaves; float32 sums in another order
+                   # through ~25 layers, where a ReLU input within float32
+                   # noise of zero takes the other branch (ROADMAP Queue 3)
+STATS_RTOL = 1e-3  # of max(1, |stat|), new BN running statistics of that step
 SERVE_ATOL = 1e-2  # px, whole request: ~25 float32 layers summed in another
                    # order, amplified by the softmin; 1% of the 1-px Thres1
 
@@ -124,18 +152,28 @@ def conv_bound(x_shape, cout):
     return _bound(flops, nbytes)
 
 
-def cvstem_bound(x_shape, nd, cout):
-    """Multiply-adds that read a voxel of the cost volume that is not a
-    structural zero (outside the planes, left of the diagonal, or padding);
-    bytes: the two feature maps, weights, affine in, the output out."""
-    b, c, h, w = x_shape
+def _stem_products(nd, w, dv_needed=False):
+    """(plane, column, kd, kw) combinations of the stem's conv whose product
+    is not structurally zero. Forward and dW: the volume voxel read,
+    (d+kd-1, j+kw-1), lies inside the planes and right of the diagonal.
+    dX/dY (dv_needed): the conv of dz lands on an output (d, j) the
+    volume's adjoint keeps (j >= d) and reads dz inside the planes."""
     d = np.arange(nd)[:, None, None, None]
     dd = np.arange(3)[None, :, None, None]
     j = np.arange(w)[None, None, :, None]
     kw = np.arange(3)[None, None, None, :]
     dv, jv = d + dd - 1, j + kw - 1
-    inside = int(((dv >= 0) & (dv < nd) & (jv >= dv) & (jv < w)).sum())
-    flops = 2.0 * b * inside * _taps(h) * 2 * c * cout
+    inside = (dv >= 0) & (dv < nd) & (jv >= 0) & (jv < w)
+    inside &= (j >= d) if dv_needed else (jv >= dv)
+    return int(inside.sum())
+
+
+def cvstem_bound(x_shape, nd, cout):
+    """Multiply-adds that read a voxel of the cost volume that is not a
+    structural zero (outside the planes, left of the diagonal, or padding);
+    bytes: the two feature maps, weights, affine in, the output out."""
+    b, c, h, w = x_shape
+    flops = 2.0 * b * _stem_products(nd, w) * _taps(h) * 2 * c * cout
     nbytes = 4.0 * (2 * b * c * h * w + b * nd * cout * h * w
                     + 27 * 2 * c * cout + 2 * cout)
     return _bound(flops, nbytes)
@@ -152,12 +190,63 @@ def disp_bound(x_shape, maxdisp, scale):
     return _bound(flops, nbytes)
 
 
-# -- the three kernels: wrapper, plain version, yardstick, bound ------------
+def dw_bound(x_shape, cout):
+    """Kernel D: the forward's multiply-adds that read an in-range voxel;
+    bytes: x and dz in, dW out."""
+    b, d, cin, h, w = x_shape
+    flops = 2.0 * b * _taps(d) * _taps(h) * _taps(w) * cin * cout
+    nbytes = 4.0 * (b * d * h * w * (cin + cout) + 27 * cin * cout)
+    return _bound(flops, nbytes)
+
+
+def cvstem_dxy_bound(dz_shape, c2, nd):
+    """Kernel E: for every volume voxel the adjoint keeps, the in-range
+    products of the dx conv over 27 taps and Cout; bytes: dz and weights
+    in, dX and dY out."""
+    b, _, cout, h, w = dz_shape
+    flops = 2.0 * b * _stem_products(nd, w, dv_needed=True) * _taps(h) \
+        * c2 * cout
+    nbytes = 4.0 * (b * nd * cout * h * w + 27 * c2 * cout + b * c2 * h * w)
+    return _bound(flops, nbytes)
+
+
+def cvstem_dw_bound(x_shape, dz_shape, nd):
+    """Kernel F: the forward's products (the same (voxel, tap) pairs);
+    bytes: X, Y and dz in, dW out."""
+    b, c, h, w = x_shape
+    cout = dz_shape[2]
+    flops = 2.0 * b * _stem_products(nd, w) * _taps(h) * 2 * c * cout
+    nbytes = 4.0 * (2 * b * c * h * w + b * nd * cout * h * w
+                    + 27 * 2 * c * cout)
+    return _bound(flops, nbytes)
+
+
+def disp_bwd_bound(x_shape, maxdisp, scale):
+    """Kernel G: per output pixel, kernel C's work (9 per cost level, 8
+    per disparity level) plus the third walk over the levels (lerp 3, exp
+    1, p 1, dy 4, the D fold into two taps 4); per input voxel, the gather
+    over its inverse H and W taps (2*KW + 2 per H tap). Bytes: x and g in,
+    dx out."""
+    b, d, h, w = x_shape
+    kh, kw = (disparity_mod._inverse_taps_np(n, n * scale)[0].shape[1]
+              for n in (h, w))
+    pixels = b * h * scale * w * scale
+    flops = (pixels * (9.0 * d + 21.0 * maxdisp)
+             + b * d * h * w * kh * (2.0 * kw + 2.0))
+    nbytes = 4.0 * (2 * b * d * h * w + pixels)
+    return _bound(flops, nbytes)
+
+
+# -- the seven kernels: wrapper, plain version, yardstick, bound ------------
+
+def _ncdhw(v):
+    return v.permute(0, 2, 1, 3, 4).contiguous()
+
 
 def _conv_library(x, w, scale, bias, relu):
     """cuDNN F.conv3d on NCDHW with the affine folded into weights and
     bias, then ReLU (the layout change is made once, outside the timing)."""
-    x_n = x.permute(0, 2, 1, 3, 4).contiguous()
+    x_n = _ncdhw(x)
     w_n = (w * scale).permute(4, 3, 0, 1, 2).contiguous()
 
     def run():
@@ -179,16 +268,66 @@ def _cvstem_library(x_cf, y_cf, w3, scale, bias, nd, relu):
     return run
 
 
+def _dw_library(x, dz):
+    """cuDNN's weight gradient (conv3d_weight) on NCDHW."""
+    x_n, dz_n = _ncdhw(x), _ncdhw(dz)
+    shape = (dz.shape[2], x.shape[2], 3, 3, 3)
+    return lambda: torch.nn.grad.conv3d_weight(x_n, shape, dz_n, padding=1)
+
+
+def _dxy_library(dz, w3, nd):
+    """cuDNN's input gradient (conv3d_input) of the materialized volume,
+    then the volume's adjoint: the masked sum over d for dX, the shifted
+    sum for dY."""
+    b, _, _, h, w = dz.shape
+    c2 = w3.shape[3]
+    c = c2 // 2
+    dz_n = _ncdhw(dz)
+    w_n = w3.permute(4, 3, 0, 1, 2).contiguous()
+    j = torch.arange(w, device=dz.device)
+    mask = (j[None, :] >= torch.arange(nd, device=dz.device)[:, None]).float()
+
+    def run():
+        dv = torch.nn.grad.conv3d_input((b, c2, nd, h, w), w_n, dz_n,
+                                        padding=1)
+        dx = (dv[:, :c] * mask[None, None, :, None, :]).sum(2)
+        dy = torch.zeros_like(dx)
+        for d in range(min(nd, w)):
+            dy[..., :w - d] += dv[:, c:, d, :, d:]
+        return dx, dy
+    return run
+
+
+def _cvstem_dw_library(x_cf, y_cf, dz, nd):
+    """The materialized cost volume, then cuDNN's conv3d_weight."""
+    x = x_cf.permute(0, 2, 3, 1).contiguous()
+    y = y_cf.permute(0, 2, 3, 1).contiguous()
+    dz_n = _ncdhw(dz)
+    shape = (dz.shape[2], 2 * x_cf.shape[1], 3, 3, 3)
+
+    def run():
+        vol = cost_volume_cf(x, y, nd).permute(0, 2, 1, 3, 4)
+        return torch.nn.grad.conv3d_weight(vol, shape, dz_n, padding=1)
+    return run
+
+
+# name -> the module and attribute where the main path looks the kernel's
+# wrapper up (record puts the plain version there), the plain version, the
+# TPU kernel it replaces, and how to sign, bound and yardstick one call.
+# A, B and C are on the serving path and the training path; D-G on the
+# training path only.
 KERNELS = {
     "conv3d_brc_cf": dict(
-        wrapper=conv3d_brc_cf, plain=conv3d_brc_cf_plain,
+        site=(conv3d_mod, "conv3d_affine_cf"),
+        plain=conv3d_mod.conv3d_brc_cf_plain,
         source="rag_tpu_torch/csrc/conv3d.cu",
         replaces="rag_tpu/ops/pallas_conv3d.py:257",
         sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
         bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
         library=_conv_library, tol="conv"),
     "cvstem_brc": dict(
-        wrapper=cvstem_brc, plain=cvstem_brc_plain,
+        site=(cvstem_mod, "cvstem_affine"),
+        plain=cvstem_mod.cvstem_brc_plain,
         source="rag_tpu_torch/csrc/cvstem.cu",
         replaces="rag_tpu/ops/pallas_cvstem.py:257",
         sig=lambda x, y, w3, scale, bias, nd, relu=True:
@@ -197,26 +336,59 @@ KERNELS = {
             cvstem_bound(x.shape, nd, w3.shape[4]),
         library=_cvstem_library, tol="conv"),
     "fused_soft_argmin": dict(
-        wrapper=fused_soft_argmin, plain=soft_argmin_disparity,
+        site=(disparity_mod, "soft_argmin_fwd"),
+        plain=disparity_mod.soft_argmin_disparity,
         source="rag_tpu_torch/csrc/disp_head.cu",
         replaces="rag_tpu/ops/pallas_kernels.py:163",
         sig=lambda x, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
         bound=lambda x, maxdisp, scale=3: disp_bound(x.shape, maxdisp, scale),
         library=None, tol="disp"),
+    "conv3d_dw_cf": dict(
+        site=(conv3d_mod, "conv3d_dw_cf"),
+        plain=conv3d_mod.conv3d_dw_cf_plain,
+        source="rag_tpu_torch/csrc/conv3d_dw.cu",
+        replaces="rag_tpu/ops/pallas_conv3d.py:561",
+        sig=lambda x, dz: (tuple(x.shape), dz.shape[2]),
+        bound=lambda x, dz: dw_bound(x.shape, dz.shape[2]),
+        magnitude=lambda x, dz: (x.abs(), dz.abs()),
+        library=_dw_library, tol="bwd"),
+    "cvstem_dxy": dict(
+        site=(cvstem_mod, "cvstem_dxy"),
+        plain=cvstem_mod.cvstem_dxy_plain,
+        source="rag_tpu_torch/csrc/cvstem_bwd.cu",
+        replaces="rag_tpu/ops/pallas_cvstem.py:384",
+        sig=lambda dz, w3, nd: (tuple(dz.shape), w3.shape[3], nd),
+        bound=lambda dz, w3, nd: cvstem_dxy_bound(dz.shape, w3.shape[3], nd),
+        magnitude=lambda dz, w3, nd: (dz.abs(), w3.abs(), nd),
+        library=_dxy_library, tol="bwd"),
+    "cvstem_dw": dict(
+        site=(cvstem_mod, "cvstem_dw"),
+        plain=cvstem_mod.cvstem_dw_plain,
+        source="rag_tpu_torch/csrc/cvstem_bwd.cu",
+        replaces="rag_tpu/ops/pallas_cvstem.py:476",
+        sig=lambda x, y, dz, nd: (tuple(x.shape), dz.shape[2], nd),
+        bound=lambda x, y, dz, nd: cvstem_dw_bound(x.shape, dz.shape, nd),
+        magnitude=lambda x, y, dz, nd: (x.abs(), y.abs(), dz.abs(), nd),
+        library=_cvstem_dw_library, tol="bwd"),
+    "soft_argmin_bwd": dict(
+        site=(disparity_mod, "soft_argmin_bwd"),
+        plain=disparity_mod.soft_argmin_bwd_plain,
+        source="rag_tpu_torch/csrc/disp_head.cu",
+        replaces="rag_tpu/ops/pallas_kernels.py:295",
+        sig=lambda x, g, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
+        bound=lambda x, g, maxdisp, scale=3:
+            disp_bwd_bound(x.shape, maxdisp, scale),
+        library=None, tol="bwd"),
 }
-
-# where the main path looks each kernel's wrapper up (module, attribute):
-# the record phase puts the plain versions there for one request per task
-CALL_SITES = {
-    "conv3d_brc_cf": (convbr_cf_mod, "conv3d_brc_cf"),
-    "cvstem_brc": (stereo_mod, "cvstem_brc"),
-    "fused_soft_argmin": (stereo_mod, "fused_soft_argmin"),
-}
+for _k in KERNELS.values():
+    _k["wrapper"] = getattr(*_k["site"])
+SERVE_KERNELS = ("conv3d_brc_cf", "cvstem_brc", "fused_soft_argmin")
 
 
 def small_cases(dev, rng):
     """A few small shapes per kernel: Cout 1 with W not a multiple of 8,
-    merged Cout 48, a D == W cost volume, batch 2 for every kernel."""
+    merged Cout 48, a D == W cost volume, num_disp past W, batch 2 for
+    every kernel."""
     def t(*shape, s=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * s)
                                 .astype(np.float32)).to(dev)
@@ -231,13 +403,19 @@ def small_cases(dev, rng):
         cases.append(("conv3d_brc_cf", (t(b, d, cin, h, w),
                                         t(3, 3, 3, cin, cout, s=0.2),
                                         *aff(cout), relu)))
+        cases.append(("conv3d_dw_cf", (t(b, d, cin, h, w),
+                                       t(b, d, cout, h, w))))
     for b, c, h, w, nd, cout in [(1, 12, 8, 20, 6, 12), (1, 2, 8, 8, 8, 3),
-                                 (2, 3, 6, 11, 5, 4)]:
-        cases.append(("cvstem_brc", (t(b, c, h, w), t(b, c, h, w),
-                                     t(3, 3, 3, 2 * c, cout, s=0.2),
-                                     *aff(cout), nd, True)))
+                                 (2, 3, 6, 11, 5, 4), (1, 2, 5, 6, 9, 3)]:
+        x, y, w3 = t(b, c, h, w), t(b, c, h, w), t(3, 3, 3, 2 * c, cout, s=0.2)
+        dz = t(b, nd, cout, h, w)
+        cases.append(("cvstem_brc", (x, y, w3, *aff(cout), nd, True)))
+        cases.append(("cvstem_dxy", (dz, w3, nd)))
+        cases.append(("cvstem_dw", (x, y, dz, nd)))
     for b, d, h, w, md in [(1, 8, 16, 10, 24), (2, 4, 5, 43, 12)]:
-        cases.append(("fused_soft_argmin", (t(b, d, h, w, s=3.0), md, 3)))
+        x = t(b, d, h, w, s=3.0)
+        cases.append(("fused_soft_argmin", (x, md, 3)))
+        cases.append(("soft_argmin_bwd", (x, t(b, 3 * h, 3 * w), md, 3)))
     return cases
 
 
@@ -273,51 +451,138 @@ def stereo_pair(rng, h, w, disp):
     return tex[None, :, :w].copy(), tex[None, :, disp:disp + w].copy()
 
 
-def phase_record(ri, requests):
-    """The first request of each task path through RoutedInference.predict
-    with each kernel's plain version in its wrapper's place. Returns the
-    plain disparities, every kernel call per task (name, signature), and
-    the first real arguments seen for each signature."""
-    calls = {t: [] for t in requests}
-    args_of = {}
-    wrappers = {n: getattr(m, a) for n, (m, a) in CALL_SITES.items()}
-    launches0 = {n: k["wrapper"].launches for n, k in KERNELS.items()}
-
-    def recorder(name, task):
+@contextlib.contextmanager
+def recording(calls, args_of):
+    """Every kernel wrapper replaced by its plain version where the main
+    path looks it up; each call's (name, signature) is appended to calls
+    and the first real arguments of each signature kept in args_of."""
+    def recorder(name):
         def run(*args, **kw):
             sig = KERNELS[name]["sig"](*args, **kw)
-            calls[task].append((name, sig))
+            calls.append((name, sig))
             if (name, sig) not in args_of:
                 args_of[(name, sig)] = (
-                    tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                          for a in args), dict(kw))
+                    tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                          else a for a in args), dict(kw))
             return KERNELS[name]["plain"](*args, **kw)
         return run
 
-    plain = {}
+    launches0 = {n: k["wrapper"].launches for n, k in KERNELS.items()}
     try:
-        for t, reqs in requests.items():
-            for n, (m, a) in CALL_SITES.items():
-                setattr(m, a, recorder(n, t))
-            plain[t] = ri.predict(*reqs[0], task=t)
+        for n, k in KERNELS.items():
+            setattr(*k["site"], recorder(n))
+        yield
     finally:
-        for n, (m, a) in CALL_SITES.items():
-            setattr(m, a, wrappers[n])
-    for t in requests:
-        n_calls = {k: sum(1 for n, _ in calls[t] if n == k) for k in KERNELS}
-        log(f"[record] task {t}: plain disparity in [{plain[t].min():.2f}, "
-            f"{plain[t].max():.2f}], kernel calls {n_calls}")
-        # a call site the main path no longer reads would leave the kernel
-        # unchecked and the "plain" reference running kernels
-        if min(n_calls.values()) < 1:
-            raise SystemExit(f"chip_smoke: task {t} made no call to "
-                             f"{[k for k, c in n_calls.items() if c < 1]}")
+        for k in KERNELS.values():
+            setattr(*k["site"], k["wrapper"])
     launched = {n: k["wrapper"].launches - launches0[n]
                 for n, k in KERNELS.items()}
     if any(launched.values()):
         raise SystemExit(f"chip_smoke: the plain path launched {launched}")
-    log(f"[record] {len(args_of)} distinct kernel signatures on the main path")
-    return plain, calls, args_of
+
+
+def count_calls(calls):
+    return {k: sum(1 for n, _ in calls if n == k) for k in KERNELS}
+
+
+def phase_record(ri, requests, args_of):
+    """The first request of each task path through RoutedInference.predict
+    with each kernel's plain version in its wrapper's place. Returns the
+    plain disparities and every kernel call per task (name, signature)."""
+    calls, plain = {}, {}
+    for t, reqs in requests.items():
+        calls[t] = []
+        with recording(calls[t], args_of):
+            plain[t] = ri.predict(*reqs[0], task=t)
+        n_calls = count_calls(calls[t])
+        log(f"[record] task {t}: plain disparity in [{plain[t].min():.2f}, "
+            f"{plain[t].max():.2f}], kernel calls {n_calls}")
+        # a call site the main path no longer reads would leave the kernel
+        # unchecked and the "plain" reference running kernels
+        missing = [k for k in SERVE_KERNELS if n_calls[k] < 1]
+        if missing:
+            raise SystemExit(f"chip_smoke: task {t} made no call to {missing}")
+    return plain, calls
+
+
+def leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def train_configs(dev):
+    """The two training configurations on a fresh copy of the committed
+    checkpoint: task 3's fine-tune stage (BN-train = trainable = the 13
+    units task 3 trains) and task 0's stage (every site, BN in train
+    mode). name -> (specs, params, stats, sites)."""
+    net, _ = load_checkpoint(str(CKPT), 3, device=dev)
+    out = {}
+    for t in (3, 0):
+        specs, params, stats = net.path(net.archis[t])
+        out[f"task{t}"] = (specs, params, stats, net.trainable_sites(t))
+    return out
+
+
+def train_batch(dev):
+    """Batch 4 of seeded synthetic 192x384 pairs, each one fronto-parallel
+    plane at its own disparity, with that ground truth (0 = no match)."""
+    rng = np.random.default_rng(1)
+    lefts, rights, gts = [], [], []
+    for i in range(TRAIN_B):
+        disp = 8 + 16 * i
+        left, right = stereo_pair(rng, TRAIN_H, TRAIN_W, disp)
+        gt = np.full((1, TRAIN_H, TRAIN_W), float(disp), np.float32)
+        gt[..., :disp] = 0.0
+        lefts.append(left), rights.append(right), gts.append(gt)
+    return tuple(torch.from_numpy(np.concatenate(a)).to(dev)
+                 for a in (lefts, rights, gts))
+
+
+def train_step(cfg, params, stats, opt_state, lr, batch):
+    specs, _, _, sites = cfg
+    step = make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP)
+    return step(params, stats, opt_state, lr, *batch)
+
+
+def phase_record_train(dev, args_of):
+    """One step of each training configuration with the plain versions in
+    the wrappers' places. Returns every kernel call per configuration and
+    the plain step's dp/lr and new statistics."""
+    calls, plain = {}, {}
+    batch = train_batch(dev)
+    lr = cosine_lr(LR, TRAIN_EPOCHS, 0)
+    for name, cfg in train_configs(dev).items():
+        _, params, stats, sites = cfg
+        before = {k: v.clone() for k, v in leaves(params)}
+        calls[name] = []
+        t0 = time.perf_counter()
+        with recording(calls[name], args_of):
+            params, new_stats, _, sc = train_step(
+                cfg, params, stats, make_optimizer(WD).init(params), lr, batch)
+        torch.cuda.synchronize()
+        plain[name] = (
+            {k: (v - before[k]) / lr for k, v in leaves(params)
+             if k.split("/")[0] in sites},
+            dict(leaves(new_stats)))
+        n_calls = count_calls(calls[name])
+        log(f"[record-train] {name} ({len(sites)} trainable sites): plain step "
+            f"{(time.perf_counter() - t0) * 1e3:.0f} ms, loss "
+            f"{float(sc['loss']):.4f}, kernel calls {n_calls}")
+        missing = [k for k, c in n_calls.items() if c < 1
+                   and not (k == "cvstem_dw" and "stem_3d0" not in sites)]
+        if missing:
+            raise SystemExit(f"chip_smoke: {name} made no call to {missing}")
+    return plain, calls
+
+
+def _max_err(out, ref):
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+    return err, max(float(r.abs().max()) for r in refs)
 
 
 def check_kernel(name, args, kw, reps):
@@ -328,9 +593,14 @@ def check_kernel(name, args, kw, reps):
         out = k["wrapper"](*args, **kw)
         ref = k["plain"](*args, **kw)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        scale = max(1.0, float(ref.abs().max()))
-        tol = CONV_RTOL * scale if k["tol"] == "conv" else DISP_ATOL
+        err, ref_max = _max_err(out, ref)
+        del out, ref
+        if k["tol"] == "bwd" and "magnitude" in k:
+            mags = k["plain"](*k["magnitude"](*args), **kw)
+            ref_max = _max_err(mags, mags)[1]
+            del mags
+        tol = {"conv": CONV_RTOL * max(1.0, ref_max), "disp": DISP_ATOL,
+               "bwd": BWD_RTOL * ref_max}[k["tol"]]
         ms = cuda_ms(lambda: k["wrapper"](*args, **kw), reps)
         plain_ms = cuda_ms(lambda: k["plain"](*args, **kw), max(1, reps // 2))
         lib_ms = (cuda_ms(k["library"](*args, **kw), reps)
@@ -345,13 +615,13 @@ def check_kernel(name, args, kw, reps):
 def phase_kernels(args_of, dev):
     results, failures = {}, []
     rng = np.random.default_rng(7)
-    todo = [("eval", name, sig, args, kw)
+    todo = [("main", name, sig, args, kw)
             for (name, sig), (args, kw) in args_of.items()]
     todo += [("small", name, KERNELS[name]["sig"](*args), args, {})
              for name, args in small_cases(dev, rng)]
     for where, name, sig, args, kw in todo:
-        r = check_kernel(name, args, kw, REPS if where == "eval" else 5)
-        if where == "eval":
+        r = check_kernel(name, args, kw, REPS if where == "main" else 5)
+        if where == "main":
             results[(name, sig)] = r
         line = {"kernel": name, "at": where, "sig": str(sig),
                 "max_abs_err": r["err"], "tol": r["tol"], "ms": r["ms"],
@@ -386,7 +656,10 @@ def phase_serve(ri, requests, plain):
     log(f"[serve] launches in the main-path run: {launches}; peak device "
         f"memory {peak_gb:.2f} GB")
 
-    failures = [f"{n} never launched" for n, c in launches.items() if c <= 0]
+    failures = [f"{n} never launched" for n in SERVE_KERNELS
+                if launches[n] <= 0]
+    failures += [f"{n} launched while serving" for n, c in launches.items()
+                 if n not in SERVE_KERNELS and c != 0]
     per_task = {}
     for t in requests:
         for i, d in enumerate(outs[t]):
@@ -415,18 +688,54 @@ def phase_serve(ri, requests, plain):
     return launches, per_task
 
 
-def phase_profile(ri, requests, out_dir: Path) -> None:
-    """torch.profiler over one steady request of the last task path: the
-    kernel table goes to out_dir, the device busy share to the log."""
-    from torch.profiler import ProfilerActivity, profile
+# kinds of device kernel in a trace, matched in order on the lower-cased
+# name (the port's A-G first; kernel_kind sorts B, D and F apart)
+KINDS = (("conv3x3x3_affine_kernel", "A"), ("dw_reduce_kernel", "D/F reduce"),
+         ("cvstem_dxy_kernel", "E"), ("soft_argmin_kernel", "C"),
+         ("soft_argmin_fold_kernel", "G"), ("soft_argmin_gather_kernel", "G"),
+         ("gemm", "GEMM"), ("reduce_kernel", "reductions"),
+         ("elementwise", "elementwise"), ("cudnn", "cuDNN"),
+         ("grad", "cuDNN"), ("conv", "cuDNN"), ("", "other"))
 
-    t = max(requests)
-    left, right = requests[t][0]
-    ri.predict(left, right, task=t)
+
+def kernel_kind(name: str) -> str:
+    if "CostVolumeSrc" in name:
+        return "F" if "dw_partial_kernel" in name else "B"
+    if "dw_partial_kernel" in name:
+        return "D"
+    low = name.lower()
+    return next(kind for key, kind in KINDS if key in low)
+
+
+def device_breakdown(trace: Path) -> dict:
+    """ms of device time by kind in an exported chrome trace: each of the
+    port's kernels (A also counts kernel A's dx launches), GEMMs,
+    reductions, elementwise, cuDNN, copies and the rest."""
+    data = json.loads(trace.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    out = {}
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        kind = kernel_kind(e["name"]) if cat == "kernel" else "copies"
+        out[kind] = out.get(kind, 0.0) + e.get("dur", 0) / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def profile(fn, label: str, out_dir: Path) -> None:
+    """torch.profiler over one call of fn (after one warm-up call): the
+    kernel table and trace go to out_dir, the device busy share and the
+    top device entries to the log."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ri.predict(left, right, task=t)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # the attribute's name changed across PyTorch releases
@@ -438,31 +747,142 @@ def phase_profile(ri, requests, out_dir: Path) -> None:
     dev_us = sum(getattr(e, key) for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"profile_task{t}.txt").write_text(
-        events.table(sort_by=key, row_limit=40))
-    prof.export_chrome_trace(str(out_dir / f"trace_task{t}.json"))
-    log(f"[profile] task {t}: wall {wall_ms:.2f} ms, device busy "
-        f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%)")
-    for e in sorted(events, key=lambda e: -getattr(e, key))[:16]:
+    (out_dir / f"profile_{label}.txt").write_text(
+        events.table(sort_by=key, row_limit=60))
+    trace = out_dir / f"trace_{label}.json"
+    prof.export_chrome_trace(str(trace))
+    n_dev = sum(e.count for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
+        f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%), "
+        f"{n_dev} device operations; ms by kind "
+        + json.dumps({k: round(v, 3) for k, v in
+                      device_breakdown(trace).items()}))
+    for e in sorted(events, key=lambda e: -getattr(e, key))[:24]:
         log(f"[profile]   {getattr(e, key) / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def per_request(results, calls, name, field):
-    """Sum of a per-call number over one request, averaged over tasks."""
+def phase_profile(ri, requests, dev, out_dir: Path) -> None:
+    """One steady request of the last task path and one steady train step
+    of task 0's stage under the profiler."""
+    t = max(requests)
+    left, right = requests[t][0]
+    profile(lambda: ri.predict(left, right, task=t), f"serve_task{t}",
+            out_dir)
+    cfg = train_configs(dev)["task0"]
+    state = [cfg[1], cfg[2], make_optimizer(WD).init(cfg[1])]
+    batch = train_batch(dev)
+
+    def step():
+        state[:3] = train_step(cfg, *state, LR, batch)[:3]
+    profile(step, "train_task0", out_dir)
+
+
+def compare_step(name, delta, new_stats, plain):
+    """The kernel step's dp/lr and statistics against the plain step's."""
+    p_delta, p_stats = plain
+    num = sum(float(((delta[k] - p_delta[k]) ** 2).sum()) for k in p_delta)
+    den = sum(float((p_delta[k] ** 2).sum()) for k in p_delta)
+    rel_l2 = (num / den) ** 0.5
+    leaf = max(float((delta[k] - p_delta[k]).abs().max()
+                     / p_delta[k].abs().max().clamp(min=1e-30))
+               for k in p_delta)
+    stats_err = max(float((new_stats[k] - v).abs().max()
+                          / max(1.0, float(v.abs().max())))
+                    for k, v in p_stats.items())
+    log(f"[train] {name}: first step vs plain step: dp/lr relative L2 "
+        f"{rel_l2:.3e} (tolerance {STEP_RTOL}), worst leaf max-relative "
+        f"{leaf:.3e}; BN statistics {stats_err:.3e} (tolerance {STATS_RTOL})")
+    failures = []
+    if not rel_l2 <= STEP_RTOL:
+        failures.append(f"{name}: dp/lr vs plain step {rel_l2:.3g}")
+    if not stats_err <= STATS_RTOL:
+        failures.append(f"{name}: statistics vs plain step {stats_err:.3g}")
+    return dict(vs_plain_dp_rel_l2=rel_l2, vs_plain_worst_leaf=leaf,
+                vs_plain_stats=stats_err), failures
+
+
+def phase_train(dev, plain):
+    """TRAIN_STEPS steps of each configuration through make_train_step on
+    a fresh copy of the checkpoint, every launch count set to 0 first."""
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+    batch = train_batch(dev)
+    per_cfg, failures = {}, []
+    for name, cfg in train_configs(dev).items():
+        _, params, stats, sites = cfg
+        opt_state = make_optimizer(WD).init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(TRAIN_STEPS):
+            lr = cosine_lr(LR, TRAIN_EPOCHS, i)
+            before = ({k: v.clone() for k, v in leaves(params)} if i == 0
+                      else None)
+            t0 = time.perf_counter()
+            params, stats, opt_state, sc = train_step(
+                cfg, params, stats, opt_state, lr, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(sc["loss"]))
+            if i == 0:
+                delta = {k: (v - before[k]) / lr for k, v in leaves(params)
+                         if k.split("/")[0] in sites}
+                cmp, bad = compare_step(name, delta, dict(leaves(stats)),
+                                        plain[name])
+                failures += bad
+                del before, delta
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trained = [k for k, _ in leaves(params) if k.split("/")[0] in sites]
+        finite = all(bool(torch.isfinite(v).all()) for k, v in leaves(params)
+                     if k in trained)
+        if not (finite and all(np.isfinite(losses))):
+            failures.append(f"{name}: non-finite loss {losses} or leaves")
+        steady = times[1:] or times
+        ms = float(np.mean(steady))
+        per_cfg[name] = dict(sites=len(sites), leaves_trained=len(trained),
+                             first_ms=times[0], ms_per_step=ms,
+                             pairs_per_s=TRAIN_B / (ms / 1e3),
+                             peak_gb=peak_gb, loss=losses, **cmp)
+        log(f"[train] {name}: {json.dumps(per_cfg[name])}")
+    launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    log(f"[train] launches in the training run: {launches}")
+    failures += [f"{n} never launched" for n, c in launches.items() if c <= 0]
+    if failures:
+        raise SystemExit("chip_smoke: train failed:\n  " + "\n  ".join(failures))
+    return launches, per_cfg
+
+
+def per_key(results, calls, name, field):
+    """Sum of a per-call number over one request (or step), averaged over
+    the task paths (or configurations) that call the kernel."""
     sums = []
-    for task_calls in calls.values():
-        vals = [results[(n, s)][field] for n, s in task_calls if n == name]
+    for key_calls in calls.values():
+        vals = [results[(n, s)][field] for n, s in key_calls if n == name]
+        if not vals:
+            continue
         if any(v is None for v in vals):
             return None
         sums.append(sum(vals))
     return float(np.mean(sums))
 
 
+def kernel_numbers(results, calls, name):
+    bound = per_key(results, calls, name, "bound_ms")
+    bound_ops = per_key(results, calls, name, "bound_ops_ms")
+    return {"ms": per_key(results, calls, name, "ms"),
+            "plain_ms": per_key(results, calls, name, "plain_ms"),
+            "bound_ms": bound,
+            "bound_by": "operations" if bound_ops >= bound / 2 else "bytes",
+            "library_ms": per_key(results, calls, name, "lib_ms")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="also profile one request; write tables here")
+                    help="also profile one request and one train step; "
+                         "write tables and traces here")
     opts = ap.parse_args()
 
     smi = phase_device()
@@ -479,31 +899,42 @@ def main() -> int:
                     for _ in range(REQUESTS)]
                 for t in range(len(net.archis))}
 
-    plain, calls, args_of = phase_record(ri, requests)
+    args_of = {}
+    plain, calls = phase_record(ri, requests, args_of)
+    plain_train, train_calls = phase_record_train(dev, args_of)
+    log(f"[record] {len(args_of)} distinct kernel signatures on the main "
+        "paths")
     results = phase_kernels(args_of, dev)
     del args_of
     torch.cuda.empty_cache()
-    launches, per_task = phase_serve(ri, requests, plain)
+    serve_launches, per_task = phase_serve(ri, requests, plain)
+    train_launches, per_cfg = phase_train(dev, plain_train)
     if opts.profile is not None:
-        phase_profile(ri, requests, opts.profile)
+        phase_profile(ri, requests, dev, opts.profile)
 
+    # serving kernels report per request over the task paths (and carry
+    # their training numbers apart); backward kernels per training step of
+    # task 0's stage, the configuration that runs all seven
+    train0 = {"task0": train_calls["task0"]}
     report = []
     for name, k in KERNELS.items():
-        bound = per_request(results, calls, name, "bound_ms")
-        bound_ops = per_request(results, calls, name, "bound_ops_ms")
-        report.append({
-            "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "launches": launches[name],
-            "max_abs_err": k["max_err"],
-            "ms": per_request(results, calls, name, "ms"),
-            "plain_ms": per_request(results, calls, name, "plain_ms"),
-            "bound_ms": bound,
-            "bound_by": "operations" if bound_ops >= bound / 2 else "bytes",
-            "library_ms": per_request(results, calls, name, "lib_ms"),
-            "status": "ok"})
-    log("[report] per-kernel times are summed over one request's calls and "
-        "averaged over the task paths; ms/request: " + ", ".join(
-            f"task {t} {v['ms_per_request']:.2f}" for t, v in per_task.items()))
+        serving = name in SERVE_KERNELS
+        entry = {"name": name, "route": "cuda", "source": k["source"],
+                 "replaces": k["replaces"],
+                 "launches": serve_launches[name] + train_launches[name],
+                 "max_abs_err": k["max_err"],
+                 **kernel_numbers(results, calls if serving else train0, name),
+                 "status": "ok"}
+        if serving:
+            entry["train_step"] = kernel_numbers(results, train0, name)
+        report.append(entry)
+    log("[report] serving kernels: times per request summed over its calls "
+        "and averaged over the task paths; every kernel's \"train_step\" or "
+        "own numbers: per step of task 0's stage; launches: serve run + "
+        f"train run. ms/request: " + ", ".join(
+            f"task {t} {v['ms_per_request']:.2f}" for t, v in per_task.items())
+        + "; ms/step: " + ", ".join(
+            f"{n} {v['ms_per_step']:.1f}" for n, v in per_cfg.items()))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """rag_tpu_torch: the PyTorch/CUDA port of rag_tpu for one NVIDIA H100.
 
-Serving slice: a committed checkpoint's task paths run through
-``continual.inference.RoutedInference`` on the card, with the three TPU
-kernels of that path rewritten by hand in CUDA C++ (``csrc/``). The package
-imports torch and numpy only, never jax or rag_tpu.
+A committed checkpoint's task paths are served through
+``continual.inference.RoutedInference`` and trained through
+``train.trainer.make_train_step`` on the card, with the seven TPU kernels
+of that path (three forward, four backward) rewritten by hand in CUDA C++
+(``csrc/``). The package imports torch and numpy only, never jax or
+rag_tpu.
 """

@@ -41,8 +41,8 @@ class RoutedInference:
     @torch.inference_mode()
     def _predict_task(self, t: int, left, right) -> np.ndarray:
         specs, params, stats = self.net.path(self.net.archis[t])
-        disp = stereo_forward(specs, params, stats, self._tensor(left),
-                              self._tensor(right), maxdisp=self.maxdisp)
+        disp, _ = stereo_forward(specs, params, stats, self._tensor(left),
+                                 self._tensor(right), maxdisp=self.maxdisp)
         return disp.cpu().numpy()
 
     def predict(self, left, right, task: Optional[int] = None) -> np.ndarray:

@@ -2,7 +2,7 @@
 
 Counterpart of rag_tpu/continual/state.py::load_checkpoint. A checkpoint is
 a JSON manifest (genotypes, per-site candidate counts and birth tasks,
-per-task arch maps) plus an .npz of every parameter/stat leaf; both packages
+per-task arch maps, the units the latest task trains) plus an .npz of every parameter/stat leaf; both packages
 read the same files. Arrays go straight to tensors on the requested device.
 """
 
@@ -79,4 +79,7 @@ def load_checkpoint(directory: str, task: Optional[int] = None,
         for h in HEAD_NAMES
     }
     archis = [{k: int(v) for k, v in arch.items()} for arch in manifest["archis"]]
-    return GrowableStereoNet(genotypes, units, heads, archis), manifest
+    mtt = manifest.get("model_to_train")
+    if mtt is not None:
+        mtt = {k: [int(i) for i in v] for k, v in mtt.items()}
+    return GrowableStereoNet(genotypes, units, heads, archis, mtt), manifest

@@ -1,7 +1,9 @@
-// Shared tile engine for the two 3x3x3 convolution kernels of the port:
+// Shared tile engine for the 3x3x3 convolution kernels of the port:
 //   kernel A (conv3d.cu): conv over a stored channel-first volume;
 //   kernel B (cvstem.cu): conv over the concat cost volume, built on the fly
-//                         from the two feature maps (never stored).
+//                         from the two feature maps (never stored);
+//   kernel E (cvstem_bwd.cu): the stem's dx conv, through the same staging
+//                         and FMA loops (stage_slab, fma_slab).
 //
 // Both compute, for a channel-first (B, D, Cin, H, W) input v,
 //   out[b, d, co, h, w] = act(scale[co] * sum_{kd,kh,kw,ci}
@@ -72,6 +74,81 @@ struct CostVolumeSrc {
   }
 };
 
+// Stage the zero-padded (3, kCC, kSH, kSW) input slab of planes d-1..d+1,
+// input channels c0..c0+kCC-1, rows h0-1.. and columns w0-1.. in shared
+// memory (channels past Cin read as zero).
+template <class Src>
+__device__ __forceinline__ void stage_slab(float (&s_in)[3][kCC][kSH][kSWP],
+                                           const Src& src, int b, int d,
+                                           int c0, int Cin, int h0, int w0) {
+  for (int i = threadIdx.x; i < 3 * kCC * kSH * kSW; i += kThreads) {
+    const int c = i % kSW;
+    const int r = (i / kSW) % kSH;
+    const int ci = (i / (kSW * kSH)) % kCC;
+    const int dd = i / (kSW * kSH * kCC);
+    float v = 0.f;
+    if (c0 + ci < Cin)
+      v = src.load(b, d + dd - 1, c0 + ci, h0 + r - 1, w0 + c - 1);
+    s_in[dd][ci][r][c] = v;
+  }
+}
+
+// Stage the weights of input channels c0..c0+kCC-1 from one packed
+// (Cin, 27, CO_T) output-channel chunk.
+template <int CO_T>
+__device__ __forceinline__ void stage_weights(float (&s_w)[kCC][27][CO_T],
+                                              const float* __restrict__ wchunk,
+                                              int c0, int Cin) {
+  for (int i = threadIdx.x; i < kCC * 27 * CO_T; i += kThreads) {
+    const int ci = i / (27 * CO_T);
+    (&s_w[0][0][0])[i] =
+        (c0 + ci < Cin) ? __ldg(wchunk + (size_t)c0 * 27 * CO_T + i) : 0.f;
+  }
+}
+
+// acc[p][co] += sum over the staged channels and the 27 taps of the slab
+// value under this thread's pixel p times the tap's weight. MASKED: pixels
+// whose keep[p] is false take no contribution.
+template <int CO_T, bool MASKED>
+__device__ __forceinline__ void fma_slab(
+    const float (&s_in)[3][kCC][kSH][kSWP], const float (&s_w)[kCC][27][CO_T],
+    int ty, int tx, float (&acc)[kPX][CO_T], const bool (&keep)[kPX]) {
+  for (int ci = 0; ci < kCC; ++ci) {
+    for (int dd = 0; dd < 3; ++dd) {
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          const float* wrow = &s_w[ci][dd * 9 + kh * 3 + kw][0];
+          float wv[CO_T];
+          if constexpr (CO_T % 4 == 0) {
+#pragma unroll
+            for (int q = 0; q < CO_T / 4; ++q) {
+              const float4 w4 = reinterpret_cast<const float4*>(wrow)[q];
+              wv[4 * q] = w4.x;
+              wv[4 * q + 1] = w4.y;
+              wv[4 * q + 2] = w4.z;
+              wv[4 * q + 3] = w4.w;
+            }
+          } else {
+#pragma unroll
+            for (int co = 0; co < CO_T; ++co) wv[co] = wrow[co];
+          }
+          const float* row = &s_in[dd][ci][ty + kh][tx + kw];
+#pragma unroll
+          for (int p = 0; p < kPX; ++p) {
+            float v = row[p * kTX];
+            if constexpr (MASKED) v = keep[p] ? v : 0.f;
+#pragma unroll
+            for (int co = 0; co < CO_T; ++co)
+              acc[p][co] = fmaf(v, wv[co], acc[p][co]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // wpk: packed weights (n_co, Cin, 27, CO_T), zero-padded past Cout.
 // scale/bias: (n_co * CO_T,), zero-padded. out: (B, D, Cout, H, W).
 // Grid: x = n_ht * n_wt, y = D, z = B * n_co.
@@ -100,59 +177,14 @@ conv3x3x3_affine_kernel(Src src, const float* __restrict__ wpk,
   for (int p = 0; p < kPX; ++p)
 #pragma unroll
     for (int co = 0; co < CO_T; ++co) acc[p][co] = 0.f;
+  const bool all[kPX] = {true, true, true, true};
 
   const float* wchunk = wpk + (size_t)cchunk * Cin * 27 * CO_T;
   for (int c0 = 0; c0 < Cin; c0 += kCC) {
-    for (int i = threadIdx.x; i < 3 * kCC * kSH * kSW; i += kThreads) {
-      const int c = i % kSW;
-      const int r = (i / kSW) % kSH;
-      const int ci = (i / (kSW * kSH)) % kCC;
-      const int dd = i / (kSW * kSH * kCC);
-      float v = 0.f;
-      if (c0 + ci < Cin)
-        v = src.load(b, d + dd - 1, c0 + ci, h0 + r - 1, w0 + c - 1);
-      s_in[dd][ci][r][c] = v;
-    }
-    for (int i = threadIdx.x; i < kCC * 27 * CO_T; i += kThreads) {
-      const int ci = i / (27 * CO_T);
-      (&s_w[0][0][0])[i] =
-          (c0 + ci < Cin) ? __ldg(wchunk + (size_t)c0 * 27 * CO_T + i) : 0.f;
-    }
+    stage_slab(s_in, src, b, d, c0, Cin, h0, w0);
+    stage_weights(s_w, wchunk, c0, Cin);
     __syncthreads();
-
-    for (int ci = 0; ci < kCC; ++ci) {
-      for (int dd = 0; dd < 3; ++dd) {
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-          for (int kw = 0; kw < 3; ++kw) {
-            const float* wrow = &s_w[ci][dd * 9 + kh * 3 + kw][0];
-            float wv[CO_T];
-            if constexpr (CO_T % 4 == 0) {
-#pragma unroll
-              for (int q = 0; q < CO_T / 4; ++q) {
-                const float4 w4 = reinterpret_cast<const float4*>(wrow)[q];
-                wv[4 * q] = w4.x;
-                wv[4 * q + 1] = w4.y;
-                wv[4 * q + 2] = w4.z;
-                wv[4 * q + 3] = w4.w;
-              }
-            } else {
-#pragma unroll
-              for (int co = 0; co < CO_T; ++co) wv[co] = wrow[co];
-            }
-            const float* row = &s_in[dd][ci][ty + kh][tx + kw];
-#pragma unroll
-            for (int p = 0; p < kPX; ++p) {
-              const float v = row[p * kTX];
-#pragma unroll
-              for (int co = 0; co < CO_T; ++co)
-                acc[p][co] = fmaf(v, wv[co], acc[p][co]);
-            }
-          }
-        }
-      }
-    }
+    fma_slab<CO_T, false>(s_in, s_w, ty, tx, acc, all);
     __syncthreads();
   }
 

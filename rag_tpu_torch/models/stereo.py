@@ -1,16 +1,18 @@
-"""The deployed stereo pipeline, serving form: Feature Net -> fused cost
-volume + matching stem -> channel-first Matching Net -> fused soft-argmin
-disparity head, every BatchNorm frozen.
+"""The stereo pipeline: Feature Net -> fused cost volume + matching stem
+-> channel-first Matching Net -> fused soft-argmin disparity head.
 
 Counterpart of rag_tpu/models/stereo.py::stereo_forward with
-``cf_matching=True, fused_head=True`` and no BN-train sites. A *path* is a
-dict site -> (spec, params, stats) over the 18 searchable sites plus the 3
-per-task heads; ``stereo_forward`` is a function of (specs, params, stats,
-inputs).
+``cf_matching=True, fused_head=True``. A *path* is a dict site -> (spec,
+params, stats) over the 18 searchable sites plus the 3 per-task heads;
+``stereo_forward`` is a function of (specs, params, stats, inputs,
+train_sites) and returns the disparity and the new BatchNorm statistics:
+sites in ``train_sites`` run BatchNorm in train mode, every other site
+normalizes with its frozen running statistics.
 
-The three hand-written kernels run here: kernel B (ops.cvstem) for
-``stem_3d0``, kernel A (ops.conv3d) for every 3x3x3 conv after it, and
-kernel C (ops.disparity) for the head.
+The hand-written kernels run here and in the backward: kernel B
+(ops.cvstem, with E and F behind it) for ``stem_3d0``, kernel A
+(ops.conv3d, with D) for every 3x3x3 conv after it, and kernel C
+(ops.disparity, with G) for the head.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import torch
 
 from rag_tpu_torch.ops.cell import CellSpec, apply_cell, apply_cell_cf
 from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, bn_fold
-from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf
+from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf, batch_norm_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
-from rag_tpu_torch.ops.cvstem import cvstem_brc
+from rag_tpu_torch.ops.cvstem import cvstem_brc, cvstem_conv
 from rag_tpu_torch.ops.disparity import fused_soft_argmin
 from rag_tpu_torch.ops.resize import resize_cf
 
@@ -92,23 +94,40 @@ def build_head_specs() -> Dict[str, ConvBRSpec]:
     }
 
 
-def _apply2d(specs, params, stats, name, x, *extra):
+def _apply2d(specs, params, stats, name, x, train_sites, new_stats, *extra,
+             halves=1):
     spec = specs[name]
+    train = name in train_sites
     if isinstance(spec, CellSpec):
-        return apply_cell(spec, params[name], stats[name], extra[0], x)
-    return apply_convbr(spec, params[name], stats[name], x)
+        out, st = apply_cell(spec, params[name], stats[name], extra[0], x,
+                             train, halves)
+    else:
+        out, st = apply_convbr(spec, params[name], stats[name], x, train,
+                               halves)
+    new_stats[name] = st
+    return out
 
 
-def extract_feature(specs, params, stats, image: torch.Tensor) -> torch.Tensor:
-    """2D feature net: image (B,H,W,3) -> features (B,H/3,W/3,12)."""
-    s = _apply2d(specs, params, stats, "stem_2d0", image)
-    stem1 = _apply2d(specs, params, stats, "stem_2d1", s)
-    stem2 = _apply2d(specs, params, stats, "stem_2d2", stem1)
+def extract_feature(specs, params, stats, image: torch.Tensor, train_sites,
+                    new_stats, halves: int = 1) -> torch.Tensor:
+    """2D feature net: image (B,H,W,3) -> features (B,H/3,W/3,12). New
+    BatchNorm statistics land in ``new_stats`` (a dict, filled per site).
+
+    halves=2: image is left+right stacked along the batch; train-mode
+    BatchNorm takes per-half statistics and two EMA updates."""
+
+    def appl(name, x, *extra):
+        return _apply2d(specs, params, stats, name, x, train_sites, new_stats,
+                        *extra, halves=halves)
+
+    s = appl("stem_2d0", image)
+    stem1 = appl("stem_2d1", s)
+    stem2 = appl("stem_2d2", stem1)
     s_pp, s_p = stem1, stem2
     for i in range(4):
-        out = _apply2d(specs, params, stats, f"cell_2d{i}", s_p, s_pp)
+        out = appl(f"cell_2d{i}", s_p, s_pp)
         s_pp, s_p = s_p, out
-    return _apply2d(specs, params, stats, "last_3_2d", s_p)
+    return appl("last_3_2d", s_p)
 
 
 def _std_stem(spec) -> bool:
@@ -117,23 +136,38 @@ def _std_stem(spec) -> bool:
 
 
 def run_matching_cf(specs, params, stats, x: torch.Tensor, y: torch.Tensor,
-                    num_disp: int) -> torch.Tensor:
+                    num_disp: int, train_sites, new_stats) -> torch.Tensor:
     """Channel-first matching: NHWC features x, y (B,h,w,C) -> matching
-    cost (B, num_disp, h, w)."""
+    cost (B, num_disp, h, w). New BatchNorm statistics land in
+    ``new_stats``."""
 
     def appl(name, v, *extra):
         spec = specs[name]
+        train = name in train_sites
         if isinstance(spec, CellSpec):
-            return apply_cell_cf(spec, params[name], stats[name], extra[0], v)
-        return apply_convbr_cf(spec, params[name], stats[name], v)
+            out, st = apply_cell_cf(spec, params[name], stats[name], extra[0],
+                                    v, train)
+        else:
+            out, st = apply_convbr_cf(spec, params[name], stats[name], v,
+                                      train)
+        new_stats[name] = st
+        return out
 
     spec0 = specs["stem_3d0"]
     if _std_stem(spec0):
-        # cost volume + stem conv + folded frozen BN + ReLU in one kernel
-        a, b = bn_fold(params["stem_3d0"], stats["stem_3d0"])
-        stem0 = cvstem_brc(x.permute(0, 3, 1, 2).contiguous(),
-                           y.permute(0, 3, 1, 2).contiguous(),
-                           params["stem_3d0"]["w"], a, b, num_disp, True)
+        x_cf = x.permute(0, 3, 1, 2).contiguous()
+        y_cf = y.permute(0, 3, 1, 2).contiguous()
+        p0, st0 = params["stem_3d0"], stats["stem_3d0"]
+        if "stem_3d0" in train_sites:
+            # kernel B at identity affine, then train-mode BatchNorm
+            z = cvstem_conv(x_cf, y_cf, p0["w"], num_disp)
+            stem0, new_stats["stem_3d0"] = batch_norm_cf(z, p0, st0, True)
+            stem0 = torch.relu(stem0)
+        else:
+            # cost volume + stem conv + folded frozen BN + ReLU in one kernel
+            a, b = bn_fold(p0, st0)
+            stem0 = cvstem_brc(x_cf, y_cf, p0["w"], a, b, num_disp, True)
+            new_stats["stem_3d0"] = st0
     else:
         stem0 = appl("stem_3d0", cost_volume_cf(x, y, num_disp))
     stem1 = appl("stem_3d1", stem0)
@@ -168,13 +202,20 @@ def full_fp32():
 
 def stereo_forward(specs: Mapping[str, Spec], params, stats,
                    left: torch.Tensor, right: torch.Tensor,
-                   maxdisp: int = MAXDISP) -> torch.Tensor:
-    """Serving forward. left/right: (B,H,W,3) NHWC float32 on one device.
-    Returns disparity (B,H,W) in pixels."""
+                   train_sites=frozenset(), maxdisp: int = MAXDISP):
+    """Full pipeline. left/right: (B,H,W,3) NHWC float32 on one device.
+    Returns (disp, new_stats): disparity (B,H,W) in pixels, and the stats
+    tree after the train-mode BatchNorms of ``train_sites`` (every other
+    site's stats carried through)."""
+    new_stats: Dict = {}
     with full_fp32():
         both = torch.cat([left, right], dim=0)
-        f = extract_feature(specs, params, stats, both)
+        f = extract_feature(specs, params, stats, both, train_sites,
+                            new_stats, halves=2)
         bsz = left.shape[0]
         mat = run_matching_cf(specs, params, stats, f[:bsz], f[bsz:],
-                              maxdisp // 3)
-        return fused_soft_argmin(mat.contiguous(), maxdisp, 3)
+                              maxdisp // 3, train_sites, new_stats)
+        disp = fused_soft_argmin(mat.contiguous(), maxdisp, 3)
+    for name in stats:
+        new_stats.setdefault(name, stats[name])
+    return disp, new_stats

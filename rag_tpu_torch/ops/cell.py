@@ -1,12 +1,14 @@
 """Genotype-driven cells: 2D feature cells (NHWC) and 3D matching cells
-(channel-first), frozen BatchNorm.
+(channel-first).
 
 Counterpart of rag_tpu/ops/cell.py. A cell is a 3-step DAG over states
 [s0, s1]; each step sums its two genotype-selected in-edges and the output
 concatenates the last 3 states. Genes are canonical (edge, op) tuples sorted
 by edge. Conv edges that read the same state run as ONE conv with their
 output channels concatenated (exact: conv, BN and ReLU are per output
-channel), which widens Cout up to 48 in the matching cells.
+channel), which widens Cout up to 48 in the matching cells; their new
+BatchNorm statistics are split back per edge. Cells return
+``(y, new_stats)`` with new_stats keyed as the stats tree.
 
 Ops: op 0 = skip_connect (identity), op 1 = conv_3x3 (ConvBR, stride 1).
 """
@@ -90,15 +92,18 @@ def _merged(params, stats, keys):
     return mp, ms
 
 
-def _run_dag(spec: CellSpec, s0, s1, run_merged, ch_axis: int):
+def _run_dag(spec: CellSpec, s0, s1, run_merged, ch_axis: int, new_stats):
     """The cell DAG shared by both layouts. run_merged(edges, x) runs the
-    same-input conv edges as one conv and returns {edge: output}."""
+    same-input conv edges as one conv and returns ({edge: output},
+    {edge key: new stats})."""
     groups = _edge_groups(spec.gene)
     conv_out: Dict[int, torch.Tensor] = {}
 
     def run_group(state_idx, x):
         if state_idx in groups:
-            conv_out.update(run_merged(groups[state_idx], x))
+            outs, ns = run_merged(groups[state_idx], x)
+            conv_out.update(outs)
+            new_stats["ops"].update(ns)
 
     run_group(0, s0)
     run_group(1, s1)
@@ -114,13 +119,21 @@ def _run_dag(spec: CellSpec, s0, s1, run_merged, ch_axis: int):
         offset += len(states)
         states.append(acc)
         run_group(len(states) - 1, states[-1])
-    return torch.cat(states[-BLOCK_MULTIPLIER:], dim=ch_axis)
+    return torch.cat(states[-BLOCK_MULTIPLIER:], dim=ch_axis), new_stats
 
 
-def apply_cell(spec: CellSpec, params, stats, s0, s1) -> torch.Tensor:
-    """2D feature cell on NHWC maps."""
+def _split_stats(ns, keys, c):
+    return {k: {"mean": ns["mean"][i * c:(i + 1) * c],
+                "var": ns["var"][i * c:(i + 1) * c]}
+            for i, k in enumerate(keys)}
+
+
+def apply_cell(spec: CellSpec, params, stats, s0, s1, train: bool = False,
+               halves: int = 1):
+    """2D feature cell on NHWC maps. Returns (y, new_stats)."""
     assert spec.ndim == 2
     axes = (1, 2)
+    new_stats = {"ops": {}}
     if spec.downup != 0:
         scale = 0.5 if spec.downup == -1 else 2.0
         target = tuple(scale_dimension(s1.shape[a], scale) for a in axes)
@@ -129,25 +142,31 @@ def apply_cell(spec: CellSpec, params, stats, s0, s1) -> torch.Tensor:
     if tuple(s0.shape[a] for a in axes) != s1_spatial:
         s0 = resize_linear(s0, s1_spatial, axes, align_corners=True)
     if spec.c_pp != spec.c_out:
-        s0 = apply_convbr(ConvBRSpec(2, spec.c_pp, spec.c_out, 1),
-                          params["pre"], stats["pre"], s0)
-    s1 = apply_convbr(ConvBRSpec(2, spec.c_p, spec.c_out, 1),
-                      params["prep"], stats["prep"], s1)
+        s0, new_stats["pre"] = apply_convbr(
+            ConvBRSpec(2, spec.c_pp, spec.c_out, 1), params["pre"],
+            stats["pre"], s0, train, halves)
+    s1, new_stats["prep"] = apply_convbr(
+        ConvBRSpec(2, spec.c_p, spec.c_out, 1), params["prep"],
+        stats["prep"], s1, train, halves)
     c = spec.c_out
 
     def run_merged(edges, x):
         keys = [str(e) for e in edges]
         mp, ms = _merged(params["ops"], stats["ops"], keys)
-        out = apply_convbr(ConvBRSpec(2, c, c * len(edges), 3), mp, ms, x)
-        return {e: out[..., i * c:(i + 1) * c] for i, e in enumerate(edges)}
+        out, ns = apply_convbr(ConvBRSpec(2, c, c * len(edges), 3), mp, ms,
+                               x, train, halves)
+        return ({e: out[..., i * c:(i + 1) * c] for i, e in enumerate(edges)},
+                _split_stats(ns, keys, c))
 
-    return _run_dag(spec, s0, s1, run_merged, ch_axis=-1)
+    return _run_dag(spec, s0, s1, run_merged, -1, new_stats)
 
 
-def apply_cell_cf(spec: CellSpec, params, stats, s0, s1) -> torch.Tensor:
-    """3D matching cell on channel-first (B, D, C, H, W) volumes."""
+def apply_cell_cf(spec: CellSpec, params, stats, s0, s1, train: bool = False):
+    """3D matching cell on channel-first (B, D, C, H, W) volumes. Returns
+    (y, new_stats)."""
     assert spec.ndim == 3
     axes = (1, 3, 4)
+    new_stats = {"ops": {}}
     if spec.downup != 0:
         scale = 0.5 if spec.downup == -1 else 2.0
         target = tuple(scale_dimension(s1.shape[a], scale) for a in axes)
@@ -156,16 +175,20 @@ def apply_cell_cf(spec: CellSpec, params, stats, s0, s1) -> torch.Tensor:
     if tuple(s0.shape[a] for a in axes) != s1_spatial:
         s0 = resize_cf(s0, *s1_spatial, True)
     if spec.c_pp != spec.c_out:
-        s0 = apply_convbr_cf(ConvBRSpec(3, spec.c_pp, spec.c_out, 1),
-                             params["pre"], stats["pre"], s0)
-    s1 = apply_convbr_cf(ConvBRSpec(3, spec.c_p, spec.c_out, 1),
-                         params["prep"], stats["prep"], s1)
+        s0, new_stats["pre"] = apply_convbr_cf(
+            ConvBRSpec(3, spec.c_pp, spec.c_out, 1), params["pre"],
+            stats["pre"], s0, train)
+    s1, new_stats["prep"] = apply_convbr_cf(
+        ConvBRSpec(3, spec.c_p, spec.c_out, 1), params["prep"],
+        stats["prep"], s1, train)
     c = spec.c_out
 
     def run_merged(edges, x):
         keys = [str(e) for e in edges]
         mp, ms = _merged(params["ops"], stats["ops"], keys)
-        out = apply_convbr_cf(ConvBRSpec(3, c, c * len(edges), 3), mp, ms, x)
-        return {e: out[:, :, i * c:(i + 1) * c] for i, e in enumerate(edges)}
+        out, ns = apply_convbr_cf(ConvBRSpec(3, c, c * len(edges), 3), mp, ms,
+                                  x, train)
+        return ({e: out[:, :, i * c:(i + 1) * c] for i, e in enumerate(edges)},
+                _split_stats(ns, keys, c))
 
-    return _run_dag(spec, s0, s1, run_merged, ch_axis=2)
+    return _run_dag(spec, s0, s1, run_merged, 2, new_stats)

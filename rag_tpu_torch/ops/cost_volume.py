@@ -5,9 +5,9 @@ Counterpart of rag_tpu/ops/cost_volume.py::cost_volume_cf:
     cost[b, d, :C,  i, j] = x[b, i, j, :]      if j >= d else 0
     cost[b, d, C:,  i, j] = y[b, i, j - d, :]  if j >= d else 0
 
-On the serving path the volume is never built: kernel B (ops.cvstem) reads
-it straight from the feature maps. This is the plain half of that kernel's
-plain version.
+On the card the volume is never built: kernel B (ops.cvstem) reads it
+straight from the feature maps, and kernels E and F do so in the backward.
+This is the plain half of those kernels' plain versions.
 """
 
 from __future__ import annotations

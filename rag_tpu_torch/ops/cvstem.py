@@ -1,18 +1,40 @@
-"""Kernel B: the concat cost volume fused into the matching stem conv +
-folded frozen BatchNorm + ReLU.
+"""The concat cost volume fused into the matching stem's 3x3x3 conv:
+kernel B (forward), kernel E (dX, dY) and kernel F (dW), with
+``cvstem_conv`` and ``cvstem_brc`` differentiable. The (B, D, 2C, H, W)
+volume never exists on the card, forward or backward.
 
-Replaces the TPU kernel rag_tpu/ops/pallas_cvstem.py::cvstem_forward_cf
-(kernel body _cvstem_kernel) and its H-tiled form cvstem_forward_cf_v3
-(_cvstem_kernel_v3) used at the eval geometry; entry point as in
-rag_tpu/ops/pallas_cvstem.py::cvstem_brc. CUDA source:
-rag_tpu_torch/csrc/cvstem.cu, sharing the tile engine of kernel A.
+Kernel B, ``cvstem_affine``: conv3d(cost_volume_cf(X, Y, D), w3) * scale +
+bias (+ReLU). Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_forward_cf
+(body _cvstem_kernel) and its H-tiled form cvstem_forward_cf_v3
+(_cvstem_kernel_v3). CUDA source: rag_tpu_torch/csrc/cvstem.cu, sharing
+the tile engine of kernel A. Bound: operations, ~51 GFLOP at the eval
+geometry against ~5 MB of features read and 157 MB written. Each block
+builds its haloed slab of the volume in shared memory straight from the
+two feature maps, masked on load, so the conv's W halo sees the volume's
+zeros left of the diagonal.
 
-Bound on the H100: operations, ~51 GFLOP at the eval geometry (24 -> 12
-channels at D=64, 160x320) against ~5 MB of features read and 157 MB
-written. The design builds each block's haloed slab of the volume in shared
-memory straight from the two feature maps, so the 315 MB volume the plain
-version materializes never exists; masking happens on load, so the conv's W
-halo sees the volume's zeros left of the diagonal.
+Kernel E, ``cvstem_dxy``: with dv = conv3d(dz, flipped io-transposed w3),
+``dX[c,h,j] = sum_d [j >= d] dv[d,c,h,j]`` and
+``dY[c,h,j] = sum_d [j+d < W] dv[d,C+c,h,j+d]``. Replaces
+rag_tpu/ops/pallas_cvstem.py::cvstem_dxy_pallas (body _cvstem_dxy_kernel).
+CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu. Bound: operations, 32.6
+GFLOP at the train shape (0.49 ms). One block owns a tile of dX and dY
+pixels and loops over d, staging dz at the tile's columns for dX and at
+the columns shifted by +d for dY, so each pixel's sum over d stays in
+registers and no block shares an output with another.
+
+Kernel F, ``cvstem_dw``: the stem's weight gradient, kernel D's scheme
+with the input slab built from X and Y by the cost-volume load rule.
+Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas (body
+_cvstem_dw_kernel). CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu. Bound:
+operations, 32.6 GFLOP at the train shape (0.49 ms).
+
+``cvstem_conv`` (pre-affine, for a stem whose BatchNorm trains) and
+``cvstem_brc`` (frozen BN folded into the affine) follow
+rag_tpu/ops/pallas_cvstem.py's two custom VJPs; ``cvstem_brc``'s backward
+recomputes the pre-affine z with one more kernel B pass, as _brc_bwd does.
+Each wrapper runs its plain PyTorch version for CPU tensors only; on a
+CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,45 +43,78 @@ import torch
 
 from rag_tpu_torch.ops import cuda_lib
 from rag_tpu_torch.ops.conv3d import (
+    check_f32,
     co_tile,
     conv3d_brc_cf_plain,
+    conv3d_dw_cf_plain,
+    launch_dw,
+    needs_grad,
     pack_weights,
     pad_channels,
 )
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 
+DXY_C_T = 4  # dX/dY channels per block of kernel E (csrc/cvstem_bwd.cu)
+
+
+def _volume(x_cf, y_cf, num_disp):
+    return cost_volume_cf(x_cf.permute(0, 2, 3, 1), y_cf.permute(0, 2, 3, 1),
+                          num_disp)
+
+
+def _flip_io(w3: torch.Tensor) -> torch.Tensor:
+    """Weights of the dx conv: spatially flipped, in/out transposed."""
+    return w3.flip((0, 1, 2)).transpose(3, 4)
+
 
 def cvstem_brc_plain(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
                      scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
                      relu: bool = True) -> torch.Tensor:
-    """Plain PyTorch version: materialize the cost volume, then conv."""
-    cost = cost_volume_cf(x_cf.permute(0, 2, 3, 1), y_cf.permute(0, 2, 3, 1),
-                          num_disp)
-    return conv3d_brc_cf_plain(cost, w3, scale, bias, relu)
+    """Plain PyTorch version of kernel B: materialize the cost volume,
+    then conv."""
+    return conv3d_brc_cf_plain(_volume(x_cf, y_cf, num_disp), w3, scale,
+                               bias, relu)
 
 
-def cvstem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
-               scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
-               relu: bool = True) -> torch.Tensor:
-    """conv3d(cost_volume_cf(X, Y, num_disp), w3) * scale + bias (+ReLU).
+def cvstem_dxy_plain(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
+    """Plain PyTorch version of kernel E: the dx conv over the whole
+    volume, then the adjoint of the volume build."""
+    c2 = w3.shape[3]
+    c = c2 // 2
+    dv = conv3d_brc_cf_plain(dz, _flip_io(w3), dz.new_ones(c2),
+                             dz.new_zeros(c2), False)
+    w = dz.shape[4]
+    j = torch.arange(w, device=dz.device)
+    mask = (j[None, :] >= torch.arange(num_disp, device=dz.device)[:, None])
+    dx = (dv[:, :, :c] * mask[None, :, None, None, :].to(dz.dtype)).sum(1)
+    dy = torch.zeros_like(dx)
+    for d in range(min(num_disp, w)):
+        dy[..., :w - d] += dv[:, d, c:, :, d:]
+    return dx, dy
 
-    x_cf, y_cf: (B, C, H, W) left/right features; w3: (3,3,3,2C,Cout);
-    returns (B, num_disp, Cout, H, W). Launches kernel B for CUDA tensors;
-    the plain version runs only for CPU tensors."""
+
+def cvstem_dw_plain(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
+                    num_disp: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel F: kernel D's plain version on the
+    materialized volume."""
+    return conv3d_dw_cf_plain(_volume(x_cf, y_cf, num_disp), dz)
+
+
+def cvstem_affine(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
+                  scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
+                  relu: bool = True) -> torch.Tensor:
+    """Kernel B, no autograd. x_cf, y_cf: (B, C, H, W) left/right
+    features; w3: (3,3,3,2C,Cout); returns (B, num_disp, Cout, H, W)."""
     if not x_cf.is_cuda:
         return cvstem_brc_plain(x_cf, y_cf, w3, scale, bias, num_disp, relu)
     b, c, h, w = x_cf.shape
     cout = w3.shape[4]
-    if (x_cf.dtype != torch.float32 or y_cf.shape != x_cf.shape
-            or not x_cf.is_contiguous() or not y_cf.is_contiguous()
-            or w3.shape[:4] != (3, 3, 3, 2 * c) or scale.shape != (cout,)
-            or bias.shape != (cout,) or num_disp < 1):
-        raise ValueError(f"cvstem_brc: unsupported x {tuple(x_cf.shape)} "
+    if (y_cf.shape != x_cf.shape or w3.shape[:4] != (3, 3, 3, 2 * c)
+            or scale.shape != (cout,) or bias.shape != (cout,)
+            or num_disp < 1):
+        raise ValueError(f"cvstem_affine: unsupported x {tuple(x_cf.shape)} "
                          f"y {tuple(y_cf.shape)} w {tuple(w3.shape)}")
-    for t in (y_cf, w3, scale, bias):
-        if t.device != x_cf.device or t.dtype != torch.float32:
-            raise ValueError("cvstem_brc: all operands must be float32 on "
-                             "one device")
+    check_f32("cvstem_affine", x_cf, y_cf, w3, scale, bias)
     co_t = co_tile(cout)
     n_pad = -(-cout // co_t) * co_t
     wpk = pack_weights(w3, co_t)
@@ -71,9 +126,134 @@ def cvstem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
         x_cf.data_ptr(), y_cf.data_ptr(), wpk.data_ptr(), sc.data_ptr(),
         bi.data_ptr(), out.data_ptr(), b, c, h, w, num_disp, cout, co_t,
         int(relu), cuda_lib.stream_ptr(x_cf))
-    cvstem_brc.launches += 1
-    cuda_lib.check(rc, "cvstem_brc")
+    cvstem_affine.launches += 1
+    cuda_lib.check(rc, "cvstem_affine")
     return out
 
 
-cvstem_brc.launches = 0
+cvstem_affine.launches = 0
+
+
+def cvstem_dxy(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
+    """Kernel E, no autograd: (dX, dY), each (B, C, H, W), for the
+    pre-affine stem cotangent dz (B, num_disp, Cout, H, W)."""
+    if not dz.is_cuda:
+        return cvstem_dxy_plain(dz, w3, num_disp)
+    b, d, cout, h, w = dz.shape
+    c2 = w3.shape[3]
+    c = c2 // 2
+    if d != num_disp or w3.shape != (3, 3, 3, c2, cout) or c2 != 2 * c:
+        raise ValueError(f"cvstem_dxy: unsupported dz {tuple(dz.shape)}, "
+                         f"w {tuple(w3.shape)}, num_disp {num_disp}")
+    check_f32("cvstem_dxy", dz, w3)
+    wf = _flip_io(w3)
+    wpk_x = pack_weights(wf[..., :c], DXY_C_T)
+    wpk_y = pack_weights(wf[..., c:], DXY_C_T)
+    dx = torch.empty((b, c, h, w), device=dz.device, dtype=torch.float32)
+    dy = torch.empty_like(dx)
+    rc = cuda_lib.lib().rag_cvstem_dxy(
+        dz.data_ptr(), wpk_x.data_ptr(), wpk_y.data_ptr(), dx.data_ptr(),
+        dy.data_ptr(), b, d, cout, c, h, w, cuda_lib.stream_ptr(dz))
+    cvstem_dxy.launches += 1
+    cuda_lib.check(rc, "cvstem_dxy")
+    return dx, dy
+
+
+cvstem_dxy.launches = 0
+
+
+def cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
+              num_disp: int) -> torch.Tensor:
+    """Kernel F, no autograd: the stem's dW (3,3,3,2C,Cout) for the
+    pre-affine cotangent dz (B, num_disp, Cout, H, W)."""
+    if not x_cf.is_cuda:
+        return cvstem_dw_plain(x_cf, y_cf, dz, num_disp)
+    b, c, h, w = x_cf.shape
+    if y_cf.shape != x_cf.shape or dz.shape[:2] != (b, num_disp) \
+            or dz.shape[3:] != (h, w):
+        raise ValueError(f"cvstem_dw: x {tuple(x_cf.shape)}, y "
+                         f"{tuple(y_cf.shape)}, dz {tuple(dz.shape)}")
+    check_f32("cvstem_dw", x_cf, y_cf, dz)
+    return launch_dw(cvstem_dw, "rag_cvstem_dw", [x_cf, y_cf], dz, 2 * c)
+
+
+cvstem_dw.launches = 0
+
+
+class _CvstemConv(torch.autograd.Function):
+    """rag_tpu/ops/pallas_cvstem.py::cvstem_conv's VJP: E for dX/dY, F for
+    dW, each only where a gradient is needed."""
+
+    @staticmethod
+    def forward(ctx, x_cf, y_cf, w3, num_disp):
+        cout = w3.shape[4]
+        ctx.save_for_backward(x_cf, y_cf, w3)
+        ctx.num_disp = num_disp
+        return cvstem_affine(x_cf, y_cf, w3, x_cf.new_ones(cout),
+                             x_cf.new_zeros(cout), num_disp, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_cf, y_cf, w3 = ctx.saved_tensors
+        need_x, need_y, need_w, _ = ctx.needs_input_grad
+        g = g.contiguous()
+        dx = dy = dw = None
+        if need_x or need_y:
+            dx, dy = cvstem_dxy(g, w3, ctx.num_disp)
+        if need_w:
+            dw = cvstem_dw(x_cf, y_cf, g, ctx.num_disp)
+        return dx, dy, dw, None
+
+
+class _CvstemBRC(torch.autograd.Function):
+    """rag_tpu/ops/pallas_cvstem.py::cvstem_brc's VJP (_brc_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x_cf, y_cf, w3, scale, bias, num_disp, relu):
+        out = cvstem_affine(x_cf, y_cf, w3, scale, bias, num_disp, relu)
+        ctx.save_for_backward(x_cf, y_cf, w3, scale, out)
+        ctx.num_disp, ctx.relu = num_disp, relu
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x_cf, y_cf, w3, scale, out = ctx.saved_tensors
+        need_x, need_y, need_w, need_scale, need_bias = ctx.needs_input_grad[:5]
+        nd = ctx.num_disp
+        gm = g * (out > 0) if ctx.relu else g
+        dx = dy = dw = dscale = dbias = None
+        if need_bias:
+            dbias = gm.sum(dim=(0, 1, 3, 4))
+        if need_scale:
+            cout = w3.shape[4]
+            z = cvstem_affine(x_cf, y_cf, w3, x_cf.new_ones(cout),
+                              x_cf.new_zeros(cout), nd, False)
+            dscale = (gm * z).sum(dim=(0, 1, 3, 4))
+        dz = (gm * scale.reshape(1, 1, -1, 1, 1)).contiguous()
+        if need_x or need_y:
+            dx, dy = cvstem_dxy(dz, w3, nd)
+        if need_w:
+            dw = cvstem_dw(x_cf, y_cf, dz, nd)
+        return dx, dy, dw, dscale, dbias, None, None
+
+
+def cvstem_conv(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
+                num_disp: int) -> torch.Tensor:
+    """conv3d(cost_volume(x, y, D), w3), pre-affine (BatchNorm and ReLU
+    run outside), differentiable in x_cf, y_cf and w3."""
+    if needs_grad(x_cf, y_cf, w3):
+        return _CvstemConv.apply(x_cf, y_cf, w3, num_disp)
+    cout = w3.shape[4]
+    return cvstem_affine(x_cf, y_cf, w3, x_cf.new_ones(cout),
+                         x_cf.new_zeros(cout), num_disp, False)
+
+
+def cvstem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
+               scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
+               relu: bool = True) -> torch.Tensor:
+    """conv3d(cost_volume_cf(X, Y, num_disp), w3) * scale + bias (+ReLU),
+    differentiable in every tensor. x_cf, y_cf: (B, C, H, W); w3:
+    (3,3,3,2C,Cout); returns (B, num_disp, Cout, H, W)."""
+    if needs_grad(x_cf, y_cf, w3, scale, bias):
+        return _CvstemBRC.apply(x_cf, y_cf, w3, scale, bias, num_disp, relu)
+    return cvstem_affine(x_cf, y_cf, w3, scale, bias, num_disp, relu)

@@ -46,8 +46,12 @@ def _interp_matrix_np(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def interp_matrix(n_in: int, n_out: int, align_corners: bool,
                   device: torch.device) -> torch.Tensor:
-    """(n_out, n_in) float32 matrix on ``device`` (cached: read-only)."""
-    return torch.from_numpy(_interp_matrix_np(n_in, n_out, align_corners)).to(device)
+    """(n_out, n_in) float32 matrix on ``device`` (cached: read-only). Made
+    outside inference mode, so a matrix first built while serving can be
+    saved for a later backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            _interp_matrix_np(n_in, n_out, align_corners)).to(device)
 
 
 def resize_linear(x: torch.Tensor, out_sizes, axes, align_corners: bool) -> torch.Tensor:
@@ -57,7 +61,7 @@ def resize_linear(x: torch.Tensor, out_sizes, axes, align_corners: bool) -> torc
         n_in = x.shape[axis]
         if n_in == n_out:
             continue
-        m = interp_matrix(n_in, n_out, align_corners, x.device)
+        m = interp_matrix(n_in, n_out, align_corners, x.device).to(x.dtype)
         x = torch.matmul(x.movedim(axis, -1), m.T).movedim(-1, axis)
     return x
 

@@ -134,9 +134,11 @@ def test_apply_convbr_2d(cin, cout, k, stride, bn, relu):
     p, s = _convbr_tree(rng, spec_j)
     x = _rand(rng, (2, 24, 30, cin))
     ref, _ = jconvbr.apply_convbr(spec_j, p, s, jnp.asarray(x), False)
-    out = apply_convbr(ConvBRSpec(2, cin, cout, k, stride, bn, relu),
-                       to_torch(p, "cpu"), to_torch(s, "cpu"), torch.from_numpy(x))
+    stats = to_torch(s, "cpu")
+    out, new_stats = apply_convbr(ConvBRSpec(2, cin, cout, k, stride, bn, relu),
+                                  to_torch(p, "cpu"), stats, torch.from_numpy(x))
     _close(out, ref)
+    assert new_stats is stats
 
 
 def test_batch_norm_frozen_both_layouts():
@@ -145,11 +147,11 @@ def test_batch_norm_frozen_both_layouts():
     p, s = _convbr_tree(rng, spec_j)
     x = _rand(rng, (2, 3, 5, 4, 6))
     ref, _ = jconvbr.batch_norm(jnp.asarray(x), p, s, False)
-    _close(batch_norm(torch.from_numpy(x), to_torch(p, "cpu"), to_torch(s, "cpu")), ref)
+    _close(batch_norm(torch.from_numpy(x), to_torch(p, "cpu"), to_torch(s, "cpu"))[0], ref)
     xc = _rand(rng, (2, 3, 6, 4, 5))
     ref_cf, _ = jax_batch_norm_cf(jnp.asarray(xc), p, s, False)
     _close(batch_norm_cf(torch.from_numpy(xc), to_torch(p, "cpu"),
-                         to_torch(s, "cpu")), ref_cf)
+                         to_torch(s, "cpu"))[0], ref_cf)
 
 
 # channel-first 3D blocks: stem_3d1, the Cout=1 head, merged Cout=48,
@@ -166,9 +168,11 @@ def test_apply_convbr_cf(cin, cout, k, bn, relu):
     p, s = _convbr_tree(rng, spec_j)
     x = _rand(rng, (1, 4, cin, 8, 11))
     ref, _ = jax_apply_convbr_cf(spec_j, p, s, jnp.asarray(x), False)
-    out = apply_convbr_cf(ConvBRSpec(3, cin, cout, k, 1, bn, relu),
-                          to_torch(p, "cpu"), to_torch(s, "cpu"), torch.from_numpy(x))
+    stats = to_torch(s, "cpu")
+    out, new_stats = apply_convbr_cf(ConvBRSpec(3, cin, cout, k, 1, bn, relu),
+                                     to_torch(p, "cpu"), stats, torch.from_numpy(x))
     _close(out, ref)
+    assert new_stats is stats
 
 
 GENES = [
@@ -201,7 +205,7 @@ def test_apply_cell_2d(gene, cpp, cp, cout, downup):
     s1 = _rand(rng, (2, 12, 16, cp))
     s0 = _rand(rng, (2, 12, 16, cpp) if downup == -1 else (2, 24, 32, cpp))
     ref, _ = jcell.apply_cell(spec_j, p, s, jnp.asarray(s0), jnp.asarray(s1), False)
-    out = tcell.apply_cell(tcell.CellSpec(2, cpp, cp, cout, downup, gene),
+    out, _ = tcell.apply_cell(tcell.CellSpec(2, cpp, cp, cout, downup, gene),
                            to_torch(p, "cpu"), to_torch(s, "cpu"),
                            torch.from_numpy(s0), torch.from_numpy(s1))
     _close(out, ref)
@@ -221,7 +225,7 @@ def test_apply_cell_cf(gene, cpp, cp, cout, downup):
     s1 = _rand(rng, (1, 4, cp, 8, 10))
     s0 = _rand(rng, (1, 4, cpp, 8, 10) if downup != 1 else (1, 8, cpp, 16, 20))
     ref, _ = jcell.apply_cell_cf(spec_j, p, s, jnp.asarray(s0), jnp.asarray(s1), False)
-    out = tcell.apply_cell_cf(tcell.CellSpec(3, cpp, cp, cout, downup, gene),
+    out, _ = tcell.apply_cell_cf(tcell.CellSpec(3, cpp, cp, cout, downup, gene),
                               to_torch(p, "cpu"), to_torch(s, "cpu"),
                               torch.from_numpy(s0), torch.from_numpy(s1))
     _close(out, ref)

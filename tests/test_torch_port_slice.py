@@ -98,10 +98,17 @@ def test_stereo_forward_random_weights():
     specs = {**build_site_specs(default_genotype()), **build_head_specs()}
     assert ({k: _spec_key(v) for k, v in specs.items()}
             == {k: _spec_key(v) for k, v in specs_j.items()})
-    out = stereo_forward(specs, to_torch(params, "cpu"), to_torch(stats, "cpu"),
-                         torch.from_numpy(left), torch.from_numpy(right),
-                         maxdisp=48)
+    stats_t = to_torch(stats, "cpu")
+    out, new_stats = stereo_forward(specs, to_torch(params, "cpu"), stats_t,
+                                    torch.from_numpy(left),
+                                    torch.from_numpy(right), maxdisp=48)
     assert out.shape == (1, 96, 192)
+    flat_new, flat_old = {}, {}    # no train-mode site: every stat carried
+    _flatten(_numpy_tree(new_stats), "", flat_new)
+    _flatten(_numpy_tree(stats_t), "", flat_old)
+    assert sorted(flat_new) == sorted(flat_old)
+    for k in flat_old:
+        np.testing.assert_array_equal(flat_new[k], flat_old[k])
     assert np.isfinite(ref).all() and ref.std() > 1.0
     np.testing.assert_allclose(out.numpy(), ref, atol=DISP_ATOL, rtol=0)
 
