@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the rag_tpu_torch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--small-only]
+
+Two paths run through every phase: the default path (kernels A-G) and the
+variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
+on, where kernel H takes kernel A's place, kernel I the matrix resizes, and
+the shear stem (tap maps + kernels J and K) kernels B, E and F.
 
 Phases, in order; any failure exits non-zero and no phase swallows an
 exception:
@@ -11,30 +16,37 @@ exception:
                    with nvcc (one process per source, all at once), load them;
   3. record        restore the committed 4-task checkpoint
                    logs/canonical_learn_r4 onto the card and answer one
-                   1x480x960 request per task path with each kernel's PLAIN
-                   version in its wrapper's place, recording every call each
-                   kernel would get (its shapes and its real activations);
+                   1x480x960 request per task path, on each path, with each
+                   kernel's PLAIN version in its wrapper's place, recording
+                   every call each kernel would get (its shapes and its real
+                   activations);
   4. record-train  the same for one training step of each training
                    configuration (task 3's fine-tune stage, task 0's stage;
-                   batch 4, 192x384 crops, maxdisp 192), keeping the plain
-                   step's updates and statistics;
-  5. kernels       hold all seven kernels (A-C forward, D-G backward) against
-                   their plain versions on the card, at every recorded shape
-                   and at small shapes, and time kernel, plain version and a
-                   library yardstick with CUDA events;
-  6. serve         set every launch count to 0, answer 3 requests per task
-                   path through RoutedInference.predict, read the counts
-                   (each forward kernel must have launched), and check every
-                   disparity: finite, in [0, 191], within tolerance of the
-                   plain path's;
-  7. train         set every launch count to 0, take 3 steps of each training
-                   configuration through make_train_step, read the counts
-                   (all seven kernels must have launched), check the loss and
+                   batch 4, 192x384 crops, maxdisp 192), on each path,
+                   keeping the plain step's updates and statistics;
+  5. kernels       hold all eleven kernels (A-C, H-J forward, D-G, K
+                   backward) against their plain versions on the card, at
+                   every recorded shape and at small shapes, and time kernel,
+                   plain version and a library yardstick with CUDA events
+                   (H beside kernel A, J and K beside kernels B and E+F);
+  6. serve         per path, in turns (default, variants, variants,
+                   default): set every launch count to 0, answer 3 requests
+                   per task path through RoutedInference.predict, read the
+                   counts (each kernel of the path must have launched, no
+                   other), and check every disparity: finite, in [0, 191],
+                   within tolerance of the path's plain disparity (the
+                   variant path's also of the default path's);
+  7. train         per path, in the same turns: set every launch count to 0,
+                   take 3 steps of each training configuration through
+                   make_train_step, read the counts, check the loss and
                    every updated leaf finite and the first step against the
-                   plain step of phase 4; print ms/step, training pairs/s and
-                   peak memory;
+                   path's plain step of phase 4; print ms/step, training
+                   pairs/s and peak memory;
   8. report        one JSON line of kernels, the card's name and power limit,
                    and as the last line {"ok": true, "device": {...}}.
+
+--small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
+build-and-check) and prints no report.
 
 Float32 throughout: TF32 is off for cuDNN and matmuls.
 """
@@ -63,7 +75,10 @@ from rag_tpu_torch.ops import conv3d as conv3d_mod  # noqa: E402
 from rag_tpu_torch.ops import cuda_lib  # noqa: E402
 from rag_tpu_torch.ops import cvstem as cvstem_mod  # noqa: E402
 from rag_tpu_torch.ops import disparity as disparity_mod  # noqa: E402
+from rag_tpu_torch.ops import resize as resize_mod  # noqa: E402
+from rag_tpu_torch.ops import shear as shear_mod  # noqa: E402
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
+from rag_tpu_torch.ops.variants import KernelVariants  # noqa: E402
 from rag_tpu_torch.train.trainer import (  # noqa: E402
     cosine_lr,
     make_optimizer,
@@ -80,6 +95,11 @@ TRAIN_B, TRAIN_H, TRAIN_W = 4, 192, 384  # the reference's training crops
 TRAIN_STEPS = 3                # per configuration; the first is reported apart
 TRAIN_EPOCHS = 10              # cosine schedule length; step i takes epoch i's lr
 LR, WD = 0.001, 0.003
+STEM_C = 12                    # feature channels into the matching stem
+PATHS = {"default": KernelVariants(),
+         "variants": KernelVariants(conv3d_dblock=True, resize_kernel=True,
+                                    shear_stem=True)}
+TURNS = ("default", "variants", "variants", "default")  # serve, train timing
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -237,7 +257,58 @@ def disp_bwd_bound(x_shape, maxdisp, scale):
     return _bound(flops, nbytes)
 
 
-# -- the seven kernels: wrapper, plain version, yardstick, bound ------------
+def resize_bound(x_shape, d2, h2, w2, align_corners=True, transposed=False):
+    """Kernel I: the multiply-adds of the separable form (each axis that
+    changes, one per nonzero tap of its table, over the volume at that
+    stage); bytes: x in, the output out."""
+    b, d, c, h, w = x_shape
+    nnz = []
+    for n, n2 in ((d, d2), (h, h2), (w, w2)):
+        if n == n2:
+            nnz.append(0)
+            continue
+        _, wts = resize_mod._taps_np(*((n2, n) if transposed else (n, n2)),
+                                     align_corners, transposed)
+        nnz.append(int(np.count_nonzero(wts)))
+    flops = 2.0 * (nnz[0] * b * c * h * w + nnz[1] * b * d2 * c * w
+                   + nnz[2] * b * d2 * c * h2)
+    nbytes = 4.0 * (b * d * c * h * w + b * d2 * c * h2 * w2)
+    return _bound(flops, nbytes)
+
+
+def _shear_terms(nd, w):
+    """(plane, column, term) adds of the shear assembly that its masks
+    keep: the px term where the gate and j >= s hold, the py term where
+    also j <= W - dw."""
+    d = np.arange(nd)[:, None]
+    j = np.arange(w)[None, :]
+    n = 0
+    for dd, dw in shear_mod.T9:
+        s = d + dd - dw
+        xm = (j >= s) & (d + dd - 1 >= 0) & (d + dd - 1 <= nd - 1)
+        n += int(xm.sum()) + int((xm & (j <= w - dw)).sum())
+    return n
+
+
+def shear_bound(px_shape, nd, relu=False):
+    """Kernel J: the kept adds plus the affine (2) and ReLU (1) per output;
+    bytes: the two tap-map stacks and the affine in, the output out."""
+    b, _, co, h, w = px_shape
+    flops = b * co * h * (_shear_terms(nd, w) + (3.0 if relu else 2.0) * nd * w)
+    nbytes = 4.0 * (2 * b * 9 * co * h * w + b * nd * co * h * w + 2 * co)
+    return _bound(flops, nbytes)
+
+
+def shear_adj_bound(dz_shape, nd):
+    """Kernel K: the same kept adds, taken back; bytes: dz in, the two
+    tap-map gradients out."""
+    b, _, co, h, w = dz_shape
+    flops = float(b * co * h * _shear_terms(nd, w))
+    nbytes = 4.0 * (b * nd * co * h * w + 2 * b * 9 * co * h * w)
+    return _bound(flops, nbytes)
+
+
+# -- the eleven kernels: wrapper, plain version, yardstick, bound -----------
 
 def _ncdhw(v):
     return v.permute(0, 2, 1, 3, 4).contiguous()
@@ -311,11 +382,63 @@ def _cvstem_dw_library(x_cf, y_cf, dz, nd):
     return run
 
 
+def _resize_library(x, d2, h2, w2, align_corners=True, transposed=False):
+    """One call of F.interpolate(mode="trilinear") on the volume permuted
+    to NCDHW (made once, outside the timing); for the adjoint, one call of
+    its backward, aten's upsample_trilinear3d_backward."""
+    b, d, c, h, w = x.shape
+    x_n = _ncdhw(x)
+    if not transposed:
+        return lambda: F.interpolate(x_n, size=(d2, h2, w2), mode="trilinear",
+                                     align_corners=align_corners)
+    return lambda: torch.ops.aten.upsample_trilinear3d_backward(
+        x_n, [d, h, w], [b, c, d2, h2, w2], align_corners)
+
+
+def _stem_inputs(b, h, w, co, dev, grad=False):
+    """Random features and stem weights at the shapes the stem is given."""
+    def t(*shape):
+        return torch.randn(*shape, device=dev).requires_grad_(grad)
+    return t(b, STEM_C, h, w), t(b, STEM_C, h, w), t(3, 3, 3, 2 * STEM_C, co)
+
+
+def _dblock_beside(x, w, scale, bias, relu):
+    """Kernel A at kernel H's arguments."""
+    return {"kernel_a_ms":
+            lambda: conv3d_mod.conv3d_affine_cf(x, w, scale, bias, relu)}
+
+
+def _shear_beside(px, py, scale, bias, nd, relu=False):
+    """The whole shear stem (tap maps + J) against kernel B, on random
+    features of the same shapes (they set the work, not the values)."""
+    b, _, co, h, w = px.shape
+    x, y, w3 = _stem_inputs(b, h, w, co, px.device)
+    return {"stem_ms": lambda: shear_mod.shear_stem_brc(x, y, w3, scale,
+                                                        bias, nd, relu),
+            "kernel_b_ms": lambda: cvstem_mod.cvstem_affine(
+                x, y, w3, scale, bias, nd, relu)}
+
+
+def _shear_adj_beside(dz, nd):
+    """The shear stem's whole backward (K, then autograd through the
+    tap-map convs to dX, dY, dW) against kernels E + F, on random features
+    of the same shapes."""
+    b, _, co, h, w = dz.shape
+    x, y, w3 = _stem_inputs(b, h, w, co, dz.device, grad=True)
+    z = shear_mod.shear_stem_z(x, y, w3, nd)
+    xd, yd, wd = x.detach(), y.detach(), w3.detach()
+    return {"stem_bwd_ms": lambda: torch.autograd.grad(
+                z, (x, y, w3), dz, retain_graph=True),
+            "kernel_ef_ms": lambda: (cvstem_mod.cvstem_dxy(dz, wd, nd),
+                                     cvstem_mod.cvstem_dw(xd, yd, dz, nd))}
+
+
 # name -> the module and attribute where the main path looks the kernel's
 # wrapper up (record puts the plain version there), the plain version, the
-# TPU kernel it replaces, and how to sign, bound and yardstick one call.
-# A, B and C are on the serving path and the training path; D-G on the
-# training path only.
+# TPU kernel it replaces, and how to sign, bound and yardstick one call;
+# "path": the path it reports from, "serving": whether that path serves
+# through it (else it runs in training only); "beside": other calls timed
+# at its arguments and printed beside it.
 KERNELS = {
     "conv3d_brc_cf": dict(
         site=(conv3d_mod, "conv3d_affine_cf"),
@@ -324,7 +447,8 @@ KERNELS = {
         replaces="rag_tpu/ops/pallas_conv3d.py:257",
         sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
         bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
-        library=_conv_library, tol="conv"),
+        library=_conv_library, tol="conv", path="default",
+        serving=True),
     "cvstem_brc": dict(
         site=(cvstem_mod, "cvstem_affine"),
         plain=cvstem_mod.cvstem_brc_plain,
@@ -334,7 +458,8 @@ KERNELS = {
             (tuple(x.shape), w3.shape[4], nd, relu),
         bound=lambda x, y, w3, scale, bias, nd, relu=True:
             cvstem_bound(x.shape, nd, w3.shape[4]),
-        library=_cvstem_library, tol="conv"),
+        library=_cvstem_library, tol="conv", path="default",
+        serving=True),
     "fused_soft_argmin": dict(
         site=(disparity_mod, "soft_argmin_fwd"),
         plain=disparity_mod.soft_argmin_disparity,
@@ -342,7 +467,8 @@ KERNELS = {
         replaces="rag_tpu/ops/pallas_kernels.py:163",
         sig=lambda x, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
         bound=lambda x, maxdisp, scale=3: disp_bound(x.shape, maxdisp, scale),
-        library=None, tol="disp"),
+        library=None, tol="disp", path="default",
+        serving=True),
     "conv3d_dw_cf": dict(
         site=(conv3d_mod, "conv3d_dw_cf"),
         plain=conv3d_mod.conv3d_dw_cf_plain,
@@ -351,7 +477,8 @@ KERNELS = {
         sig=lambda x, dz: (tuple(x.shape), dz.shape[2]),
         bound=lambda x, dz: dw_bound(x.shape, dz.shape[2]),
         magnitude=lambda x, dz: (x.abs(), dz.abs()),
-        library=_dw_library, tol="bwd"),
+        library=_dw_library, tol="bwd", path="default",
+        serving=False),
     "cvstem_dxy": dict(
         site=(cvstem_mod, "cvstem_dxy"),
         plain=cvstem_mod.cvstem_dxy_plain,
@@ -360,7 +487,8 @@ KERNELS = {
         sig=lambda dz, w3, nd: (tuple(dz.shape), w3.shape[3], nd),
         bound=lambda dz, w3, nd: cvstem_dxy_bound(dz.shape, w3.shape[3], nd),
         magnitude=lambda dz, w3, nd: (dz.abs(), w3.abs(), nd),
-        library=_dxy_library, tol="bwd"),
+        library=_dxy_library, tol="bwd", path="default",
+        serving=False),
     "cvstem_dw": dict(
         site=(cvstem_mod, "cvstem_dw"),
         plain=cvstem_mod.cvstem_dw_plain,
@@ -369,7 +497,8 @@ KERNELS = {
         sig=lambda x, y, dz, nd: (tuple(x.shape), dz.shape[2], nd),
         bound=lambda x, y, dz, nd: cvstem_dw_bound(x.shape, dz.shape, nd),
         magnitude=lambda x, y, dz, nd: (x.abs(), y.abs(), dz.abs(), nd),
-        library=_cvstem_dw_library, tol="bwd"),
+        library=_cvstem_dw_library, tol="bwd", path="default",
+        serving=False),
     "soft_argmin_bwd": dict(
         site=(disparity_mod, "soft_argmin_bwd"),
         plain=disparity_mod.soft_argmin_bwd_plain,
@@ -378,17 +507,68 @@ KERNELS = {
         sig=lambda x, g, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
         bound=lambda x, g, maxdisp, scale=3:
             disp_bwd_bound(x.shape, maxdisp, scale),
-        library=None, tol="bwd"),
+        library=None, tol="bwd", path="default", serving=False),
+    "conv3d_dblock_cf": dict(
+        site=(conv3d_mod, "conv3d_dblock_cf"),
+        plain=conv3d_mod.conv3d_brc_cf_plain,
+        source="rag_tpu_torch/csrc/conv3d_dblock.cu",
+        replaces="rag_tpu/ops/pallas_conv3d.py:314",
+        sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
+        bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
+        library=_conv_library, beside=_dblock_beside, tol="conv",
+        path="variants", serving=True),
+    "resize_taps_cf": dict(
+        site=(resize_mod, "resize_taps_cf"),
+        plain=resize_mod.resize_taps_plain,
+        source="rag_tpu_torch/csrc/resize_taps.cu",
+        replaces="rag_tpu/ops/pallas_resize.py:123",
+        sig=lambda x, d2, h2, w2, align_corners=True, transposed=False:
+            (tuple(x.shape), (d2, h2, w2), transposed),
+        bound=lambda x, *a, **kw: resize_bound(x.shape, *a, **kw),
+        library=_resize_library, tol="conv",
+        path="variants", serving=True),
+    "shear_forward": dict(
+        site=(shear_mod, "shear_forward"),
+        plain=shear_mod.shear_forward_plain,
+        source="rag_tpu_torch/csrc/shear.cu",
+        replaces="rag_tpu/ops/pallas_shear.py:120",
+        sig=lambda px, py, scale, bias, nd, relu=False:
+            (tuple(px.shape), nd, relu),
+        bound=lambda px, py, scale, bias, nd, relu=False:
+            shear_bound(px.shape, nd, relu),
+        library=None, beside=_shear_beside, tol="conv", path="variants",
+        serving=True),
+    "shear_adjoint": dict(
+        site=(shear_mod, "shear_adjoint"),
+        plain=shear_mod.shear_adjoint_plain,
+        source="rag_tpu_torch/csrc/shear.cu",
+        replaces="rag_tpu/ops/pallas_shear.py:173",
+        sig=lambda dz, nd: (tuple(dz.shape), nd),
+        bound=lambda dz, nd: shear_adj_bound(dz.shape, nd),
+        magnitude=lambda dz, nd: (dz.abs(), nd),
+        library=None, beside=_shear_adj_beside, tol="bwd", path="variants",
+        serving=False),
 }
 for _k in KERNELS.values():
     _k["wrapper"] = getattr(*_k["site"])
-SERVE_KERNELS = ("conv3d_brc_cf", "cvstem_brc", "fused_soft_argmin")
+# the kernels each path must run, serving and training (F only where
+# stem_3d0 trains); every other kernel must not run on that path
+SERVE_KERNELS = {
+    "default": ("conv3d_brc_cf", "cvstem_brc", "fused_soft_argmin"),
+    "variants": ("conv3d_dblock_cf", "resize_taps_cf", "shear_forward",
+                 "fused_soft_argmin")}
+TRAIN_KERNELS = {
+    "default": SERVE_KERNELS["default"] + (
+        "conv3d_dw_cf", "cvstem_dxy", "cvstem_dw", "soft_argmin_bwd"),
+    "variants": SERVE_KERNELS["variants"] + (
+        "shear_adjoint", "conv3d_dw_cf", "soft_argmin_bwd")}
 
 
 def small_cases(dev, rng):
     """A few small shapes per kernel: Cout 1 with W not a multiple of 8,
-    merged Cout 48, a D == W cost volume, num_disp past W, batch 2 for
-    every kernel."""
+    merged Cout 48, D not a multiple of kernel H's 4 planes, a D == W cost
+    volume, num_disp past W, W = 13, a 4-tap and a 3-tap adjoint resize
+    table, batch 2 for every kernel."""
     def t(*shape, s=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * s)
                                 .astype(np.float32)).to(dev)
@@ -399,19 +579,35 @@ def small_cases(dev, rng):
     cases = []
     for b, d, cin, h, w, cout, relu in [(1, 4, 12, 16, 24, 12, True),
                                         (1, 3, 12, 8, 13, 1, False),
-                                        (2, 3, 16, 9, 70, 48, True)]:
-        cases.append(("conv3d_brc_cf", (t(b, d, cin, h, w),
-                                        t(3, 3, 3, cin, cout, s=0.2),
-                                        *aff(cout), relu)))
+                                        (2, 3, 16, 9, 70, 48, True),
+                                        (1, 7, 12, 12, 40, 16, True),
+                                        (1, 1, 4, 8, 8, 4, False)]:
+        args = (t(b, d, cin, h, w), t(3, 3, 3, cin, cout, s=0.2),
+                *aff(cout), relu)
+        cases.append(("conv3d_brc_cf", args))
+        cases.append(("conv3d_dblock_cf", args))
         cases.append(("conv3d_dw_cf", (t(b, d, cin, h, w),
                                        t(b, d, cout, h, w))))
     for b, c, h, w, nd, cout in [(1, 12, 8, 20, 6, 12), (1, 2, 8, 8, 8, 3),
-                                 (2, 3, 6, 11, 5, 4), (1, 2, 5, 6, 9, 3)]:
+                                 (2, 3, 6, 11, 5, 4), (1, 2, 5, 6, 9, 3),
+                                 (1, 3, 8, 13, 13, 12)]:
         x, y, w3 = t(b, c, h, w), t(b, c, h, w), t(3, 3, 3, 2 * c, cout, s=0.2)
         dz = t(b, nd, cout, h, w)
         cases.append(("cvstem_brc", (x, y, w3, *aff(cout), nd, True)))
         cases.append(("cvstem_dxy", (dz, w3, nd)))
         cases.append(("cvstem_dw", (x, y, dz, nd)))
+        px, py = shear_mod.tap_maps(x, y, w3)
+        cases.append(("shear_forward", (px.contiguous(), py.contiguous(),
+                                        *aff(cout), nd, True)))
+        cases.append(("shear_adjoint", (dz, nd)))
+    for shape, target, tr in [((1, 6, 5, 16, 24), (3, 8, 12), False),
+                              ((2, 6, 5, 16, 24), (12, 32, 48), False),
+                              ((1, 6, 3, 11, 13), (4, 6, 7), False),
+                              ((1, 6, 5, 16, 24), (6, 16, 11), False),
+                              ((2, 12, 5, 32, 48), (6, 16, 24), True),
+                              ((1, 11, 3, 11, 11), (6, 6, 6), True),
+                              ((1, 3, 4, 8, 12), (6, 16, 24), True)]:
+        cases.append(("resize_taps_cf", (t(*shape), *target, True, tr)))
     for b, d, h, w, md in [(1, 8, 16, 10, 24), (2, 4, 5, 43, 12)]:
         x = t(b, d, h, w, s=3.0)
         cases.append(("fused_soft_argmin", (x, md, 3)))
@@ -485,23 +681,34 @@ def count_calls(calls):
     return {k: sum(1 for n, _ in calls if n == k) for k in KERNELS}
 
 
-def phase_record(ri, requests, args_of):
+def check_called(what, counts, expected, optional=()):
+    """Every expected kernel called (those in optional may not be), and no
+    other kernel."""
+    bad = [f"no call to {k}" for k in expected
+           if counts[k] < 1 and k not in optional]
+    bad += [f"{c} calls to {k}" for k, c in counts.items()
+            if c and k not in expected]
+    if bad:
+        raise SystemExit(f"chip_smoke: {what}: " + "; ".join(bad))
+
+
+def phase_record(ri, requests, args_of, path):
     """The first request of each task path through RoutedInference.predict
-    with each kernel's plain version in its wrapper's place. Returns the
-    plain disparities and every kernel call per task (name, signature)."""
+    on one path (ri carries its variants) with each kernel's plain version
+    in its wrapper's place. Returns the plain disparities and every kernel
+    call per task (name, signature)."""
     calls, plain = {}, {}
     for t, reqs in requests.items():
         calls[t] = []
         with recording(calls[t], args_of):
             plain[t] = ri.predict(*reqs[0], task=t)
         n_calls = count_calls(calls[t])
-        log(f"[record] task {t}: plain disparity in [{plain[t].min():.2f}, "
-            f"{plain[t].max():.2f}], kernel calls {n_calls}")
+        log(f"[record] {path} task {t}: plain disparity in "
+            f"[{plain[t].min():.2f}, {plain[t].max():.2f}], kernel calls "
+            f"{n_calls}")
         # a call site the main path no longer reads would leave the kernel
         # unchecked and the "plain" reference running kernels
-        missing = [k for k in SERVE_KERNELS if n_calls[k] < 1]
-        if missing:
-            raise SystemExit(f"chip_smoke: task {t} made no call to {missing}")
+        check_called(f"{path} task {t}", n_calls, SERVE_KERNELS[path])
     return plain, calls
 
 
@@ -541,16 +748,17 @@ def train_batch(dev):
                  for a in (lefts, rights, gts))
 
 
-def train_step(cfg, params, stats, opt_state, lr, batch):
+def train_step(cfg, params, stats, opt_state, lr, batch, path):
     specs, _, _, sites = cfg
-    step = make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP)
+    step = make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP,
+                           variants=PATHS[path])
     return step(params, stats, opt_state, lr, *batch)
 
 
-def phase_record_train(dev, args_of):
-    """One step of each training configuration with the plain versions in
-    the wrappers' places. Returns every kernel call per configuration and
-    the plain step's dp/lr and new statistics."""
+def phase_record_train(dev, args_of, path):
+    """One step of each training configuration on one path with the plain
+    versions in the wrappers' places. Returns every kernel call per
+    configuration and the plain step's dp/lr and new statistics."""
     calls, plain = {}, {}
     batch = train_batch(dev)
     lr = cosine_lr(LR, TRAIN_EPOCHS, 0)
@@ -561,20 +769,19 @@ def phase_record_train(dev, args_of):
         t0 = time.perf_counter()
         with recording(calls[name], args_of):
             params, new_stats, _, sc = train_step(
-                cfg, params, stats, make_optimizer(WD).init(params), lr, batch)
+                cfg, params, stats, make_optimizer(WD).init(params), lr, batch,
+                path)
         torch.cuda.synchronize()
         plain[name] = (
             {k: (v - before[k]) / lr for k, v in leaves(params)
              if k.split("/")[0] in sites},
             dict(leaves(new_stats)))
         n_calls = count_calls(calls[name])
-        log(f"[record-train] {name} ({len(sites)} trainable sites): plain step "
-            f"{(time.perf_counter() - t0) * 1e3:.0f} ms, loss "
+        log(f"[record-train] {path} {name} ({len(sites)} trainable sites): "
+            f"plain step {(time.perf_counter() - t0) * 1e3:.0f} ms, loss "
             f"{float(sc['loss']):.4f}, kernel calls {n_calls}")
-        missing = [k for k, c in n_calls.items() if c < 1
-                   and not (k == "cvstem_dw" and "stem_3d0" not in sites)]
-        if missing:
-            raise SystemExit(f"chip_smoke: {name} made no call to {missing}")
+        check_called(f"{path} {name}", n_calls, TRAIN_KERNELS[path],
+                     () if "stem_3d0" in sites else ("cvstem_dw",))
     return plain, calls
 
 
@@ -585,9 +792,10 @@ def _max_err(out, ref):
     return err, max(float(r.abs().max()) for r in refs)
 
 
-def check_kernel(name, args, kw, reps):
-    """Kernel vs plain on one set of arguments; times of kernel, plain and
-    library. Returns a result dict (no assertion here)."""
+def check_kernel(name, args, kw, reps, beside):
+    """Kernel vs plain on one set of arguments; times of kernel, plain,
+    library and (with beside) the calls timed beside it. Returns a result
+    dict (no assertion here)."""
     k = KERNELS[name]
     with torch.inference_mode():
         out = k["wrapper"](*args, **kw)
@@ -605,11 +813,16 @@ def check_kernel(name, args, kw, reps):
         plain_ms = cuda_ms(lambda: k["plain"](*args, **kw), max(1, reps // 2))
         lib_ms = (cuda_ms(k["library"](*args, **kw), reps)
                   if k["library"] is not None else None)
+    extra = {}
+    if beside and "beside" in k:
+        # outside inference mode: the shear stem's backward is autograd's
+        extra = {f: cuda_ms(fn, reps)
+                 for f, fn in k["beside"](*args, **kw).items()}
     bound_ms, bound_by = k["bound"](*args, **kw)
     return dict(err=err, tol=tol, ok=bool(err <= tol), ms=ms,
                 plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
                 bound_ops_ms=bound_ms if bound_by == "operations" else 0.0,
-                bound_by=bound_by)
+                bound_by=bound_by, beside=extra)
 
 
 def phase_kernels(args_of, dev):
@@ -620,13 +833,15 @@ def phase_kernels(args_of, dev):
     todo += [("small", name, KERNELS[name]["sig"](*args), args, {})
              for name, args in small_cases(dev, rng)]
     for where, name, sig, args, kw in todo:
-        r = check_kernel(name, args, kw, REPS if where == "main" else 5)
-        if where == "main":
+        main = where == "main"
+        r = check_kernel(name, args, kw, REPS if main else 5, main)
+        if main:
             results[(name, sig)] = r
         line = {"kernel": name, "at": where, "sig": str(sig),
                 "max_abs_err": r["err"], "tol": r["tol"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                **r["beside"]}
         log(f"[kernels] {json.dumps(line)}")
         if not r["ok"]:
             failures.append(f"{name} {where} {sig}: max_abs_err {r['err']:.3g}"
@@ -639,10 +854,22 @@ def phase_kernels(args_of, dev):
     return results
 
 
-def phase_serve(ri, requests, plain):
+def check_disparity(what, d):
+    if d.shape != (1, H, W) or not np.isfinite(d).all():
+        return [f"{what}: shape {d.shape} or non-finite values"]
+    if d.min() < 0 or d.max() > MAXDISP - 1:
+        return [f"{what}: disparity outside [0, {MAXDISP - 1}]"]
+    return []
+
+
+def phase_serve(ri, requests, plain, path, default_outs=None):
+    """REQUESTS requests per task path on one path, every launch count set
+    to 0 first. The variant path's first disparity per task is also held
+    against the default kernel path's (default_outs)."""
     for k in KERNELS.values():
         k["wrapper"].launches = 0
     outs, times = {}, {}
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for t, reqs in requests.items():
         outs[t], times[t] = [], []
@@ -653,26 +880,27 @@ def phase_serve(ri, requests, plain):
             outs[t].append(disp)
     launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[serve] launches in the main-path run: {launches}; peak device "
-        f"memory {peak_gb:.2f} GB")
+    log(f"[serve] {path}: launches in the main-path run: {launches}; peak "
+        f"device memory {peak_gb:.2f} GB")
 
-    failures = [f"{n} never launched" for n in SERVE_KERNELS
+    failures = [f"{n} never launched" for n in SERVE_KERNELS[path]
                 if launches[n] <= 0]
     failures += [f"{n} launched while serving" for n, c in launches.items()
-                 if n not in SERVE_KERNELS and c != 0]
+                 if n not in SERVE_KERNELS[path] and c != 0]
     per_task = {}
     for t in requests:
         for i, d in enumerate(outs[t]):
-            if d.shape != (1, H, W) or not np.isfinite(d).all():
-                failures.append(f"task {t} request {i}: shape {d.shape} or "
-                                "non-finite values")
-            elif d.min() < 0 or d.max() > MAXDISP - 1:
-                failures.append(f"task {t} request {i}: disparity outside "
-                                f"[0, {MAXDISP - 1}]")
+            failures += check_disparity(f"{path} task {t} request {i}", d)
         diff = float(np.abs(outs[t][0] - plain[t]).max())
         if not diff <= SERVE_ATOL:
-            failures.append(f"task {t}: kernel path vs plain path "
+            failures.append(f"{path} task {t}: kernel path vs plain path "
                             f"{diff:.3g} px > {SERVE_ATOL}")
+        vs_default = None
+        if default_outs is not None:
+            vs_default = float(np.abs(outs[t][0] - default_outs[t][0]).max())
+            if not vs_default <= SERVE_ATOL:
+                failures.append(f"{path} task {t}: vs the default kernel "
+                                f"path {vs_default:.3g} px > {SERVE_ATOL}")
         gt = torch.full((1, H, W), float(TRUE_DISP))
         gt[..., :TRUE_DISP] = 0.0
         m = stereo_metrics(torch.from_numpy(outs[t][0]), gt,
@@ -680,19 +908,22 @@ def phase_serve(ri, requests, plain):
         steady = times[t][1:] or times[t]
         per_task[t] = dict(first_ms=times[t][0],
                            ms_per_request=float(np.mean(steady)),
-                           vs_plain_max_px=diff,
-                           epe_vs_plane=float(m["EPE"]), d1=float(m["D1"]))
-        log(f"[serve] task {t}: {json.dumps(per_task[t])}")
+                           vs_plain_max_px=diff, vs_default_max_px=vs_default,
+                           epe_vs_plane=float(m["EPE"]), d1=float(m["D1"]),
+                           peak_gb=peak_gb)
+        log(f"[serve] {path} task {t}: {json.dumps(per_task[t])}")
     if failures:
         raise SystemExit("chip_smoke: serve failed:\n  " + "\n  ".join(failures))
-    return launches, per_task
+    return launches, per_task, outs
 
 
 # kinds of device kernel in a trace, matched in order on the lower-cased
-# name (the port's A-G first; kernel_kind sorts B, D and F apart)
-KINDS = (("conv3x3x3_affine_kernel", "A"), ("dw_reduce_kernel", "D/F reduce"),
-         ("cvstem_dxy_kernel", "E"), ("soft_argmin_kernel", "C"),
-         ("soft_argmin_fold_kernel", "G"), ("soft_argmin_gather_kernel", "G"),
+# name (the port's A-K first; kernel_kind sorts B, D and F apart)
+KINDS = (("conv3x3x3_affine_kernel", "A"), ("conv3x3x3_dblock_kernel", "H"),
+         ("dw_reduce_kernel", "D/F reduce"), ("cvstem_dxy_kernel", "E"),
+         ("soft_argmin_kernel", "C"), ("soft_argmin_fold_kernel", "G"),
+         ("soft_argmin_gather_kernel", "G"), ("resize_taps_kernel", "I"),
+         ("shear_fwd_kernel", "J"), ("shear_adj_kernel", "K"),
          ("gemm", "GEMM"), ("reduce_kernel", "reductions"),
          ("elementwise", "elementwise"), ("cudnn", "cuDNN"),
          ("grad", "cuDNN"), ("conv", "cuDNN"), ("", "other"))
@@ -709,7 +940,7 @@ def kernel_kind(name: str) -> str:
 
 def device_breakdown(trace: Path) -> dict:
     """ms of device time by kind in an exported chrome trace: each of the
-    port's kernels (A also counts kernel A's dx launches), GEMMs,
+    port's kernels (A and H also count their dx launches), GEMMs,
     reductions, elementwise, cuDNN, copies and the rest."""
     data = json.loads(trace.read_text())
     events = data["traceEvents"] if isinstance(data, dict) else data
@@ -763,20 +994,21 @@ def profile(fn, label: str, out_dir: Path) -> None:
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_profile(ri, requests, dev, out_dir: Path) -> None:
-    """One steady request of the last task path and one steady train step
-    of task 0's stage under the profiler."""
+def phase_profile(ris, requests, dev, out_dir: Path) -> None:
+    """Per path: one steady request of the last task path and one steady
+    train step of task 0's stage under the profiler."""
     t = max(requests)
     left, right = requests[t][0]
-    profile(lambda: ri.predict(left, right, task=t), f"serve_task{t}",
-            out_dir)
-    cfg = train_configs(dev)["task0"]
-    state = [cfg[1], cfg[2], make_optimizer(WD).init(cfg[1])]
     batch = train_batch(dev)
+    for path, ri in ris.items():
+        profile(lambda: ri.predict(left, right, task=t),
+                f"serve_task{t}_{path}", out_dir)
+        cfg = train_configs(dev)["task0"]
+        state = [cfg[1], cfg[2], make_optimizer(WD).init(cfg[1])]
 
-    def step():
-        state[:3] = train_step(cfg, *state, LR, batch)[:3]
-    profile(step, "train_task0", out_dir)
+        def step():
+            state[:3] = train_step(cfg, *state, LR, batch, path)[:3]
+        profile(step, f"train_task0_{path}", out_dir)
 
 
 def compare_step(name, delta, new_stats, plain):
@@ -803,9 +1035,10 @@ def compare_step(name, delta, new_stats, plain):
                 vs_plain_stats=stats_err), failures
 
 
-def phase_train(dev, plain):
-    """TRAIN_STEPS steps of each configuration through make_train_step on
-    a fresh copy of the checkpoint, every launch count set to 0 first."""
+def phase_train(dev, plain, path):
+    """TRAIN_STEPS steps of each configuration on one path through
+    make_train_step on a fresh copy of the checkpoint, every launch count
+    set to 0 first."""
     for k in KERNELS.values():
         k["wrapper"].launches = 0
     batch = train_batch(dev)
@@ -822,15 +1055,15 @@ def phase_train(dev, plain):
                       else None)
             t0 = time.perf_counter()
             params, stats, opt_state, sc = train_step(
-                cfg, params, stats, opt_state, lr, batch)
+                cfg, params, stats, opt_state, lr, batch, path)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(sc["loss"]))
             if i == 0:
                 delta = {k: (v - before[k]) / lr for k, v in leaves(params)
                          if k.split("/")[0] in sites}
-                cmp, bad = compare_step(name, delta, dict(leaves(stats)),
-                                        plain[name])
+                cmp, bad = compare_step(f"{path} {name}", delta,
+                                        dict(leaves(stats)), plain[name])
                 failures += bad
                 del before, delta
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -838,17 +1071,21 @@ def phase_train(dev, plain):
         finite = all(bool(torch.isfinite(v).all()) for k, v in leaves(params)
                      if k in trained)
         if not (finite and all(np.isfinite(losses))):
-            failures.append(f"{name}: non-finite loss {losses} or leaves")
+            failures.append(f"{path} {name}: non-finite loss {losses} or "
+                            "leaves")
         steady = times[1:] or times
         ms = float(np.mean(steady))
         per_cfg[name] = dict(sites=len(sites), leaves_trained=len(trained),
                              first_ms=times[0], ms_per_step=ms,
                              pairs_per_s=TRAIN_B / (ms / 1e3),
                              peak_gb=peak_gb, loss=losses, **cmp)
-        log(f"[train] {name}: {json.dumps(per_cfg[name])}")
+        log(f"[train] {path} {name}: {json.dumps(per_cfg[name])}")
     launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
-    log(f"[train] launches in the training run: {launches}")
-    failures += [f"{n} never launched" for n, c in launches.items() if c <= 0]
+    log(f"[train] {path}: launches in the training run: {launches}")
+    failures += [f"{path}: {n} never launched" for n in TRAIN_KERNELS[path]
+                 if launches[n] <= 0]
+    failures += [f"{path}: {n} launched" for n, c in launches.items()
+                 if n not in TRAIN_KERNELS[path] and c != 0]
     if failures:
         raise SystemExit("chip_smoke: train failed:\n  " + "\n  ".join(failures))
     return launches, per_cfg
@@ -871,27 +1108,53 @@ def per_key(results, calls, name, field):
 def kernel_numbers(results, calls, name):
     bound = per_key(results, calls, name, "bound_ms")
     bound_ops = per_key(results, calls, name, "bound_ops_ms")
-    return {"ms": per_key(results, calls, name, "ms"),
-            "plain_ms": per_key(results, calls, name, "plain_ms"),
-            "bound_ms": bound,
-            "bound_by": "operations" if bound_ops >= bound / 2 else "bytes",
-            "library_ms": per_key(results, calls, name, "lib_ms")}
+    out = {"ms": per_key(results, calls, name, "ms"),
+           "plain_ms": per_key(results, calls, name, "plain_ms"),
+           "bound_ms": bound,
+           "bound_by": "operations" if bound_ops >= bound / 2 else "bytes",
+           "library_ms": per_key(results, calls, name, "lib_ms")}
+    # the calls timed beside the kernel, summed like its own time
+    first = next(results[(n, s)] for c in calls.values() for n, s in c
+                 if n == name)
+    besides = {key: r["beside"] for key, r in results.items()}
+    for field in first["beside"]:
+        out[field] = per_key(besides, calls, name, field)
+    return out
+
+
+def side_by_side(runs, key):
+    """{path: [{name: {key: v}} per turn]} -> 'name default v, v / variants
+    v, v; ...' (each path's turns in order)."""
+    names = runs["default"][0]
+    return "; ".join(f"{n} " + " / ".join(
+        ", ".join(f"{run[n][key]:.2f}" for run in runs[p]) for p in PATHS)
+        for n in names)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="also profile one request and one train step; "
-                         "write tables and traces here")
+                    help="also profile one request and one train step per "
+                         "path; write tables and traces here")
+    ap.add_argument("--small-only", action="store_true",
+                    help="build and check every kernel at the small shapes "
+                         "only; no report")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
 
     smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    if opts.small_only:
+        phase_kernels({}, dev)
+        log(f"[small-only] all kernels agree at the small shapes; "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
 
     t0 = time.perf_counter()
     net, _ = load_checkpoint(str(CKPT), 3, device=dev)
-    ri = RoutedInference(net, maxdisp=MAXDISP, device=dev)
+    ris = {p: RoutedInference(net, maxdisp=MAXDISP, device=dev, variants=v)
+           for p, v in PATHS.items()}
     log(f"[serve] restored {CKPT.relative_to(ROOT)} task 3 "
         f"({len(net.archis)} task paths) in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
@@ -899,42 +1162,62 @@ def main() -> int:
                     for _ in range(REQUESTS)]
                 for t in range(len(net.archis))}
 
-    args_of = {}
-    plain, calls = phase_record(ri, requests, args_of)
-    plain_train, train_calls = phase_record_train(dev, args_of)
+    args_of, plain, calls, plain_train, train_calls = {}, {}, {}, {}, {}
+    for p in PATHS:
+        plain[p], calls[p] = phase_record(ris[p], requests, args_of, p)
+        plain_train[p], train_calls[p] = phase_record_train(dev, args_of, p)
     log(f"[record] {len(args_of)} distinct kernel signatures on the main "
-        "paths")
+        f"paths ({time.perf_counter() - t_start:.0f} s)")
     results = phase_kernels(args_of, dev)
     del args_of
     torch.cuda.empty_cache()
-    serve_launches, per_task = phase_serve(ri, requests, plain)
-    train_launches, per_cfg = phase_train(dev, plain_train)
+    log(f"[kernels] done ({time.perf_counter() - t_start:.0f} s)")
+    # launches summed over a kernel's runs; times kept per turn
+    launches = dict.fromkeys(KERNELS, 0)
+    per_task, per_cfg, outs = ({p: [] for p in PATHS} for _ in range(3))
+    for p in TURNS:
+        n, tasks, o = phase_serve(ris[p], requests, plain[p], p,
+                                  outs["default"][0] if p != "default"
+                                  else None)
+        per_task[p].append(tasks)
+        outs[p].append(o)
+        launches = {k: launches[k] + n[k] for k in KERNELS}
+    for p in TURNS:
+        n, cfgs = phase_train(dev, plain_train[p], p)
+        per_cfg[p].append(cfgs)
+        launches = {k: launches[k] + n[k] for k in KERNELS}
     if opts.profile is not None:
-        phase_profile(ri, requests, dev, opts.profile)
+        phase_profile(ris, requests, dev, opts.profile)
 
-    # serving kernels report per request over the task paths (and carry
-    # their training numbers apart); backward kernels per training step of
-    # task 0's stage, the configuration that runs all seven
-    train0 = {"task0": train_calls["task0"]}
+    # serving kernels report per request over the task paths of their path
+    # (and carry their training numbers apart); backward kernels per
+    # training step of task 0's stage, the configuration that runs them all
     report = []
     for name, k in KERNELS.items():
-        serving = name in SERVE_KERNELS
+        p = k["path"]
+        train0 = {"task0": train_calls[p]["task0"]}
         entry = {"name": name, "route": "cuda", "source": k["source"],
                  "replaces": k["replaces"],
-                 "launches": serve_launches[name] + train_launches[name],
+                 "launches": launches[name],
                  "max_abs_err": k["max_err"],
-                 **kernel_numbers(results, calls if serving else train0, name),
-                 "status": "ok"}
-        if serving:
+                 **kernel_numbers(results, calls[p] if k["serving"]
+                                  else train0, name),
+                 "path": p, "status": "ok"}
+        if k["serving"]:
             entry["train_step"] = kernel_numbers(results, train0, name)
         report.append(entry)
     log("[report] serving kernels: times per request summed over its calls "
-        "and averaged over the task paths; every kernel's \"train_step\" or "
-        "own numbers: per step of task 0's stage; launches: serve run + "
-        f"train run. ms/request: " + ", ".join(
-            f"task {t} {v['ms_per_request']:.2f}" for t, v in per_task.items())
-        + "; ms/step: " + ", ".join(
-            f"{n} {v['ms_per_step']:.1f}" for n, v in per_cfg.items()))
+        "and averaged over the task paths of their path; every kernel's "
+        "\"train_step\" or own numbers: per step of task 0's stage; "
+        "launches: every serve and train run of both paths")
+    log("[report] ms/request (default turns 1, 4 / variants turns 2, 3): "
+        + side_by_side(per_task, "ms_per_request"))
+    log("[report] peak GB per request (default / variants): "
+        + side_by_side(per_task, "peak_gb"))
+    for key in ("ms_per_step", "pairs_per_s", "peak_gb"):
+        log(f"[report] {key} (default turns 1, 4 / variants turns 2, 3): "
+            + side_by_side(per_cfg, key))
+    log(f"[report] total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

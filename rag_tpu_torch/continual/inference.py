@@ -16,6 +16,7 @@ import torch
 from rag_tpu_torch.metrics.meters import AverageMeterDict
 from rag_tpu_torch.models.growable import GrowableStereoNet
 from rag_tpu_torch.models.stereo import stereo_forward
+from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.train.trainer import make_eval_step
 
 
@@ -23,13 +24,15 @@ class RoutedInference:
     """Per-frame path selection + disparity prediction/evaluation.
 
     The net's tensors are moved to ``device``; inputs are numpy arrays or
-    tensors (B,H,W,3) and go to the same device."""
+    tensors (B,H,W,3) and go to the same device. ``variants`` picks the
+    optional kernels every request runs (see ops.variants)."""
 
     def __init__(self, net: GrowableStereoNet, maxdisp: int = 192,
-                 device="cuda"):
+                 device="cuda", variants: KernelVariants = DEFAULT):
         self.device = torch.device(device)
         self.net = net.to(self.device)
         self.maxdisp = maxdisp
+        self.variants = variants
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
@@ -42,7 +45,8 @@ class RoutedInference:
     def _predict_task(self, t: int, left, right) -> np.ndarray:
         specs, params, stats = self.net.path(self.net.archis[t])
         disp, _ = stereo_forward(specs, params, stats, self._tensor(left),
-                                 self._tensor(right), maxdisp=self.maxdisp)
+                                 self._tensor(right), maxdisp=self.maxdisp,
+                                 variants=self.variants)
         return disp.cpu().numpy()
 
     def predict(self, left, right, task: Optional[int] = None) -> np.ndarray:
@@ -67,7 +71,8 @@ class RoutedInference:
             for t in np.unique(tasks):
                 idx = np.nonzero(tasks == t)[0]
                 specs, params, stats = self.net.path(self.net.archis[int(t)])
-                step = make_eval_step(specs, maxdisp=self.maxdisp)
+                step = make_eval_step(specs, maxdisp=self.maxdisp,
+                                      variants=self.variants)
                 outs.append(step(params, stats, self._tensor(b["left"][idx]),
                                  self._tensor(b["right"][idx]),
                                  self._tensor(b["disparity"][idx])))

@@ -12,7 +12,11 @@ normalizes with its frozen running statistics.
 The hand-written kernels run here and in the backward: kernel B
 (ops.cvstem, with E and F behind it) for ``stem_3d0``, kernel A
 (ops.conv3d, with D) for every 3x3x3 conv after it, and kernel C
-(ops.disparity, with G) for the head.
+(ops.disparity, with G) for the head. ``variants`` (ops.variants.
+KernelVariants, all off by default) swaps in the counterparts of rag_tpu's
+off-by-default TPU kernels: kernel H for A (``conv3d_dblock``), kernel I
+for the matrix resizes (``resize_kernel``), and the shear stem, tap maps
+plus kernels J and K, for B, E and F (``shear_stem``).
 """
 
 from __future__ import annotations
@@ -24,11 +28,14 @@ import torch
 
 from rag_tpu_torch.ops.cell import CellSpec, apply_cell, apply_cell_cf
 from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, bn_fold
+from rag_tpu_torch.ops.conv3d import needs_grad
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf, batch_norm_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 from rag_tpu_torch.ops.cvstem import cvstem_brc, cvstem_conv
 from rag_tpu_torch.ops.disparity import fused_soft_argmin
 from rag_tpu_torch.ops.resize import resize_cf
+from rag_tpu_torch.ops.shear import shear_stem_brc, shear_stem_z
+from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 MAXDISP = 192
 FILTER_MULTIPLIER = 4
@@ -136,20 +143,21 @@ def _std_stem(spec) -> bool:
 
 
 def run_matching_cf(specs, params, stats, x: torch.Tensor, y: torch.Tensor,
-                    num_disp: int, train_sites, new_stats) -> torch.Tensor:
+                    num_disp: int, train_sites, new_stats,
+                    variants: KernelVariants = DEFAULT) -> torch.Tensor:
     """Channel-first matching: NHWC features x, y (B,h,w,C) -> matching
     cost (B, num_disp, h, w). New BatchNorm statistics land in
-    ``new_stats``."""
+    ``new_stats``; ``variants`` picks the optional kernels."""
 
     def appl(name, v, *extra):
         spec = specs[name]
         train = name in train_sites
         if isinstance(spec, CellSpec):
             out, st = apply_cell_cf(spec, params[name], stats[name], extra[0],
-                                    v, train)
+                                    v, train, variants)
         else:
             out, st = apply_convbr_cf(spec, params[name], stats[name], v,
-                                      train)
+                                      train, variants)
         new_stats[name] = st
         return out
 
@@ -158,7 +166,21 @@ def run_matching_cf(specs, params, stats, x: torch.Tensor, y: torch.Tensor,
         x_cf = x.permute(0, 3, 1, 2).contiguous()
         y_cf = y.permute(0, 3, 1, 2).contiguous()
         p0, st0 = params["stem_3d0"], stats["stem_3d0"]
-        if "stem_3d0" in train_sites:
+        train0 = "stem_3d0" in train_sites
+        if variants.shear_stem and (train0 or needs_grad(
+                x_cf, y_cf, p0["w"], p0["scale"], p0["bias"])):
+            # rag_tpu/models/stereo.py's shear branch: tap maps + kernel J
+            # at identity affine (K behind it), then BatchNorm, train-mode
+            # or frozen
+            z = shear_stem_z(x_cf, y_cf, p0["w"], num_disp)
+            stem0, new_stats["stem_3d0"] = batch_norm_cf(z, p0, st0, train0)
+            stem0 = torch.relu(stem0)
+        elif variants.shear_stem:
+            # serving: frozen BN and ReLU folded into kernel J's epilogue
+            a, b = bn_fold(p0, st0)
+            stem0 = shear_stem_brc(x_cf, y_cf, p0["w"], a, b, num_disp, True)
+            new_stats["stem_3d0"] = st0
+        elif train0:
             # kernel B at identity affine, then train-mode BatchNorm
             z = cvstem_conv(x_cf, y_cf, p0["w"], num_disp)
             stem0, new_stats["stem_3d0"] = batch_norm_cf(z, p0, st0, True)
@@ -178,9 +200,9 @@ def run_matching_cf(specs, params, stats, x: torch.Tensor, y: torch.Tensor,
 
     d, h, w = stem0.shape[1], stem0.shape[3], stem0.shape[4]
     v = appl("last_12_3d", s_p)
-    v = resize_cf(v, d // 2, h // 2, w // 2, True)
+    v = resize_cf(v, d // 2, h // 2, w // 2, True, variants)
     v = appl("last_6_3d", v)
-    v = resize_cf(v, d, h, w, True)
+    v = resize_cf(v, d, h, w, True, variants)
     mat = appl("last_3_3d", v)          # (B, D, 1, h, w)
     return mat[:, :, 0]
 
@@ -202,11 +224,13 @@ def full_fp32():
 
 def stereo_forward(specs: Mapping[str, Spec], params, stats,
                    left: torch.Tensor, right: torch.Tensor,
-                   train_sites=frozenset(), maxdisp: int = MAXDISP):
+                   train_sites=frozenset(), maxdisp: int = MAXDISP,
+                   variants: KernelVariants = DEFAULT):
     """Full pipeline. left/right: (B,H,W,3) NHWC float32 on one device.
     Returns (disp, new_stats): disparity (B,H,W) in pixels, and the stats
     tree after the train-mode BatchNorms of ``train_sites`` (every other
-    site's stats carried through)."""
+    site's stats carried through). ``variants`` picks the optional kernels
+    of the matching net (all off: kernels A-G)."""
     new_stats: Dict = {}
     with full_fp32():
         both = torch.cat([left, right], dim=0)
@@ -214,7 +238,7 @@ def stereo_forward(specs: Mapping[str, Spec], params, stats,
                             new_stats, halves=2)
         bsz = left.shape[0]
         mat = run_matching_cf(specs, params, stats, f[:bsz], f[bsz:],
-                              maxdisp // 3, train_sites, new_stats)
+                              maxdisp // 3, train_sites, new_stats, variants)
         disp = fused_soft_argmin(mat.contiguous(), maxdisp, 3)
     for name in stats:
         new_stats.setdefault(name, stats[name])

@@ -23,6 +23,7 @@ import torch
 from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf
 from rag_tpu_torch.ops.resize import resize_cf, resize_linear, scale_dimension
+from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 STEPS = 3
 BLOCK_MULTIPLIER = 3
@@ -161,33 +162,35 @@ def apply_cell(spec: CellSpec, params, stats, s0, s1, train: bool = False,
     return _run_dag(spec, s0, s1, run_merged, -1, new_stats)
 
 
-def apply_cell_cf(spec: CellSpec, params, stats, s0, s1, train: bool = False):
+def apply_cell_cf(spec: CellSpec, params, stats, s0, s1, train: bool = False,
+                  variants: KernelVariants = DEFAULT):
     """3D matching cell on channel-first (B, D, C, H, W) volumes. Returns
-    (y, new_stats)."""
+    (y, new_stats). ``variants`` picks the kernels of its resizes and
+    3x3x3 convs."""
     assert spec.ndim == 3
     axes = (1, 3, 4)
     new_stats = {"ops": {}}
     if spec.downup != 0:
         scale = 0.5 if spec.downup == -1 else 2.0
         target = tuple(scale_dimension(s1.shape[a], scale) for a in axes)
-        s1 = resize_cf(s1, *target, True)
+        s1 = resize_cf(s1, *target, True, variants)
     s1_spatial = tuple(s1.shape[a] for a in axes)
     if tuple(s0.shape[a] for a in axes) != s1_spatial:
-        s0 = resize_cf(s0, *s1_spatial, True)
+        s0 = resize_cf(s0, *s1_spatial, True, variants)
     if spec.c_pp != spec.c_out:
         s0, new_stats["pre"] = apply_convbr_cf(
             ConvBRSpec(3, spec.c_pp, spec.c_out, 1), params["pre"],
-            stats["pre"], s0, train)
+            stats["pre"], s0, train, variants)
     s1, new_stats["prep"] = apply_convbr_cf(
         ConvBRSpec(3, spec.c_p, spec.c_out, 1), params["prep"],
-        stats["prep"], s1, train)
+        stats["prep"], s1, train, variants)
     c = spec.c_out
 
     def run_merged(edges, x):
         keys = [str(e) for e in edges]
         mp, ms = _merged(params["ops"], stats["ops"], keys)
         out, ns = apply_convbr_cf(ConvBRSpec(3, c, c * len(edges), 3), mp, ms,
-                                  x, train)
+                                  x, train, variants)
         return ({e: out[:, :, i * c:(i + 1) * c] for i, e in enumerate(edges)},
                 _split_stats(ns, keys, c))
 

@@ -1,6 +1,7 @@
 """The 3x3x3 stride-1 conv of the matching net on a channel-first
-(B, D, Cin, H, W) volume: kernel A (forward, and dx in the backward) and
-kernel D (the weight gradient), with ``conv3d_brc_cf`` differentiable.
+(B, D, Cin, H, W) volume: kernel A (forward, and dx in the backward), its
+D-blocked variant kernel H, and kernel D (the weight gradient), with
+``conv3d_brc_cf`` differentiable.
 
 Kernel A, ``conv3d_affine_cf``: conv + per-channel affine + optional ReLU.
 Replaces the TPU kernel rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf
@@ -31,6 +32,10 @@ rag_tpu/ops/pallas_conv3d.py::_fwd_cf does; the backward (_bwd_cf) is
 kernel A again on the masked cotangent with flipped, io-transposed,
 scale-folded weights for dx, and kernel D post-scaled for dW.
 
+Kernel H, ``conv3d_dblock_cf``: the D-blocked mode of kernel A, taken for
+the forward and dx where ``KernelVariants.conv3d_dblock`` is set (see its
+docstring and rag_tpu_torch/csrc/conv3d_dblock.cu).
+
 Weights stay in the reference's (3, 3, 3, Cin, Cout) layout; the wrappers
 pack them per call. Each wrapper runs its plain PyTorch version for CPU
 tensors only; on a CUDA tensor it launches its kernel or raises.
@@ -42,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from rag_tpu_torch.ops import cuda_lib
+from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 
 def co_tile(cout: int) -> int:
@@ -113,35 +119,72 @@ def needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def conv3d_affine_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, relu: bool) -> torch.Tensor:
-    """Kernel A: conv + affine (+ReLU), no autograd. x (B,D,Cin,H,W) f32;
-    w (3,3,3,Cin,Cout); scale/bias (Cout,)."""
-    if not x.is_cuda:
-        return conv3d_brc_cf_plain(x, w, scale, bias, relu)
+def _launch_conv(wrapper, entry: str, x: torch.Tensor, w: torch.Tensor,
+                 scale: torch.Tensor, bias: torch.Tensor,
+                 relu: bool) -> torch.Tensor:
+    """Launch a forward conv kernel (A, or H for the D-blocked variant):
+    both take the same packed weights and padded affine. Counts one launch
+    on ``wrapper``."""
+    name = wrapper.__name__
     b, d, cin, h, wd = x.shape
     cout = w.shape[4]
     if (w.shape[:4] != (3, 3, 3, cin) or scale.shape != (cout,)
             or bias.shape != (cout,)):
-        raise ValueError(f"conv3d_affine_cf: unsupported x {tuple(x.shape)}, "
+        raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
-    check_f32("conv3d_affine_cf", x, w, scale, bias)
+    check_f32(name, x, w, scale, bias)
     co_t = co_tile(cout)
     n_pad = -(-cout // co_t) * co_t
     wpk = pack_weights(w, co_t)
     sc = pad_channels(scale, n_pad)
     bi = pad_channels(bias, n_pad)
     out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=torch.float32)
-    rc = cuda_lib.lib().rag_conv3d_brc_cf(
+    rc = getattr(cuda_lib.lib(), entry)(
         x.data_ptr(), wpk.data_ptr(), sc.data_ptr(), bi.data_ptr(),
         out.data_ptr(), b, d, cin, h, wd, cout, co_t, int(relu),
         cuda_lib.stream_ptr(x))
-    conv3d_affine_cf.launches += 1
-    cuda_lib.check(rc, "conv3d_affine_cf")
+    wrapper.launches += 1
+    cuda_lib.check(rc, name)
     return out
 
 
+def conv3d_affine_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, relu: bool) -> torch.Tensor:
+    """Kernel A: conv + affine (+ReLU), no autograd. x (B,D,Cin,H,W) f32;
+    w (3,3,3,Cin,Cout); scale/bias (Cout,)."""
+    if not x.is_cuda:
+        return conv3d_brc_cf_plain(x, w, scale, bias, relu)
+    return _launch_conv(conv3d_affine_cf, "rag_conv3d_brc_cf", x, w, scale,
+                        bias, relu)
+
+
 conv3d_affine_cf.launches = 0
+
+
+def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, relu: bool) -> torch.Tensor:
+    """Kernel H, the D-blocked mode of kernel A (``KernelVariants.
+    conv3d_dblock``): the same function, so the same plain version and
+    arguments. Replaces rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf's
+    D-blocked form (body _conv3d_kernel_v4). CUDA source:
+    rag_tpu_torch/csrc/conv3d_dblock.cu. Bound: operations, as A. Each
+    block stages a 6-plane input window once for 4 output planes and every
+    thread keeps 4 planes x 2 pixels x up to 16 channels in registers.
+    Takes every D (tail planes are masked), where the TPU kernel needed
+    d % db == 0."""
+    if not x.is_cuda:
+        return conv3d_brc_cf_plain(x, w, scale, bias, relu)
+    return _launch_conv(conv3d_dblock_cf, "rag_conv3d_dblock_cf", x, w, scale,
+                        bias, relu)
+
+
+conv3d_dblock_cf.launches = 0
+
+
+def _conv_kernel(dblock: bool):
+    """Kernel H's wrapper for the D-blocked variant, else kernel A's, looked
+    up when called (so a caller that swaps a module attribute is seen)."""
+    return conv3d_dblock_cf if dblock else conv3d_affine_cf
 
 
 def conv3d_dw_cf(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
@@ -181,24 +224,27 @@ def launch_dw(wrapper, entry: str, inputs, dz: torch.Tensor,
 
 
 class _Conv3dBRC(torch.autograd.Function):
-    """Differentiable kernel A (rag_tpu/ops/pallas_conv3d.py:_fwd_cf and
-    _bwd_cf). The backward skips dx or dW where no gradient is needed, so
-    a frozen site costs no kernel D launch."""
+    """Differentiable kernel A, or kernel H where ``dblock``
+    (rag_tpu/ops/pallas_conv3d.py:_fwd_cf and _bwd_cf, which run the
+    D-blocked kernel for the forward and dx under RAG_TPU_CONV3D_V4). The
+    backward skips dx or dW where no gradient is needed, so a frozen site
+    costs no kernel D launch."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, bias, relu):
+    def forward(ctx, x, w, scale, bias, relu, dblock):
         cout = w.shape[4]
-        z = conv3d_affine_cf(x, w, x.new_ones(cout), x.new_zeros(cout), False)
+        z = _conv_kernel(dblock)(x, w, x.new_ones(cout), x.new_zeros(cout),
+                                 False)
         sh = (1, 1, -1, 1, 1)
         y = z * scale.reshape(sh) + bias.reshape(sh)
         ctx.save_for_backward(x, w, scale, bias, z)
-        ctx.relu = relu
+        ctx.relu, ctx.dblock = relu, dblock
         return torch.relu(y) if relu else y
 
     @staticmethod
     def backward(ctx, g):
         x, w, scale, bias, z = ctx.saved_tensors
-        need_x, need_w, need_scale, need_bias, _ = ctx.needs_input_grad
+        need_x, need_w, need_scale, need_bias = ctx.needs_input_grad[:4]
         sh = (1, 1, -1, 1, 1)
         gm = g * ((z * scale.reshape(sh) + bias.reshape(sh)) > 0) \
             if ctx.relu else g
@@ -212,17 +258,20 @@ class _Conv3dBRC(torch.autograd.Function):
             cin = w.shape[3]
             wf = (w.flip((0, 1, 2)).transpose(3, 4)
                   * scale.reshape(1, 1, 1, -1, 1)).contiguous()
-            dx = conv3d_affine_cf(gm, wf, x.new_ones(cin), x.new_zeros(cin),
-                                  False)
+            dx = _conv_kernel(ctx.dblock)(gm, wf, x.new_ones(cin),
+                                          x.new_zeros(cin), False)
         if need_w:
             dw = conv3d_dw_cf(x, gm) * scale.reshape(1, 1, 1, 1, -1)
-        return dx, dw, dscale, dbias, None
+        return dx, dw, dscale, dbias, None, None
 
 
 def conv3d_brc_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, relu: bool) -> torch.Tensor:
+                  bias: torch.Tensor, relu: bool,
+                  variants: KernelVariants = DEFAULT) -> torch.Tensor:
     """Fused conv + affine (+ReLU), differentiable in x, w, scale, bias.
-    x (B,D,Cin,H,W) f32; w (3,3,3,Cin,Cout); scale/bias (Cout,)."""
+    x (B,D,Cin,H,W) f32; w (3,3,3,Cin,Cout); scale/bias (Cout,). Kernel A,
+    or kernel H where ``variants.conv3d_dblock``."""
+    dblock = variants.conv3d_dblock
     if needs_grad(x, w, scale, bias):
-        return _Conv3dBRC.apply(x, w, scale, bias, relu)
-    return conv3d_affine_cf(x, w, scale, bias, relu)
+        return _Conv3dBRC.apply(x, w, scale, bias, relu, dblock)
+    return _conv_kernel(dblock)(x, w, scale, bias, relu)

@@ -21,6 +21,7 @@ from rag_tpu_torch.ops.convbr import (
     bn_fold,
     ema,
 )
+from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 
 def batch_norm_cf(x: torch.Tensor, params, stats, train: bool = False,
@@ -40,21 +41,22 @@ def batch_norm_cf(x: torch.Tensor, params, stats, train: bool = False,
 
 
 def apply_convbr_cf(spec: ConvBRSpec, params, stats, x: torch.Tensor,
-                    train: bool = False):
+                    train: bool = False, variants: KernelVariants = DEFAULT):
     """conv -> BN -> ReLU on a (B, D, C, H, W) volume. Returns
-    (y, new_stats)."""
+    (y, new_stats). ``variants`` picks the 3x3x3 conv's kernel."""
     assert spec.ndim == 3
     if spec.kernel == 3 and spec.stride == 1:
         if spec.bn and not train:
             a, b = bn_fold(params, stats)
             return conv3d_brc_cf(x.contiguous(), params["w"], a, b,
-                                 spec.relu), stats
+                                 spec.relu, variants), stats
         ones = torch.ones(spec.cout, device=x.device)
         zeros = torch.zeros(spec.cout, device=x.device)
         if not spec.bn:
             return conv3d_brc_cf(x.contiguous(), params["w"], ones, zeros,
-                                 spec.relu), stats
-        y = conv3d_brc_cf(x.contiguous(), params["w"], ones, zeros, False)
+                                 spec.relu, variants), stats
+        y = conv3d_brc_cf(x.contiguous(), params["w"], ones, zeros, False,
+                          variants)
     elif spec.kernel == 1 and spec.stride == 1:
         y = torch.einsum("bdihw,io->bdohw", x, params["w"][0, 0, 0])
     else:

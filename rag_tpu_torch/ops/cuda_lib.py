@@ -41,6 +41,10 @@ SIGNATURES = {
     "rag_cvstem_dw": [_P] * 5 + [_I] * 7 + [_P],
     "rag_cvstem_dxy": [_P] * 5 + [_I] * 6 + [_P],
     "rag_soft_argmin_bwd": [_P] * 10 + [_I] * 9 + [_P],
+    "rag_conv3d_dblock_cf": [_P] * 5 + [_I] * 8 + [_P],
+    "rag_resize_taps_cf": [_P] * 8 + [_I] * 11 + [_P],
+    "rag_shear_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "rag_shear_adj": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,229 @@
+"""The shear-collapsed matching stem: kernel J (forward) and kernel K (its
+adjoint), taken for ``stem_3d0`` where ``KernelVariants.shear_stem`` is set.
+
+Counterpart of rag_tpu/ops/pallas_shear.py. The stem conv over the concat
+cost volume collapses: the volume is a shear of the right feature map, so
+``conv3d(cost_volume_cf(X, Y, D), w3)`` is eighteen (3,1) convs on the
+feature maps (``tap_maps``, plain PyTorch, as rag_tpu leaves them to XLA)
+plus per-disparity masked, shifted sums of those tap maps (kernel J). The
+sums are linear in the tap maps, so the backward is one adjoint kernel (K)
+and autograd carries its result through the tap-map convs to dX, dY and dW.
+
+Kernel J, ``shear_forward``: replaces rag_tpu/ops/pallas_shear.py::
+shear_forward (body _shear_kernel), with the per-channel affine and
+optional ReLU of its epilogue. Kernel K, ``shear_adjoint``: replaces
+rag_tpu/ops/pallas_shear.py::shear_adjoint (body _shear_adj_kernel). CUDA
+source for both: rag_tpu_torch/csrc/shear.cu, where the index rule, the
+bounds (bytes for both: ~0.06 ms for J at the eval geometry, ~0.04 ms for
+K at the train shape) and the designs are written out. K's threads each own
+their outputs and loop over d, so no float atomics are needed.
+
+rag_tpu engages the shear only where its VMEM estimate fits 12 MB
+(``shear_vmem_ok``), which keeps it off at 480x960. J and K take every
+shape, so the port serves 480x960 through them too; the same holds for
+D == W, ``num_disp`` past W and any W.
+
+Each wrapper runs its plain PyTorch version for CPU tensors only; on a CUDA
+tensor it launches its kernel or raises. The plain versions are masked,
+shifted sums with direct indexing (never a roll that wraps) and keep the
+input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from rag_tpu_torch.ops import cuda_lib
+from rag_tpu_torch.ops.conv3d import check_f32, needs_grad
+
+# term order: t = 3 * dd + dw
+T9 = tuple((dd, dw) for dd in range(3) for dw in range(3))
+
+
+def _shift_w(x_cf: torch.Tensor, s: int) -> torch.Tensor:
+    """Shift along W by s in {-1, 0, 1} with zero fill (x[..., j + s])."""
+    if s == 0:
+        return x_cf
+    if s > 0:
+        return F.pad(x_cf[..., s:], (0, s))
+    return F.pad(x_cf[..., :s], (-s, 0))
+
+
+def _conv31(x_cf: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(3,1)-kernel convs over H of a (B, C, H, W) map, several at once.
+    k: (n, 3, C, co), n kernels of (kh, cin, cout) -> (B, n, co, H, W)."""
+    n, _, c, co = k.shape
+    weight = k.permute(0, 3, 2, 1).reshape(n * co, c, 3, 1)
+    y = F.conv2d(x_cf, weight.to(x_cf.dtype), padding=(1, 0))
+    return y.reshape(x_cf.shape[0], n, co, *y.shape[2:])
+
+
+def tap_maps(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor):
+    """The eighteen per-tap feature maps, stacked (B, 9, co, H, W) x2:
+    px[t] = conv31(shift_w(X, dw-1), Wx[dd, :, dw]),
+    py[t] = conv31(Y, Wy[dd, :, dw]), t = 3*dd + dw. Four conv2d calls:
+    one per W shift of X (its three D taps at once) and one for Y."""
+    c = x_cf.shape[1]
+    if w3.shape[:3] != (3, 3, 3) or w3.shape[3] != 2 * c:
+        raise ValueError(f"tap_maps: w3 {tuple(w3.shape)} for C={c}")
+    wx, wy = w3[:, :, :, :c], w3[:, :, :, c:]       # (dd, kh, dw, cin, co)
+    px = torch.stack([_conv31(_shift_w(x_cf, dw - 1), wx[:, :, dw])
+                      for dw in range(3)], dim=2)   # (B, dd, dw, co, H, W)
+    b, _, _, co, h, w = px.shape
+    py = _conv31(y_cf, wy.permute(0, 2, 1, 3, 4).reshape(9, 3, c, co))
+    return px.reshape(b, 9, co, h, w), py
+
+
+def _masks(num_disp: int, w: int, dd: int, dw: int, device):
+    """For term (dd, dw): the shift s (D, 1), and the px and py masks
+    (D, W) of the forward assembly (D-pad gate, diagonal, W edge)."""
+    d = torch.arange(num_disp, device=device)[:, None]
+    j = torch.arange(w, device=device)[None, :]
+    s = d + dd - dw
+    gate = (d + dd - 1 >= 0) & (d + dd - 1 <= num_disp - 1)
+    xm = (j >= s) & gate
+    return s, xm, xm & (j <= w - dw)
+
+
+def shear_forward_plain(px: torch.Tensor, py: torch.Tensor,
+                        scale: torch.Tensor, bias: torch.Tensor,
+                        num_disp: int, relu: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel J: (B, 9, co, H, W) tap maps ->
+    (B, num_disp, co, H, W), terms added in the kernel's order."""
+    b, _, co, h, w = px.shape
+    j = torch.arange(w, device=px.device)[None, :]
+    acc = px.new_zeros((b, num_disp, co, h, w))
+    zero = px.new_zeros(())
+    for t, (dd, dw) in enumerate(T9):
+        s, xm, ym = _masks(num_disp, w, dd, dw, px.device)
+        acc = acc + torch.where(xm[None, :, None, None, :], px[:, t, None],
+                                zero)
+        # py at column j - s, read only where the mask holds
+        shifted = py[:, t][..., (j - s).clamp(0, w - 1)]   # (B, co, H, D, W)
+        acc = acc + torch.where(ym[None, :, None, None, :],
+                                shifted.permute(0, 3, 1, 2, 4), zero)
+    y = acc * scale.reshape(1, 1, -1, 1, 1) + bias.reshape(1, 1, -1, 1, 1)
+    return torch.relu(y) if relu else y
+
+
+def shear_adjoint_plain(dz: torch.Tensor, num_disp: int):
+    """Plain PyTorch version of kernel K: dz (B, D, co, H, W) -> (dpx, dpy),
+    each (B, 9, co, H, W), the sums over d of the forward's masked terms
+    taken back to their sources."""
+    b, nd, co, h, w = dz.shape
+    if nd != num_disp:
+        raise ValueError(f"shear_adjoint: dz {tuple(dz.shape)}, num_disp "
+                         f"{num_disp}")
+    i = torch.arange(w, device=dz.device)[None, :]
+    d = torch.arange(nd, device=dz.device)[:, None].expand(nd, w)
+    zero = dz.new_zeros(())
+    dpx, dpy = [], []
+    for dd, dw in T9:
+        s, xm, ym = _masks(nd, w, dd, dw, dz.device)
+        dpx.append(torch.where(xm[None, :, None, None, :], dz, zero).sum(1))
+        # dpy[i] takes dz at the output column j = i + s that read it
+        jj = i + s
+        keep = (jj >= 0) & (jj < w) & ym.gather(1, jj.clamp(0, w - 1))
+        vals = dz[:, d, :, :, jj.clamp(0, w - 1)]          # (D, W, B, co, H)
+        dpy.append(torch.where(keep[:, :, None, None, None], vals, zero)
+                   .sum(0).permute(1, 2, 3, 0))
+    return torch.stack(dpx, 1), torch.stack(dpy, 1)
+
+
+def shear_forward(px: torch.Tensor, py: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor, num_disp: int,
+                  relu: bool = False) -> torch.Tensor:
+    """Kernel J, no autograd: (B, 9, co, H, W) tap maps -> (B, num_disp,
+    co, H, W) stem output, times scale plus bias (+ReLU) per channel."""
+    if not px.is_cuda:
+        return shear_forward_plain(px, py, scale, bias, num_disp, relu)
+    b, nine, co, h, w = px.shape
+    if (nine != 9 or py.shape != px.shape or scale.shape != (co,)
+            or bias.shape != (co,) or num_disp < 1):
+        raise ValueError(f"shear_forward: px {tuple(px.shape)}, py "
+                         f"{tuple(py.shape)}, num_disp {num_disp}")
+    check_f32("shear_forward", px, py, scale, bias)
+    out = torch.empty((b, num_disp, co, h, w), device=px.device,
+                      dtype=torch.float32)
+    rc = cuda_lib.lib().rag_shear_fwd(
+        px.data_ptr(), py.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, num_disp, co, h, w, int(relu),
+        cuda_lib.stream_ptr(px))
+    shear_forward.launches += 1
+    cuda_lib.check(rc, "shear_forward")
+    return out
+
+
+shear_forward.launches = 0
+
+
+def shear_adjoint(dz: torch.Tensor, num_disp: int):
+    """Kernel K, no autograd: dz (B, num_disp, co, H, W) -> (dpx, dpy),
+    both (B, 9, co, H, W)."""
+    if not dz.is_cuda:
+        return shear_adjoint_plain(dz, num_disp)
+    b, nd, co, h, w = dz.shape
+    if nd != num_disp:
+        raise ValueError(f"shear_adjoint: dz {tuple(dz.shape)}, num_disp "
+                         f"{num_disp}")
+    check_f32("shear_adjoint", dz)
+    dpx = torch.empty((b, 9, co, h, w), device=dz.device, dtype=torch.float32)
+    dpy = torch.empty_like(dpx)
+    rc = cuda_lib.lib().rag_shear_adj(
+        dz.data_ptr(), dpx.data_ptr(), dpy.data_ptr(), b, nd, co, h, w,
+        cuda_lib.stream_ptr(dz))
+    shear_adjoint.launches += 1
+    cuda_lib.check(rc, "shear_adjoint")
+    return dpx, dpy
+
+
+shear_adjoint.launches = 0
+
+
+class _ShearOp(torch.autograd.Function):
+    """rag_tpu/ops/pallas_shear.py::_shear_op: J at identity affine
+    forward, K backward."""
+
+    @staticmethod
+    def forward(ctx, px, py, num_disp):
+        co = px.shape[2]
+        ctx.num_disp = num_disp
+        return shear_forward(px, py, px.new_ones(co), px.new_zeros(co),
+                             num_disp)
+
+    @staticmethod
+    def backward(ctx, g):
+        dpx, dpy = shear_adjoint(g.contiguous(), ctx.num_disp)
+        return dpx, dpy, None
+
+
+def shear_op(px: torch.Tensor, py: torch.Tensor,
+             num_disp: int) -> torch.Tensor:
+    """The masked shear assembly at identity affine, differentiable in the
+    tap maps."""
+    px, py = px.contiguous(), py.contiguous()
+    if needs_grad(px, py):
+        return _ShearOp.apply(px, py, num_disp)
+    co = px.shape[2]
+    return shear_forward(px, py, px.new_ones(co), px.new_zeros(co), num_disp)
+
+
+def shear_stem_z(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
+                 num_disp: int) -> torch.Tensor:
+    """conv3d(cost_volume_cf(x, y, D), w3) via the shear collapse, pre-BN:
+    (B, C, H, W) features -> (B, D, co, H, W), differentiable in x_cf,
+    y_cf and w3 (autograd through the tap-map convs, K for the assembly)."""
+    px, py = tap_maps(x_cf, y_cf, w3)
+    return shear_op(px, py, num_disp)
+
+
+def shear_stem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
+                   scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
+                   relu: bool = True) -> torch.Tensor:
+    """The serving stem, no autograd: tap maps, then kernel J with the
+    folded frozen BatchNorm and the ReLU in its epilogue (as kernel B takes
+    them on the default path)."""
+    px, py = tap_maps(x_cf, y_cf, w3)
+    return shear_forward(px.contiguous(), py.contiguous(), scale, bias,
+                         num_disp, relu)

@@ -22,6 +22,7 @@ import torch
 
 from rag_tpu_torch.metrics.stereo import stereo_metrics
 from rag_tpu_torch.models.stereo import MAXDISP, stereo_forward
+from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.train.losses import smooth_l1_masked
 
 
@@ -112,13 +113,15 @@ def supervised_loss(disp, disp_gt, maxdisp: int = MAXDISP):
 def make_train_step(specs: Mapping, bn_sites: frozenset,
                     optimizer: SGDMomentum,
                     trainable_sites: Optional[frozenset] = None,
-                    maxdisp: int = MAXDISP):
+                    maxdisp: int = MAXDISP,
+                    variants: KernelVariants = DEFAULT):
     """Returns step(params, stats, opt_state, lr, left, right, disp_gt) ->
     (params, stats, opt_state, scalars).
 
     bn_sites: sites whose BatchNorm runs in train mode (batch statistics
     and a running update). trainable_sites: sites whose params update;
-    defaults to bn_sites.
+    defaults to bn_sites. variants: the optional kernels the forward and
+    its backward run (see ops.variants).
 
     The step differentiates the forward (the fused head's loss, through
     kernels A-G on the card) with respect to the trainable sites' leaves
@@ -150,7 +153,8 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
         with torch.enable_grad():
             disp, new_stats = stereo_forward(specs, p_diff, stats, left, right,
                                              train_sites=bn_sites,
-                                             maxdisp=maxdisp)
+                                             maxdisp=maxdisp,
+                                             variants=variants)
             loss, mask = supervised_loss(disp, disp_gt, maxdisp)
             grads = torch.autograd.grad(loss, list(handles.values()),
                                         allow_unused=True)
@@ -165,14 +169,15 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
     return step
 
 
-def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP):
+def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
+                   variants: KernelVariants = DEFAULT):
     """step(params, stats, left, right, disp_gt) -> dict of 0-d tensors:
     the frozen-BN serving forward, the masked loss and the stereo metrics."""
 
     @torch.inference_mode()
     def step(params, stats, left, right, disp_gt):
         disp, _ = stereo_forward(specs, params, stats, left, right,
-                                 maxdisp=maxdisp)
+                                 maxdisp=maxdisp, variants=variants)
         loss, mask = supervised_loss(disp, disp_gt, maxdisp)
         return {"loss": loss, **stereo_metrics(disp, disp_gt, mask)}
 

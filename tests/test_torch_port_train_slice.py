@@ -61,6 +61,7 @@ from rag_tpu.train import trainer as jtrainer
 from rag_tpu_torch.continual.state import load_checkpoint
 from rag_tpu_torch.convert import to_torch
 from rag_tpu_torch.models.stereo import build_head_specs, build_site_specs
+from rag_tpu_torch.ops.variants import DEFAULT
 from rag_tpu_torch.search.genotype import default_genotype
 from rag_tpu_torch.train.trainer import cosine_lr, make_optimizer, make_train_step
 
@@ -141,7 +142,7 @@ class _Pair:
     """One training state held by both packages, stepped together."""
 
     def __init__(self, specs_j, specs_t, params, stats, bn, trainable,
-                 maxdisp, dtype):
+                 maxdisp, dtype, variants=DEFAULT):
         self.trainable = frozenset(trainable)
         self.dtype = dtype
         params, stats = _cast(params, dtype), _cast(stats, dtype)
@@ -154,7 +155,7 @@ class _Pair:
         opt_t = make_optimizer(WD)
         self.step_t = make_train_step(specs_t, frozenset(bn), opt_t,
                                       trainable_sites=self.trainable,
-                                      maxdisp=maxdisp)
+                                      maxdisp=maxdisp, variants=variants)
         p_t = to_torch(params, "cpu")
         self.state_t = [p_t, to_torch(stats, "cpu"), opt_t.init(p_t)]
 
