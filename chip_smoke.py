@@ -28,7 +28,10 @@ exception:
                    backward) against their plain versions on the card, at
                    every recorded shape and at small shapes, and time kernel,
                    plain version and a library yardstick with CUDA events
-                   (H beside kernel A, J and K beside kernels B and E+F);
+                   (H beside kernel A, J and K beside kernels B and E+F;
+                   A with one output plane per block and with its 4-byte
+                   copies, E at other chunk sizes); kernel A's weight pass
+                   is held bit for bit against its plain version;
   6. serve         per path, in turns (default, variants, variants,
                    default): set every launch count to 0, answer 3 requests
                    per task path through RoutedInference.predict, read the
@@ -48,7 +51,11 @@ exception:
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
 build-and-check) and prints no report.
 
-Float32 throughout: TF32 is off for cuDNN and matmuls.
+Float32 throughout: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
+products are 3xTF32, which keeps float32 accuracy (its lines also carry
+bound_tf32x3_ms, the bound of those products at the TF32 peak, beside the
+float32 bound_ms). Kernel A's and E's lines carry their plan: A's tile,
+splits and blocks per launch; E's chunks, blocks and workspace.
 """
 
 from __future__ import annotations
@@ -103,6 +110,7 @@ TURNS = ("default", "variants", "variants", "default")  # serve, train timing
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # TF32 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances, with their reasons:
@@ -163,12 +171,15 @@ def _bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def conv_bound(x_shape, cout):
+def conv_bound(x_shape, cout, tf32x3=False):
     """Multiply-adds that read an in-range voxel (padding zeros excluded);
-    bytes: input, weights, affine read once, output written once."""
+    bytes: input, weights, affine read once, output written once. With
+    tf32x3: kernel A's three TF32 products of each on the tensor cores."""
     b, d, cin, h, w = x_shape
     flops = 2.0 * b * _taps(d) * _taps(h) * _taps(w) * cin * cout
     nbytes = 4.0 * (b * d * h * w * (cin + cout) + 27 * cin * cout + 2 * cout)
+    if tf32x3:
+        return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     return _bound(flops, nbytes)
 
 
@@ -408,6 +419,52 @@ def _dblock_beside(x, w, scale, bias, relu):
             lambda: conv3d_mod.conv3d_affine_cf(x, w, scale, bias, relu)}
 
 
+def _conv_beside(x, w, scale, bias, relu):
+    """Kernel A with one output plane per block, and with its 4-byte copy
+    path (x copied to an address 4 bytes past a 16-byte boundary)."""
+    plan = conv3d_mod.conv_plan(*x.shape, w.shape[4])
+    one = plan._replace(db=1, blocks=plan.blocks // -(-x.shape[1] // plan.db)
+                        * x.shape[1])
+    x4 = torch.empty(x.numel() + 1, device=x.device)[1:].view_as(x)
+    x4.copy_(x)
+    return {"db1_ms": lambda: conv3d_mod.launch_conv(x, w, scale, bias, relu,
+                                                     one),
+            "copy4_ms": lambda: conv3d_mod.launch_conv(x4, w, scale, bias,
+                                                       relu, plan)}
+
+
+def _dxy_beside(dz, w3, nd):
+    """Kernel E at chunks of 4 and 8 planes beside its plan's."""
+    b, d, cout, h, w = dz.shape
+    plan = cvstem_mod.dxy_plan(b, d, cout, w3.shape[3] // 2, h, w)
+    runs = {}
+    for chunk in (4, 8):
+        n = -(-d // chunk)
+        p = plan._replace(chunk=chunk, n_chunks=n,
+                          blocks=plan.blocks // plan.n_chunks * n,
+                          workspace=plan.workspace // plan.n_chunks * n)
+        runs[f"chunk{chunk}_ms"] = (lambda p=p:
+                                    cvstem_mod.launch_dxy(dz, w3, p))
+    return runs
+
+
+def _conv_plan(x, w, scale, bias, relu):
+    """Kernel A's plan for the call: its tile, splits, planes per block and
+    blocks, and the 3xTF32 tensor-core bound beside the float32 one."""
+    p = conv3d_mod.conv_plan(*x.shape, w.shape[4])
+    return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
+            "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db,
+            "bound_tf32x3_ms": conv_bound(x.shape, w.shape[4], True)}
+
+
+def _dxy_plan(dz, w3, nd):
+    """Kernel E's plan for the call: chunks of planes, blocks, workspace."""
+    b, d, cout, h, w = dz.shape
+    p = cvstem_mod.dxy_plan(b, d, cout, w3.shape[3] // 2, h, w)
+    return {"n_chunks": p.n_chunks, "chunk": p.chunk, "blocks": p.blocks,
+            "workspace_bytes": 4 * p.workspace}
+
+
 def _shear_beside(px, py, scale, bias, nd, relu=False):
     """The whole shear stem (tap maps + J) against kernel B, on random
     features of the same shapes (they set the work, not the values)."""
@@ -447,8 +504,8 @@ KERNELS = {
         replaces="rag_tpu/ops/pallas_conv3d.py:257",
         sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
         bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
-        library=_conv_library, tol="conv", path="default",
-        serving=True),
+        library=_conv_library, beside=_conv_beside, plan=_conv_plan,
+        tol="conv", path="default", serving=True),
     "cvstem_brc": dict(
         site=(cvstem_mod, "cvstem_affine"),
         plain=cvstem_mod.cvstem_brc_plain,
@@ -482,12 +539,13 @@ KERNELS = {
     "cvstem_dxy": dict(
         site=(cvstem_mod, "cvstem_dxy"),
         plain=cvstem_mod.cvstem_dxy_plain,
-        source="rag_tpu_torch/csrc/cvstem_bwd.cu",
+        source="rag_tpu_torch/csrc/cvstem_dxy.cu",
         replaces="rag_tpu/ops/pallas_cvstem.py:384",
         sig=lambda dz, w3, nd: (tuple(dz.shape), w3.shape[3], nd),
         bound=lambda dz, w3, nd: cvstem_dxy_bound(dz.shape, w3.shape[3], nd),
         magnitude=lambda dz, w3, nd: (dz.abs(), w3.abs(), nd),
-        library=_dxy_library, tol="bwd", path="default",
+        library=_dxy_library, beside=_dxy_beside, plan=_dxy_plan, tol="bwd",
+        path="default",
         serving=False),
     "cvstem_dw": dict(
         site=(cvstem_mod, "cvstem_dw"),
@@ -568,7 +626,11 @@ def small_cases(dev, rng):
     """A few small shapes per kernel: Cout 1 with W not a multiple of 8,
     merged Cout 48, D not a multiple of kernel H's 4 planes, a D == W cost
     volume, num_disp past W, W = 13, a 4-tap and a 3-tap adjoint resize
-    table, batch 2 for every kernel."""
+    table, batch 2 for every kernel; for kernel A's plans W = 80 (a 16-wide
+    tile), Cout 12 and 36 (N padded to 16 and 48) and Cin 12 and 36 (K
+    padded per stage, three stages per plane at 36); for kernel E's, D not
+    a multiple of its chunk (2 planes at small shapes, 16 at the last,
+    train-sized case) and W past one 64-wide tile."""
     def t(*shape, s=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * s)
                                 .astype(np.float32)).to(dev)
@@ -581,7 +643,10 @@ def small_cases(dev, rng):
                                         (1, 3, 12, 8, 13, 1, False),
                                         (2, 3, 16, 9, 70, 48, True),
                                         (1, 7, 12, 12, 40, 16, True),
-                                        (1, 1, 4, 8, 8, 4, False)]:
+                                        (1, 1, 4, 8, 8, 4, False),
+                                        (1, 3, 12, 10, 80, 36, True),
+                                        (2, 2, 36, 9, 80, 12, False),
+                                        (1, 5, 36, 20, 33, 36, True)]:
         args = (t(b, d, cin, h, w), t(3, 3, 3, cin, cout, s=0.2),
                 *aff(cout), relu)
         cases.append(("conv3d_brc_cf", args))
@@ -590,7 +655,8 @@ def small_cases(dev, rng):
                                        t(b, d, cout, h, w))))
     for b, c, h, w, nd, cout in [(1, 12, 8, 20, 6, 12), (1, 2, 8, 8, 8, 3),
                                  (2, 3, 6, 11, 5, 4), (1, 2, 5, 6, 9, 3),
-                                 (1, 3, 8, 13, 13, 12)]:
+                                 (1, 3, 8, 13, 13, 12),
+                                 (2, 12, 9, 130, 11, 12)]:
         x, y, w3 = t(b, c, h, w), t(b, c, h, w), t(3, 3, 3, 2 * c, cout, s=0.2)
         dz = t(b, nd, cout, h, w)
         cases.append(("cvstem_brc", (x, y, w3, *aff(cout), nd, True)))
@@ -600,6 +666,9 @@ def small_cases(dev, rng):
         cases.append(("shear_forward", (px.contiguous(), py.contiguous(),
                                         *aff(cout), nd, True)))
         cases.append(("shear_adjoint", (dz, nd)))
+    # kernel E at the train shape with D = 60: chunks of 16, the last of 12
+    cases.append(("cvstem_dxy", (t(4, 60, 12, 64, 128),
+                                 t(3, 3, 3, 2 * STEM_C, 12, s=0.2), 60)))
     for shape, target, tr in [((1, 6, 5, 16, 24), (3, 8, 12), False),
                               ((2, 6, 5, 16, 24), (12, 32, 48), False),
                               ((1, 6, 3, 11, 13), (4, 6, 7), False),
@@ -819,15 +888,38 @@ def check_kernel(name, args, kw, reps, beside):
         extra = {f: cuda_ms(fn, reps)
                  for f, fn in k["beside"](*args, **kw).items()}
     bound_ms, bound_by = k["bound"](*args, **kw)
+    plan = k["plan"](*args, **kw) if "plan" in k else {}
     return dict(err=err, tol=tol, ok=bool(err <= tol), ms=ms,
                 plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
                 bound_ops_ms=bound_ms if bound_by == "operations" else 0.0,
-                bound_by=bound_by, beside=extra)
+                bound_by=bound_by, beside=extra, plan=plan)
+
+
+def check_weight_pass(dev, rng):
+    """Kernel A's first pass (the weights' TF32 split, in mma fragment
+    order) against its plain version, bit for bit: K padded per stage (Cin
+    12, 36), N padded (Cout 1, 12, 36), a Cout split, 16 channels a stage."""
+    for cin, cout, b, d, h, w in [(12, 12, 1, 64, 160, 320), (12, 1, 1, 64,
+                                  160, 320), (36, 36, 1, 3, 10, 80),
+                                  (16, 48, 1, 16, 40, 80), (48, 16, 4, 16,
+                                  16, 32), (4, 8, 1, 64, 160, 320)]:
+        wt = torch.from_numpy(rng.standard_normal((3, 3, 3, cin, cout))
+                              .astype(np.float32)).to(dev)
+        plan = conv3d_mod.conv_plan(b, d, cin, h, w, cout)
+        got = conv3d_mod.pack_weights_cuda(wt, plan)
+        want = conv3d_mod.pack_weights_tf32(wt, plan)
+        if not torch.equal(got, want):
+            raise SystemExit(f"chip_smoke: kernel A's weight pass differs "
+                             f"from pack_weights_tf32 at Cin {cin} Cout "
+                             f"{cout}")
+    log("[kernels] kernel A's weight pass equals pack_weights_tf32 bit for "
+        "bit at 6 plans")
 
 
 def phase_kernels(args_of, dev):
     results, failures = {}, []
     rng = np.random.default_rng(7)
+    check_weight_pass(dev, rng)
     todo = [("main", name, sig, args, kw)
             for (name, sig), (args, kw) in args_of.items()]
     todo += [("small", name, KERNELS[name]["sig"](*args), args, {})
@@ -841,7 +933,7 @@ def phase_kernels(args_of, dev):
                 "max_abs_err": r["err"], "tol": r["tol"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                **r["beside"]}
+                **r["beside"], **r["plan"]}
         log(f"[kernels] {json.dumps(line)}")
         if not r["ok"]:
             failures.append(f"{name} {where} {sig}: max_abs_err {r['err']:.3g}"
@@ -919,8 +1011,9 @@ def phase_serve(ri, requests, plain, path, default_outs=None):
 
 # kinds of device kernel in a trace, matched in order on the lower-cased
 # name (the port's A-K first; kernel_kind sorts B, D and F apart)
-KINDS = (("conv3x3x3_affine_kernel", "A"), ("conv3x3x3_dblock_kernel", "H"),
-         ("dw_reduce_kernel", "D/F reduce"), ("cvstem_dxy_kernel", "E"),
+KINDS = (("conv3d_tf32x3_kernel", "A"), ("conv3d_pack_kernel", "A"),
+         ("conv3x3x3_dblock_kernel", "H"),
+         ("dw_reduce_kernel", "D/F reduce"), ("cvstem_dxy", "E"),
          ("soft_argmin_kernel", "C"), ("soft_argmin_fold_kernel", "G"),
          ("soft_argmin_gather_kernel", "G"), ("resize_taps_kernel", "I"),
          ("shear_fwd_kernel", "J"), ("shear_adj_kernel", "K"),
@@ -1113,12 +1206,17 @@ def kernel_numbers(results, calls, name):
            "bound_ms": bound,
            "bound_by": "operations" if bound_ops >= bound / 2 else "bytes",
            "library_ms": per_key(results, calls, name, "lib_ms")}
-    # the calls timed beside the kernel, summed like its own time
+    # the calls timed beside the kernel and A's tensor-core bound, summed
+    # like its own time
     first = next(results[(n, s)] for c in calls.values() for n, s in c
                  if n == name)
     besides = {key: r["beside"] for key, r in results.items()}
     for field in first["beside"]:
         out[field] = per_key(besides, calls, name, field)
+    if "bound_tf32x3_ms" in first["plan"]:
+        plans = {key: r["plan"] for key, r in results.items()}
+        out["bound_tf32x3_ms"] = per_key(plans, calls, name,
+                                         "bound_tf32x3_ms")
     return out
 
 

@@ -1,20 +1,19 @@
-// Shared tile engine for the 3x3x3 convolution kernels of the port:
-//   kernel A (conv3d.cu): conv over a stored channel-first volume;
-//   kernel B (cvstem.cu): conv over the concat cost volume, built on the fly
-//                         from the two feature maps (never stored);
-//   kernel E (cvstem_bwd.cu): the stem's dx conv, through the same staging
-//                         and FMA loops (stage_slab, fma_slab).
+// The float32 tile engine of kernel B (cvstem.cu): the matching stem's
+// 3x3x3 conv over the concat cost volume, built on the fly from the two
+// feature maps (never stored). Its two input policies, VolumeSrc (a stored
+// channel-first volume) and CostVolumeSrc (the cost volume), also feed the
+// weight-gradient engine of kernels D and F (conv3x3x3_dw.cuh). Kernel A
+// (conv3d.cu) and kernel E (cvstem_dxy.cu) have engines of their own.
 //
-// Both compute, for a channel-first (B, D, Cin, H, W) input v,
+// It computes, for a channel-first (B, D, Cin, H, W) input v,
 //   out[b, d, co, h, w] = act(scale[co] * sum_{kd,kh,kw,ci}
 //        v[b, d+kd-1, ci, h+kh-1, w+kw-1] * W[kd, kh, kw, ci, co] + bias[co])
 // with zero padding of 1 on D, H and W (the SAME 3x3x3 stride-1 conv of
-// rag_tpu/ops/pallas_conv3d.py and rag_tpu/ops/pallas_cvstem.py). The only
-// difference between A and B is where v comes from: a Src policy's load().
+// rag_tpu/ops/pallas_cvstem.py); v comes from a Src policy's load().
 //
-// Bound: at the eval geometry these convs do 27*2*Cin*Cout FLOP per output
-// voxel and move ~4*(Cin+Cout) bytes, so they sit above the fp32 ridge of
-// the H100 (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte) and are bound by
+// Bound: at the eval geometry the stem does 27*2*Cin*Cout FLOP per output
+// voxel and moves far fewer bytes, so it sits above the fp32 ridge of the
+// H100 (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte) and is bound by
 // operations. The design therefore keeps every FMA operand on chip:
 //   * one block per (b, d, 8x64 output tile, Cout chunk); the haloed input
 //     slab for 4 input channels and all three D taps is staged in shared

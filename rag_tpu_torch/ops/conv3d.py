@@ -6,13 +6,18 @@ D-blocked variant kernel H, and kernel D (the weight gradient), with
 Kernel A, ``conv3d_affine_cf``: conv + per-channel affine + optional ReLU.
 Replaces the TPU kernel rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf
 (kernel bodies _conv3d_kernel and, at the eval geometry, the H-tiled
-_conv3d_kernel_v3). CUDA source: rag_tpu_torch/csrc/conv3d.cu with the tile
-engine in csrc/conv3x3x3_tile.cuh. Bound on the H100: operations. At the
-eval geometry ``stem_3d1`` alone is 2*27*12*12*64*160*320 = 25.5 GFLOP on a
-157 MB input (0.38 ms at the fp32 non-tensor peak of 67 TFLOP/s against
-0.09 ms to move its bytes). The design stages a haloed input slab per
-block in shared memory and keeps 4 pixels x up to 16 output channels per
-thread in registers, so every FMA reads its operands on chip.
+_conv3d_kernel_v3). CUDA source: rag_tpu_torch/csrc/conv3d.cu. Bound on the
+H100: operations. At the eval geometry ``stem_3d1`` alone is
+2*27*12*12*64*160*320 = 25.5 GFLOP on a 157 MB input (0.38 ms at the fp32
+non-tensor peak of 67 TFLOP/s, 0.15 ms for the three TF32 products of each
+at 495 TFLOP/s, against 0.09 ms to move its bytes). The design is an
+implicit GEMM on the tensor cores (``mma.sync`` m16n8k8 in 3xTF32: float32
+accuracy from three TF32 products), with the input slab of each stage
+streaming into shared memory while the previous one is multiplied.
+``conv_plan`` picks the tile, the Cout split and the output planes per
+block per shape; ``split_tf32`` and ``pack_weights_tf32`` are the plain
+version of the kernel's first pass, which splits the weights and writes
+them in the mma's fragment order.
 
 Kernel D, ``conv3d_dw_cf``: the weight gradient
 ``dW[kd,kh,kw,ci,co] = sum_{b,d,h,w} x[b,d+kd-1,ci,h+kh-1,w+kw-1] dz[b,d,co,h,w]``.
@@ -32,16 +37,20 @@ rag_tpu/ops/pallas_conv3d.py::_fwd_cf does; the backward (_bwd_cf) is
 kernel A again on the masked cotangent with flipped, io-transposed,
 scale-folded weights for dx, and kernel D post-scaled for dW.
 
-Kernel H, ``conv3d_dblock_cf``: the D-blocked mode of kernel A, taken for
-the forward and dx where ``KernelVariants.conv3d_dblock`` is set (see its
-docstring and rag_tpu_torch/csrc/conv3d_dblock.cu).
+Kernel H, ``conv3d_dblock_cf``: the D-blocked float32 form of the same
+conv (rag_tpu's v4 tiling), taken for the forward and dx where
+``KernelVariants.conv3d_dblock`` is set (see its docstring and
+rag_tpu_torch/csrc/conv3d_dblock.cu).
 
-Weights stay in the reference's (3, 3, 3, Cin, Cout) layout; the wrappers
-pack them per call. Each wrapper runs its plain PyTorch version for CPU
+Weights stay in the reference's (3, 3, 3, Cin, Cout) layout; kernel A's
+first pass and the other wrappers pack them per call. Each wrapper runs its plain PyTorch version for CPU
 tensors only; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -74,6 +83,174 @@ def pack_weights(w: torch.Tensor, co_t: int) -> torch.Tensor:
 
 def pad_channels(v: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(v, (0, n - v.shape[0])).contiguous()
+
+
+# Kernel A's tiling (csrc/conv3d.cu): 4 warps, each MT m-tiles of 16 pixels
+# along W by NT n-tiles of 8 output channels; a tile is tw wide, 64*MT/tw rows
+CONV_TILES = ((4, 64), (4, 32), (4, 16), (2, 64), (2, 32), (2, 16))
+# (mt, nt, db) the kernel is compiled for: m-tiles per warp, n-tiles per
+# block, output planes per block
+CONV_INSTANCES = frozenset(
+    [(2, nt, 1) for nt in (1, 2, 3, 4, 6)]
+    + [(4, nt, 1) for nt in (1, 2, 3, 4)] + [(2, 1, 4), (2, 2, 4), (4, 1, 4)])
+CONV_NT = (1, 2, 3, 4, 6)
+CONV_MAX_CC = 16              # input channels per stage
+CONV_SMS = 132                # streaming multiprocessors of the H100 SXM
+CONV_MIN_BLOCKS = 2 * CONV_SMS
+CONV_MIN_VOXELS = CONV_MIN_BLOCKS * 128
+
+
+class ConvPlan(NamedTuple):
+    """Kernel A's blocking of one call (csrc/conv3d.cu's arguments)."""
+    mt: int           # m-tiles (16 pixels) per warp
+    nt: int           # n-tiles (8 output channels) per block
+    tw: int           # tile columns
+    th: int           # tile rows
+    n_split: int      # blocks across Cout
+    cc: int           # input channels per stage
+    n_cc: int         # stages per input plane
+    ksteps: int       # k-steps of 8 per stage (9 * cc padded)
+    n_wt: int         # tiles along W
+    n_ht: int         # tiles along H
+    db: int           # output planes per block
+    blocks: int       # blocks per launch
+    smem: int         # dynamic shared memory per block, bytes
+
+
+def _chan_stride(th: int, tw: int) -> int:
+    """Floats per staged channel (csrc/conv3d.cu::chan_stride): rows of
+    tw + 8 columns, the channel 8 mod 32 floats long."""
+    return ((th + 2) * (tw + 8) + 23) // 32 * 32 + 8
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, d: int, cin: int, h: int, w: int,
+              cout: int) -> ConvPlan:
+    """Kernel A's tile, Cout split and planes per block for x (b, d, cin,
+    h, w) -> cout channels. Where the output holds at least
+    CONV_MIN_VOXELS voxels (b*d*h*w) the grid gets at least two waves of
+    blocks; a smaller shape gets no tile less than half full where one
+    exists. Among those, the least estimated time: the blocks' warp
+    instructions (per staged input plane: 8 per 16 pixels and k-step for
+    the A fragments, 6 per staged row; per output plane and tap: 7 per
+    16 pixels, k-step and n-tile for the B load and 3 mma), scaled up
+    where the grid leaves an SM fewer than four blocks; then bigger and
+    wider tiles. Four output planes share a block (db = 4) where that was
+    measured faster on the H100: one n-tile, or two with at least 12 input
+    channels per stage, and tiles of at least four rows."""
+    n_cc = -(-cin // CONV_MAX_CC)
+    cc = -(-cin // n_cc)
+    ksteps = -(-9 * cc // 8)
+    n_nt = -(-cout // 8)
+    splits = []
+    for n_split in range(1, n_nt + 1):
+        need = -(-n_nt // n_split)
+        if need > CONV_NT[-1]:
+            continue
+        nt = min(x for x in CONV_NT if x >= need)
+        if (n_split - 1) * nt * 8 < cout:      # no split left empty
+            splits.append((n_split, nt))
+    big = b * d * h * w >= CONV_MIN_VOXELS
+    cands = []
+    for mt, tw in CONV_TILES:
+        th = 64 * mt // tw
+        n_wt, n_ht = -(-w // tw), -(-h // th)
+        fill = ((w - (n_wt - 1) * tw) / tw) * ((h - (n_ht - 1) * th) / th)
+        m_tiles = th * tw // 16
+        for (n_split, nt), db in ((s_, db) for s_ in splits for db in (1, 4)):
+            if (mt, nt, db) not in CONV_INSTANCES or (
+                    db == 4 and (th < 4 or (nt == 2 and cc < 12))):
+                continue
+            blocks = n_wt * n_ht * -(-d // db) * b * n_split
+            per_block = (db + 2) * n_cc * (m_tiles * ksteps * 8
+                                           + cc * (th + 2) * 6) \
+                + 3 * db * n_cc * m_tiles * ksteps * 7 * nt
+            cs = _chan_stride(th, tw)
+            plan = ConvPlan(mt, nt, tw, th, n_split, cc, n_cc, ksteps, n_wt,
+                            n_ht, db, blocks, 4 * (2 * cc * cs + 8 * ksteps))
+            ok = blocks >= CONV_MIN_BLOCKS if big else fill >= 0.5
+            # the work of all blocks, scaled up where the grid leaves an SM
+            # fewer than four blocks to hide latency with
+            key = (blocks * per_block * (1 + 1 / min(blocks / CONV_SMS, 4)),
+                   -th * tw, -tw)
+            cands.append((not ok, key, plan))
+    return min(cands, key=lambda c: (c[0], c[1]))[2]
+
+
+def conv_block_region(plan: ConvPlan, bx: int, by: int, bz: int):
+    """The outputs block (bx, by, bz) of a plan computes, as the kernel
+    decodes its index: (b, output planes, output channels, rows, columns),
+    the last four as ranges not clipped to the volume."""
+    wt, ht = bx % plan.n_wt, bx // plan.n_wt
+    b, ns = bz // plan.n_split, bz % plan.n_split
+    return (b, range(by * plan.db, (by + 1) * plan.db),
+            range(ns * plan.nt * 8, (ns + 1) * plan.nt * 8),
+            range(ht * plan.th, (ht + 1) * plan.th),
+            range(wt * plan.tw, (wt + 1) * plan.tw))
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 explicit mantissa bits) as the card's
+    cvt.rna.tf32.f32 does: to nearest, ties away from zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(w: torch.Tensor) -> torch.Tensor:
+    """[hi | lo] of the flattened weights in one buffer: hi = tf32(w) (as
+    tf32_round) and lo = w - hi exactly, the 13 bits hi drops. w must be
+    contiguous."""
+    flat = w.reshape(-1)
+    n = flat.numel()
+    buf = flat.new_empty(2 * n)
+    hi = buf[:n]
+    torch.add(flat.view(torch.int32), 0x1000, out=hi.view(torch.int32))
+    hi.view(torch.int32).bitwise_and_(-0x2000)
+    torch.sub(flat, hi, out=buf[n:])
+    return buf
+
+
+def fragment_floats(plan: ConvPlan) -> int:
+    """Floats of kernel A's B fragments for a plan."""
+    return plan.n_split * 3 * plan.n_cc * plan.ksteps * plan.nt * 32 * 4
+
+
+def pack_weights_tf32(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """Plain version of kernel A's first pass (csrc/conv3d.cu::
+    conv3d_pack_kernel, which computes the same bits on the card, where
+    these torch ops would cost the wrapper more host time than the kernel
+    takes at the quarter-resolution shapes).
+    (3,3,3,Cin,Cout) -> the B fragments of split_tf32's hi and lo for a
+    plan, (n_split, 3 * n_cc, ksteps, nt, 32 lanes, 4),
+    where lane g*4+t of k-step ks in stage (kd, chunk) holds hi(k, n),
+    hi(k+4, n), lo(k, n), lo(k+4, n) for k = 8*ks + t and
+    n = (split*nt + n-tile)*8 + g, and k = (3*kh + kw) * cc + ci reads
+    input channel chunk*cc + ci; zero past 9*cc, Cin and Cout. lo is
+    w - hi exactly; the tensor cores read its TF32 bits, which leaves
+    hi + tf32(lo) within 2^-22 of w."""
+    cin, cout = w.shape[3], w.shape[4]
+    n_w = 27 * cin * cout
+    table = torch.cat([split_tf32(w), w.new_zeros(1)])
+    stage = torch.arange(3 * plan.n_cc).reshape(-1, 1, 1, 1, 1, 1, 1)
+    ks = torch.arange(plan.ksteps).reshape(1, -1, 1, 1, 1, 1, 1)
+    n_tile = torch.arange(plan.n_split * plan.nt).reshape(1, 1, -1, 1, 1, 1, 1)
+    g = torch.arange(8).reshape(1, 1, 1, -1, 1, 1, 1)
+    t = torch.arange(4).reshape(1, 1, 1, 1, -1, 1, 1)
+    part = torch.arange(2).reshape(1, 1, 1, 1, 1, -1, 1)   # hi, lo
+    kk = torch.arange(2).reshape(1, 1, 1, 1, 1, 1, -1)     # k, k + 4
+    kd, chunk = stage // plan.n_cc, stage % plan.n_cc
+    k = ks * 8 + t + 4 * kk
+    ci = chunk * plan.cc + k % plan.cc
+    n = n_tile * 8 + g
+    valid = (k < 9 * plan.cc) & (ci < cin) & (n < cout)
+    idx = torch.where(valid, ((kd * 9 + k // plan.cc) * cin + ci) * cout + n
+                      + part * n_w, torch.full_like(k, 2 * n_w))
+    # (stage, ks, split*nt, g, t, part, kk) -> (split, stage, ks, nt, lane, 4)
+    idx = idx.reshape(3 * plan.n_cc, plan.ksteps, plan.n_split, plan.nt, 8,
+                      4, 4)
+    idx = idx.permute(2, 0, 1, 3, 4, 5, 6).reshape(
+        plan.n_split, 3 * plan.n_cc, plan.ksteps, plan.nt, 32, 4)
+    return table[idx.to(w.device)]
 
 
 def _shifted(x: torch.Tensor):
@@ -119,33 +296,12 @@ def needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _launch_conv(wrapper, entry: str, x: torch.Tensor, w: torch.Tensor,
-                 scale: torch.Tensor, bias: torch.Tensor,
-                 relu: bool) -> torch.Tensor:
-    """Launch a forward conv kernel (A, or H for the D-blocked variant):
-    both take the same packed weights and padded affine. Counts one launch
-    on ``wrapper``."""
-    name = wrapper.__name__
-    b, d, cin, h, wd = x.shape
-    cout = w.shape[4]
-    if (w.shape[:4] != (3, 3, 3, cin) or scale.shape != (cout,)
-            or bias.shape != (cout,)):
+def _check_conv_args(name, x, w, scale, bias):
+    if (x.dim() != 5 or w.dim() != 5 or w.shape[:4] != (3, 3, 3, x.shape[2])
+            or scale.shape != (w.shape[4],) or bias.shape != (w.shape[4],)):
         raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     check_f32(name, x, w, scale, bias)
-    co_t = co_tile(cout)
-    n_pad = -(-cout // co_t) * co_t
-    wpk = pack_weights(w, co_t)
-    sc = pad_channels(scale, n_pad)
-    bi = pad_channels(bias, n_pad)
-    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=torch.float32)
-    rc = getattr(cuda_lib.lib(), entry)(
-        x.data_ptr(), wpk.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-        out.data_ptr(), b, d, cin, h, wd, cout, co_t, int(relu),
-        cuda_lib.stream_ptr(x))
-    wrapper.launches += 1
-    cuda_lib.check(rc, name)
-    return out
 
 
 def conv3d_affine_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -154,8 +310,43 @@ def conv3d_affine_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     w (3,3,3,Cin,Cout); scale/bias (Cout,)."""
     if not x.is_cuda:
         return conv3d_brc_cf_plain(x, w, scale, bias, relu)
-    return _launch_conv(conv3d_affine_cf, "rag_conv3d_brc_cf", x, w, scale,
-                        bias, relu)
+    _check_conv_args("conv3d_affine_cf", x, w, scale, bias)
+    return launch_conv(x, w, scale, bias, relu,
+                       conv_plan(*x.shape, w.shape[4]))
+
+
+def launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, relu: bool, plan: ConvPlan) -> torch.Tensor:
+    """Launch kernel A (its weight pass, then the conv) on the current
+    stream with a given plan. Counts one launch on ``conv3d_affine_cf``."""
+    b, d, cin, h, wd = x.shape
+    cout = w.shape[4]
+    frag = torch.empty(fragment_floats(plan), device=x.device,
+                       dtype=torch.float32)
+    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=torch.float32)
+    rc = cuda_lib.lib().rag_conv3d_brc_cf(
+        x.data_ptr(), w.data_ptr(), frag.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, d, cin, h, wd, cout, int(relu),
+        plan.mt, plan.nt, plan.tw, plan.n_split, plan.cc, plan.db,
+        cuda_lib.stream_ptr(x))
+    conv3d_affine_cf.launches += 1
+    cuda_lib.check(rc, "conv3d_affine_cf")
+    return out
+
+
+def pack_weights_cuda(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """Kernel A's weight pass alone on a CUDA tensor, shaped as
+    pack_weights_tf32's result (chip_smoke.py holds the two bit for
+    bit)."""
+    check_f32("pack_weights_cuda", w)
+    frag = torch.empty(fragment_floats(plan), device=w.device,
+                       dtype=torch.float32)
+    rc = cuda_lib.lib().rag_conv3d_pack(
+        w.data_ptr(), frag.data_ptr(), w.shape[3], w.shape[4], plan.nt,
+        plan.n_split, plan.cc, cuda_lib.stream_ptr(w))
+    cuda_lib.check(rc, "pack_weights_cuda")
+    return frag.reshape(plan.n_split, 3 * plan.n_cc, plan.ksteps, plan.nt, 32,
+                        4)
 
 
 conv3d_affine_cf.launches = 0
@@ -174,8 +365,23 @@ def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     d % db == 0."""
     if not x.is_cuda:
         return conv3d_brc_cf_plain(x, w, scale, bias, relu)
-    return _launch_conv(conv3d_dblock_cf, "rag_conv3d_dblock_cf", x, w, scale,
-                        bias, relu)
+    _check_conv_args("conv3d_dblock_cf", x, w, scale, bias)
+    b, d, cin, h, wd = x.shape
+    cout = w.shape[4]
+    co_t = co_tile(cout)
+    n_pad = -(-cout // co_t) * co_t
+    # the packed operands stay referenced until the launch is queued
+    wpk = pack_weights(w, co_t)
+    sc = pad_channels(scale, n_pad)
+    bi = pad_channels(bias, n_pad)
+    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=torch.float32)
+    rc = cuda_lib.lib().rag_conv3d_dblock_cf(
+        x.data_ptr(), wpk.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+        out.data_ptr(), b, d, cin, h, wd, cout, co_t, int(relu),
+        cuda_lib.stream_ptr(x))
+    conv3d_dblock_cf.launches += 1
+    cuda_lib.check(rc, "conv3d_dblock_cf")
+    return out
 
 
 conv3d_dblock_cf.launches = 0

@@ -17,17 +17,21 @@ Kernel E, ``cvstem_dxy``: with dv = conv3d(dz, flipped io-transposed w3),
 ``dX[c,h,j] = sum_d [j >= d] dv[d,c,h,j]`` and
 ``dY[c,h,j] = sum_d [j+d < W] dv[d,C+c,h,j+d]``. Replaces
 rag_tpu/ops/pallas_cvstem.py::cvstem_dxy_pallas (body _cvstem_dxy_kernel).
-CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu. Bound: operations, 32.6
-GFLOP at the train shape (0.49 ms). One block owns a tile of dX and dY
-pixels and loops over d, staging dz at the tile's columns for dX and at
-the columns shifted by +d for dY, so each pixel's sum over d stays in
-registers and no block shares an output with another.
+CUDA source: rag_tpu_torch/csrc/cvstem_dxy.cu. Bound: operations, 24.0
+GFLOP at the train shape counting only the products the adjoint keeps
+(0.358 ms at 67 TFLOP/s). The dX and dY halves run in separate blocks, the
+planes d in chunks across blocks (``dxy_plan``); each block stages every dz
+plane of its chunk once, for all 12 output channels of its half, and the
+partial sums of the chunks are added in chunk order by a second kernel.
+``dxy_window``, ``dxy_tap_column`` and ``dxy_ring_slot`` are the kernel's
+index rules, which the CPU tests emulate.
 
 Kernel F, ``cvstem_dw``: the stem's weight gradient, kernel D's scheme
 with the input slab built from X and Y by the cost-volume load rule.
 Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas (body
 _cvstem_dw_kernel). CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu. Bound:
-operations, 32.6 GFLOP at the train shape (0.49 ms).
+operations, 24.0 GFLOP at the train shape (0.358 ms), the forward's
+products that read a voxel of the volume that is not a structural zero.
 
 ``cvstem_conv`` (pre-affine, for a stem whose BatchNorm trains) and
 ``cvstem_brc`` (frozen BN folded into the affine) follow
@@ -38,6 +42,9 @@ CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -54,7 +61,75 @@ from rag_tpu_torch.ops.conv3d import (
 )
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 
-DXY_C_T = 4  # dX/dY channels per block of kernel E (csrc/cvstem_bwd.cu)
+# Kernel E's tile (csrc/cvstem_dxy.cu): 8 x 64 pixels, 4 per thread kTX apart
+DXY_TH, DXY_TW = 8, 64
+DXY_RING = 2          # plane slots: the plane in use and the one streaming in
+DXY_HALO = 2          # staged columns left of the tile (and right of it)
+DXY_PITCH = 80        # floats per staged row
+DXY_BLOCKS = 512      # about two waves at two blocks per SM
+
+
+class DxyPlan(NamedTuple):
+    """Kernel E's blocking of one call (csrc/cvstem_dxy.cu's arguments)."""
+    ct: int           # channels of the half per block (a multiple of 4)
+    n_cc: int         # blocks along the half's C channels
+    chunk: int        # output planes d per block
+    n_chunks: int     # blocks along D
+    kc: int           # dz channels staged per pass
+    n_wt: int         # tiles along W
+    n_ht: int         # tiles along H
+    blocks: int       # blocks of the partial-sum kernel
+    workspace: int    # floats of the partial dX, dY workspace
+    smem: int         # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def dxy_plan(b: int, d: int, cout: int, c: int, h: int, w: int) -> DxyPlan:
+    """Kernel E's blocking for dz (b, d, cout, h, w) and halves of c
+    channels: every channel of the half in one block where c <= 12, and
+    planes split into chunks (halved from 16 while the grid has fewer than
+    DXY_BLOCKS blocks, down to 2) so the card fills."""
+    n_cc = -(-c // 12)
+    ct = -(-c // (4 * n_cc)) * 4
+    n_wt, n_ht = -(-w // DXY_TW), -(-h // DXY_TH)
+    chunk = min(16, d)
+    while chunk > 2 and n_wt * n_ht * -(-d // chunk) * 2 * b * n_cc < DXY_BLOCKS:
+        chunk = max(2, chunk // 2)
+    n_chunks = -(-d // chunk)
+    passes = -(-cout // 12)
+    kc = -(-cout // passes)
+    smem = 4 * (27 * kc * ct + DXY_RING * kc * (DXY_TH + 2) * DXY_PITCH)
+    return DxyPlan(ct, n_cc, chunk, n_chunks, kc, n_wt, n_ht,
+                   n_wt * n_ht * n_chunks * 2 * b * n_cc,
+                   2 * n_chunks * b * c * h * w, smem)
+
+
+def dxy_window(half: int, w0: int, q: int) -> int:
+    """First dz column kernel E stages of plane q for the tile at column
+    w0: the conv's halo and one more column each side, shifted by +q for
+    the dY half so that one copy serves the outputs d = q-1, q, q+1."""
+    return w0 - DXY_HALO + (q if half else 0)
+
+
+def dxy_tap_column(half: int, kd: int) -> int:
+    """Staged column of tile pixel x at tap kw, less x + kw, where the
+    output plane d = q + 1 - kd reads plane q (dY reads column j + d)."""
+    return 1 if half == 0 else 2 - kd
+
+
+def dxy_ring_slot(q: int) -> int:
+    """The ring slot that holds dz plane q."""
+    return q % DXY_RING
+
+
+def pack_dxy_weights(w3: torch.Tensor, ct: int, n_cc: int) -> torch.Tensor:
+    """(3,3,3,2C,Cout) -> (2, n_cc, 27, Cout, ct): the dx conv's weights
+    W'[tap, co, half*C + cc*ct + i], zero past C."""
+    c2, cout = w3.shape[3], w3.shape[4]
+    c = c2 // 2
+    wf = _flip_io(w3).reshape(27, cout, 2, c)
+    wf = torch.nn.functional.pad(wf, (0, n_cc * ct - c))
+    return wf.reshape(27, cout, 2, n_cc, ct).permute(2, 3, 0, 1, 4).contiguous()
 
 
 def _volume(x_cf, y_cf, num_disp):
@@ -146,14 +221,24 @@ def cvstem_dxy(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
         raise ValueError(f"cvstem_dxy: unsupported dz {tuple(dz.shape)}, "
                          f"w {tuple(w3.shape)}, num_disp {num_disp}")
     check_f32("cvstem_dxy", dz, w3)
-    wf = _flip_io(w3)
-    wpk_x = pack_weights(wf[..., :c], DXY_C_T)
-    wpk_y = pack_weights(wf[..., c:], DXY_C_T)
+    return launch_dxy(dz, w3, dxy_plan(b, d, cout, c, h, w))
+
+
+def launch_dxy(dz: torch.Tensor, w3: torch.Tensor, plan: DxyPlan):
+    """Launch kernel E's two passes (partial sums per chunk of planes, then
+    their sum in chunk order) on the current stream with a given plan.
+    Counts one launch on ``cvstem_dxy``."""
+    b, d, cout, h, w = dz.shape
+    c = w3.shape[3] // 2
+    wpk = pack_dxy_weights(w3, plan.ct, plan.n_cc)
+    partial = torch.empty(plan.workspace, device=dz.device,
+                          dtype=torch.float32)
     dx = torch.empty((b, c, h, w), device=dz.device, dtype=torch.float32)
     dy = torch.empty_like(dx)
     rc = cuda_lib.lib().rag_cvstem_dxy(
-        dz.data_ptr(), wpk_x.data_ptr(), wpk_y.data_ptr(), dx.data_ptr(),
-        dy.data_ptr(), b, d, cout, c, h, w, cuda_lib.stream_ptr(dz))
+        dz.data_ptr(), wpk.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+        dy.data_ptr(), b, d, cout, c, h, w, plan.ct, plan.n_cc, plan.chunk,
+        plan.n_chunks, plan.kc, cuda_lib.stream_ptr(dz))
     cvstem_dxy.launches += 1
     cuda_lib.check(rc, "cvstem_dxy")
     return dx, dy
