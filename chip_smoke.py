@@ -30,8 +30,10 @@ exception:
                    plain version and a library yardstick with CUDA events
                    (H beside kernel A, J and K beside kernels B and E+F;
                    A with one output plane per block and with its 4-byte
-                   copies, E at other chunk sizes); kernel A's weight pass
-                   is held bit for bit against its plain version;
+                   copies, E at other chunk sizes, D's two passes apart);
+                   kernel A's weight pass is held bit for bit against its
+                   plain version, and two launches of kernel D on the same
+                   inputs against each other;
   6. serve         per path, in turns (default, variants, variants,
                    default): set every launch count to 0, answer 3 requests
                    per task path through RoutedInference.predict, read the
@@ -54,8 +56,10 @@ build-and-check) and prints no report.
 Float32 throughout: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
 products are 3xTF32, which keeps float32 accuracy (its lines also carry
 bound_tf32x3_ms, the bound of those products at the TF32 peak, beside the
-float32 bound_ms). Kernel A's and E's lines carry their plan: A's tile,
-splits and blocks per launch; E's chunks, blocks and workspace.
+float32 bound_ms). Kernel A's, D's and E's lines carry their plan: A's
+tile, splits and blocks per launch; D's blocks, tile, row groups, planes
+per block, channel chunks and workspace; E's chunks, blocks and
+workspace. D's report entry lists its shapes in a step of task 0's stage.
 """
 
 from __future__ import annotations
@@ -457,6 +461,27 @@ def _conv_plan(x, w, scale, bias, relu):
             "bound_tf32x3_ms": conv_bound(x.shape, w.shape[4], True)}
 
 
+def _dw_beside(x, dz):
+    """Kernel D's two passes timed apart: the blocks' partials alone, the
+    fixed-order sum alone (over a workspace the first pass filled). Other
+    blockings are timed by scripts/torch_dw_sweep.py."""
+    plan = conv3d_mod.dw_plan(*x.shape, dz.shape[2])
+    return {"partial_ms": lambda: conv3d_mod.launch_dw_plan(x, dz, plan, 1),
+            "sum_ms": lambda: conv3d_mod.launch_dw_plan(x, dz, plan, 2)}
+
+
+def _dw_plan(x, dz):
+    """Kernel D's plan for the call: blocks, tile (band of rows x columns),
+    row groups, output planes per block, input- and output-channel chunks,
+    workspace."""
+    p = conv3d_mod.dw_plan(*x.shape, dz.shape[2])
+    return {"blocks": p.blocks, "threads": p.threads,
+            "tile": f"{p.th}x{p.tw}", "groups": p.groups, "db": p.db,
+            "ci": p.ci, "n_ci": p.n_ci, "co_t": p.co_t, "n_co": p.n_co,
+            "kh_t": p.kh_t,
+            "workspace_bytes": 4 * p.workspace}
+
+
 def _dxy_plan(dz, w3, nd):
     """Kernel E's plan for the call: chunks of planes, blocks, workspace."""
     b, d, cout, h, w = dz.shape
@@ -534,8 +559,8 @@ KERNELS = {
         sig=lambda x, dz: (tuple(x.shape), dz.shape[2]),
         bound=lambda x, dz: dw_bound(x.shape, dz.shape[2]),
         magnitude=lambda x, dz: (x.abs(), dz.abs()),
-        library=_dw_library, tol="bwd", path="default",
-        serving=False),
+        library=_dw_library, beside=_dw_beside, plan=_dw_plan, tol="bwd",
+        path="default", serving=False, bitwise=True, per_shape=True),
     "cvstem_dxy": dict(
         site=(cvstem_mod, "cvstem_dxy"),
         plain=cvstem_mod.cvstem_dxy_plain,
@@ -651,6 +676,13 @@ def small_cases(dev, rng):
                 *aff(cout), relu)
         cases.append(("conv3d_brc_cf", args))
         cases.append(("conv3d_dblock_cf", args))
+        cases.append(("conv3d_dw_cf", (t(b, d, cin, h, w),
+                                       t(b, d, cout, h, w))))
+    # kernel D alone: Cin 4 -> 4 at W = 13 (4-byte copies), 8 -> 8 at
+    # W = 16, and a shape big enough for a main-path plan (row groups, runs
+    # of planes, at least 264 blocks)
+    for b, d, cin, h, w, cout in [(1, 3, 4, 10, 13, 4), (2, 3, 8, 9, 16, 8),
+                                  (2, 9, 4, 32, 64, 4)]:
         cases.append(("conv3d_dw_cf", (t(b, d, cin, h, w),
                                        t(b, d, cout, h, w))))
     for b, c, h, w, nd, cout in [(1, 12, 8, 20, 6, 12), (1, 2, 8, 8, 8, 3),
@@ -869,6 +901,9 @@ def check_kernel(name, args, kw, reps, beside):
     with torch.inference_mode():
         out = k["wrapper"](*args, **kw)
         ref = k["plain"](*args, **kw)
+        # a kernel that sums in a fixed order gives the same bits twice
+        same = torch.equal(out, k["wrapper"](*args, **kw)) \
+            if k.get("bitwise") else True
         torch.cuda.synchronize()
         err, ref_max = _max_err(out, ref)
         del out, ref
@@ -889,7 +924,8 @@ def check_kernel(name, args, kw, reps, beside):
                  for f, fn in k["beside"](*args, **kw).items()}
     bound_ms, bound_by = k["bound"](*args, **kw)
     plan = k["plan"](*args, **kw) if "plan" in k else {}
-    return dict(err=err, tol=tol, ok=bool(err <= tol), ms=ms,
+    return dict(err=err, tol=tol, ok=bool(err <= tol) and same, same=same,
+                ms=ms,
                 plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
                 bound_ops_ms=bound_ms if bound_by == "operations" else 0.0,
                 bound_by=bound_by, beside=extra, plan=plan)
@@ -934,10 +970,13 @@ def phase_kernels(args_of, dev):
                 "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 **r["beside"], **r["plan"]}
+        if KERNELS[name].get("bitwise"):
+            line["repeat_bit_identical"] = r["same"]
         log(f"[kernels] {json.dumps(line)}")
         if not r["ok"]:
             failures.append(f"{name} {where} {sig}: max_abs_err {r['err']:.3g}"
-                            f" > {r['tol']:.3g}")
+                            f" (tolerance {r['tol']:.3g}), two launches "
+                            f"bit-identical: {r['same']}")
         KERNELS[name].setdefault("max_err", 0.0)
         KERNELS[name]["max_err"] = max(KERNELS[name]["max_err"], r["err"])
     if failures:
@@ -1010,10 +1049,11 @@ def phase_serve(ri, requests, plain, path, default_outs=None):
 
 
 # kinds of device kernel in a trace, matched in order on the lower-cased
-# name (the port's A-K first; kernel_kind sorts B, D and F apart)
+# name (the port's A-K first; kernel_kind sorts B and F apart)
 KINDS = (("conv3d_tf32x3_kernel", "A"), ("conv3d_pack_kernel", "A"),
-         ("conv3x3x3_dblock_kernel", "H"),
-         ("dw_reduce_kernel", "D/F reduce"), ("cvstem_dxy", "E"),
+         ("conv3x3x3_dblock_kernel", "H"), ("conv3d_dw_kernel", "D"),
+         ("conv3d_dw_sum_kernel", "D sum"), ("dw_reduce_kernel", "F reduce"),
+         ("cvstem_dxy", "E"),
          ("soft_argmin_kernel", "C"), ("soft_argmin_fold_kernel", "G"),
          ("soft_argmin_gather_kernel", "G"), ("resize_taps_kernel", "I"),
          ("shear_fwd_kernel", "J"), ("shear_adj_kernel", "K"),
@@ -1025,8 +1065,6 @@ KINDS = (("conv3d_tf32x3_kernel", "A"), ("conv3d_pack_kernel", "A"),
 def kernel_kind(name: str) -> str:
     if "CostVolumeSrc" in name:
         return "F" if "dw_partial_kernel" in name else "B"
-    if "dw_partial_kernel" in name:
-        return "D"
     low = name.lower()
     return next(kind for key, kind in KINDS if key in low)
 
@@ -1220,6 +1258,20 @@ def kernel_numbers(results, calls, name):
     return out
 
 
+def shape_numbers(results, calls, name):
+    """Per distinct call of one kernel in one step: its calls per step and
+    its numbers and plan at that shape."""
+    sigs = [s for c in calls.values() for n, s in c if n == name]
+    out = []
+    for sig in dict.fromkeys(sigs):
+        r = results[(name, sig)]
+        out.append({"sig": str(sig), "calls": sigs.count(sig), "ms": r["ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
+                    **r["beside"], **r["plan"]})
+    return out
+
+
 def side_by_side(runs, key):
     """{path: [{name: {key: v}} per turn]} -> 'name default v, v / variants
     v, v; ...' (each path's turns in order)."""
@@ -1303,6 +1355,8 @@ def main() -> int:
                  "path": p, "status": "ok"}
         if k["serving"]:
             entry["train_step"] = kernel_numbers(results, train0, name)
+        if k.get("per_shape"):
+            entry["shapes"] = shape_numbers(results, train0, name)
         report.append(entry)
     log("[report] serving kernels: times per request summed over its calls "
         "and averaged over the task paths of their path; every kernel's "

@@ -74,6 +74,7 @@
 namespace {
 
 using rag::cp_async4;
+using rag::cp_async16;
 using rag::cp_async_commit;
 using rag::cp_async_wait_all_but_one;
 
@@ -129,14 +130,6 @@ __device__ __forceinline__ void mma_tf32_zero(float (&c)[4],
       : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(0.f));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
 }
 
 // Kernel A's first pass: the weights (3, 3, 3, Cin, Cout) split into TF32

@@ -1,8 +1,7 @@
-// Weight-gradient engine of the 3x3x3 convolutions, shared by
-//   kernel D (conv3d_dw.cu): dW of a conv over a stored channel-first volume;
-//   kernel F (cvstem_bwd.cu): dW of the matching stem, whose input is the
-//                             concat cost volume built on the fly from the
-//                             two feature maps (CostVolumeSrc).
+// Weight-gradient engine of kernel F (cvstem_bwd.cu): dW of the matching
+// stem, whose input is the concat cost volume built on the fly from the two
+// feature maps (CostVolumeSrc). It serves F alone: kernel D has its own
+// register-blocked engine (conv3d_dw.cu), which F is to move onto.
 // For a channel-first (B, D, Cin, H, W) input v and the pre-affine output's
 // cotangent dz (B, D, Cout, H, W) it computes
 //   dW[kd, kh, kw, ci, co] = sum_{b,d,h,w} v[b, d+kd-1, ci, h+kh-1, w+kw-1]

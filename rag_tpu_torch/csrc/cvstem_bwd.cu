@@ -3,12 +3,12 @@
 // cvstem_dxy.cu.)
 //
 // Replaces the TPU kernel rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas
-// (body _cvstem_dw_kernel): kernel D's weight-gradient engine with its input
-// slab built from X and Y by the cost-volume load rule (CostVolumeSrc), as B
-// builds it from its tile engine. Bound: operations, the forward's products
-// that read a voxel of the volume that is not a structural zero: 24.0 GFLOP
-// at the train shape, 0.358 ms at 67 TFLOP/s (chip_smoke.py::
-// cvstem_dw_bound).
+// (body _cvstem_dw_kernel): the weight-gradient engine of conv3x3x3_dw.cuh
+// with its input slab built from X and Y by the cost-volume load rule
+// (CostVolumeSrc), as B builds it from its tile engine. Bound: operations,
+// the forward's products that read a voxel of the volume that is not a
+// structural zero: 24.0 GFLOP at the train shape, 0.358 ms at 67 TFLOP/s
+// (chip_smoke.py::cvstem_dw_bound).
 #include "conv3x3x3_dw.cuh"
 #include "conv3x3x3_tile.cuh"
 

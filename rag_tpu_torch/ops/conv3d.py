@@ -23,12 +23,20 @@ Kernel D, ``conv3d_dw_cf``: the weight gradient
 ``dW[kd,kh,kw,ci,co] = sum_{b,d,h,w} x[b,d+kd-1,ci,h+kh-1,w+kw-1] dz[b,d,co,h,w]``.
 Replaces rag_tpu/ops/pallas_conv3d.py::conv3d_dw_pallas_pre (body
 _conv3d_dw_kernel), whose grid carries the sum in one revisited output
-block. CUDA source: rag_tpu_torch/csrc/conv3d_dw.cu with
-csrc/conv3x3x3_dw.cuh. Bound: operations, as the forward (16.3 GFLOP at
-``stem_3d1``'s train shape, 0.24 ms). Blocks run in parallel here, so each
-(b, d) plane's block writes its partial dW to a workspace and a second
-kernel sums the partials in a fixed order: no float atomics, the same
-result on every run.
+block. CUDA source: rag_tpu_torch/csrc/conv3d_dw.cu, a register-blocked
+float32 kernel on the CUDA cores. Bound: operations at every train shape
+with Cout >= 4 (15.9 GFLOP at ``stem_3d1``'s, 0.24 ms at 67 TFLOP/s),
+bytes at the Cout-1 head. A thread owns one (ci, kd), kh_t of its kh
+taps (1, or all 3 at co_t <= 8) and the three kw taps x co_t output
+channels; walking staged rows four columns at a time it reads kh_t
+float4s of x and co_t float4 broadcasts of dz for 12*kh_t*co_t FMAs
+(20.6 per shared load at co_t 4, kh_t 3). ``dw_plan`` cuts the work into
+blocks of (b, run of output planes, tile of rows x columns, input-channel
+chunk, Cout chunk) that fill the card; each block walks its planes with
+the next input plane and dz plane landing by cp.async while the current
+one multiplies, adds its row groups' sums in a fixed order and writes one
+partial dW; a second kernel sums the partials in a fixed order: no float
+atomics, the same bits on every run.
 
 ``conv3d_brc_cf`` is the entry point. Without a gradient it is one fused
 kernel A call. With one it runs kernel A at identity affine, keeps the
@@ -187,6 +195,161 @@ def conv_block_region(plan: ConvPlan, bx: int, by: int, bz: int):
             range(ns * plan.nt * 8, (ns + 1) * plan.nt * 8),
             range(ht * plan.th, (ht + 1) * plan.th),
             range(wt * plan.tw, (wt + 1) * plan.tw))
+
+
+# Kernel D's blocking (csrc/conv3d_dw.cu)
+DW_MAX_THREADS = 288          # 9 warps a block
+DW_MAX_CI = 16                # input channels per block
+DW_MAX_SMEM = 110 * 1024      # bytes of shared memory: two blocks an SM
+DW_MAX_WORKSPACE = 8 << 20    # floats of partials (32 MB)
+DW_SEGS = 8                   # partial segments per output in the sum pass
+# (co_t, kh_t) the kernel is compiled for -> registers a thread (ptxas,
+# sm_90a, CUDA 12.8), which set how many blocks an SM holds. All three kh
+# taps a thread up to 8 output channels; at 12 the 108 sums would leave
+# no registers, so one tap (the fastest at stem_3d1's 12 -> 12 in the
+# blocking sweeps)
+DW_INSTANCES = {(1, 3): 56, (4, 3): 96, (8, 3): 168, (12, 1): 106}
+
+
+class DwPlan(NamedTuple):
+    """Kernel D's blocking of one call (csrc/conv3d_dw.cu's arguments)."""
+    ci: int           # input channels per block
+    n_ci: int         # blocks across Cin
+    co_t: int         # output channels per block (and thread)
+    n_co: int         # blocks across Cout
+    kh_t: int         # kh taps per thread: 1 or all 3
+    groups: int       # row groups per block of 9 * ci / kh_t threads
+    th: int           # tile rows
+    tw: int           # tile columns
+    db: int           # output planes per block
+    n_dc: int         # runs of planes along D
+    n_ht: int         # tiles along H
+    n_wt: int         # tiles along W
+    threads: int      # per block
+    n_pos: int        # partials per output: b * n_dc * n_ht * n_wt
+    blocks: int       # blocks of the first pass
+    workspace: int    # floats of partials
+    smem: int         # dynamic shared memory per block, bytes
+
+
+def _pitch(n: int, r: int) -> int:
+    """The least p >= n with p % 32 == r (n >= r)."""
+    return (n - r + 31) // 32 * 32 + r
+
+
+def dw_smem_floats(ci: int, co_t: int, th: int, tw: int) -> int:
+    """Floats of kernel D's shared memory (csrc/conv3d_dw.cu): four
+    x-plane slots of ci channels x (th + 2) rows of a row pitch = 12 mod
+    32, the channel pitch = 4 mod 32, and two dz slots of co_t x th rows
+    of tw + 4; at least the row groups' sum buffer."""
+    rs = _pitch(tw + 8, 12)
+    cs = _pitch((th + 2) * rs, 4)
+    return max(4 * ci * cs + 2 * co_t * th * (tw + 4), 27 * ci * co_t)
+
+
+def dw_blocking(b: int, d: int, cin: int, h: int, w: int, cout: int,
+                th: int, tw: int, db: int, co_t: int, kh_t: int) -> DwPlan:
+    """Kernel D's plan for a given tile (th rows x tw columns), db output
+    planes per block, co_t output channels per block and kh_t kh taps per
+    thread (a key of DW_INSTANCES): input-channel chunks of at most
+    DW_MAX_CI, the most row groups (1, 2, 4, 8 or 16, dividing th) within
+    DW_MAX_THREADS, and the counts that follow."""
+    n_ci = -(-cin // DW_MAX_CI)
+    ci = -(-cin // n_ci)
+    owners = 9 * ci // kh_t
+    groups = max(p for p in (1, 2, 4, 8, 16)
+                 if th % p == 0 and owners * p <= DW_MAX_THREADS)
+    n_dc, n_ht, n_wt = -(-d // db), -(-h // th), -(-w // tw)
+    n_pos = b * n_dc * n_ht * n_wt
+    n_co = -(-cout // co_t)
+    return DwPlan(ci, n_ci, co_t, n_co, kh_t, groups, th, tw, db, n_dc,
+                  n_ht, n_wt, owners * groups, n_pos, n_pos * n_ci * n_co,
+                  n_pos * 27 * cin * cout,
+                  4 * dw_smem_floats(ci, co_t, th, tw))
+
+
+# dw_plan's cost model, fitted to the blockings timed by
+# scripts/torch_dw_sweep.py on the H100: warp instructions issue at
+# DW_IPC a cycle and scheduler while an SM holds at least DW_FULL_WARPS
+# warps (proportionally less below), each plane step of a block waits
+# DW_STEP_CYCLES beyond its instructions (not the copies' latency: a
+# deeper ring did not shorten it), which the other blocks an SM holds
+# hide, and a staged 16-byte copy costs DW_COPY_ISSUE issue slots
+DW_IPC, DW_FULL_WARPS, DW_STEP_CYCLES, DW_COPY_ISSUE = 0.6, 12, 3000, 32
+DW_CLOCK_MHZ = 1755
+
+
+def _dw_cost_us(p: DwPlan) -> float:
+    """dw_plan's estimate of a plan's time, in microseconds."""
+    warps = -(-p.threads // 32)
+    per_sm = min(65536 // (32 * warps * DW_INSTANCES[(p.co_t, p.kh_t)]),
+                 (228 << 10) // (p.smem + 1024), 64 // warps, 32)
+    chunk = 12 * p.kh_t * p.co_t + p.kh_t + p.co_t + 3
+    step = warps * (p.th // p.groups) * ((p.tw // 4) * chunk + 8 * p.kh_t) \
+        + -(-(p.ci * (p.th + 2) * (p.tw + 8) + p.co_t * p.th * p.tw)
+            // (4 * 32)) * DW_COPY_ISSUE
+    n_sm = -(-p.blocks // CONV_SMS)
+    held = min(per_sm, n_sm)
+    ipc = DW_IPC * min(1.0, held * warps / DW_FULL_WARPS)
+    cycles = n_sm * (p.db + 1) * (step / (4 * ipc) + DW_STEP_CYCLES / held)
+    # the sum pass: the workspace written and read at 2.5 TB/s, and its
+    # rounds of eight loads
+    return (cycles / DW_CLOCK_MHZ + 2 * p.workspace * 4 / 2.5e6
+            + -(-p.n_pos // (DW_SEGS * 8)) * 0.6)
+
+
+def dw_candidates(b: int, d: int, cin: int, h: int, w: int, cout: int):
+    """Every blocking dw_plan weighs: tiles of 1-16 rows x 16, 32 or 64
+    columns, every run of planes, each compiled (co_t, kh_t) with co_t
+    from 4 up to co_tile(cout) (1 at Cout 1), within DW_MAX_SMEM and
+    DW_MAX_WORKSPACE."""
+    for co_t, kh_t in DW_INSTANCES:
+        if (co_t == 1) != (cout == 1) or co_t > co_tile(cout):
+            continue
+        for tw in (16, 32, 64):
+            for th in (1, 2, 4, 8, 16):
+                for db in sorted({-(-d // n) for n in range(1, d + 1)}):
+                    p = dw_blocking(b, d, cin, h, w, cout, th, tw, db, co_t,
+                                    kh_t)
+                    if p.smem <= DW_MAX_SMEM and \
+                            p.workspace <= DW_MAX_WORKSPACE:
+                        yield p
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(b: int, d: int, cin: int, h: int, w: int, cout: int) -> DwPlan:
+    """Kernel D's blocking for x (b, d, cin, h, w) and dz with cout
+    channels, among dw_candidates. Where the output holds at least
+    CONV_MIN_VOXELS positions the first pass gets at least two waves of
+    blocks (CONV_MIN_BLOCKS). Among those, the least estimated time
+    (_dw_cost_us): per block, warp instructions per plane (12*kh_t*co_t
+    FMAs, kh_t + co_t shared loads and 3 of loop per thread and 4
+    columns, 8 per row and kh tap; DW_COPY_ISSUE per 16-byte copy staged)
+    issued at a rate set by the warps an SM holds, and a wait of
+    DW_STEP_CYCLES shared by the blocks an SM holds, over its planes and
+    one more, on the most loaded SM; plus the workspace's bytes written
+    and read and the sum pass's rounds of eight loads. Ties go to fewer
+    partials. On the five shapes of a task-0 step the choice is within
+    2 % of the fastest blocking timed."""
+    big = b * d * h * w >= CONV_MIN_VOXELS
+    return min(dw_candidates(b, d, cin, h, w, cout),
+               key=lambda p: (big and p.blocks < CONV_MIN_BLOCKS,
+                              _dw_cost_us(p), p.n_pos))
+
+
+def dw_block_region(plan: DwPlan, bx: int, by: int, bz: int):
+    """What block (bx, by, bz) of a plan's first pass sums, as the kernel
+    decodes its index: (b, output planes, rows, columns, input channels,
+    output channels), the last five as ranges not clipped to the volume.
+    Its partial is row bx of the workspace."""
+    wt, r = bx % plan.n_wt, bx // plan.n_wt
+    ht, r = r % plan.n_ht, r // plan.n_ht
+    dc, b = r % plan.n_dc, r // plan.n_dc
+    return (b, range(dc * plan.db, (dc + 1) * plan.db),
+            range(ht * plan.th, (ht + 1) * plan.th),
+            range(wt * plan.tw, (wt + 1) * plan.tw),
+            range(by * plan.ci, (by + 1) * plan.ci),
+            range(bz * plan.co_t, (bz + 1) * plan.co_t))
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -404,17 +567,40 @@ def conv3d_dw_cf(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3d_dw_cf: x {tuple(x.shape)} and dz "
                          f"{tuple(dz.shape)} disagree")
     check_f32("conv3d_dw_cf", x, dz)
-    return launch_dw(conv3d_dw_cf, "rag_conv3d_dw_cf", [x], dz, cin)
+    return launch_dw_plan(x, dz, dw_plan(b, d, cin, h, wd, cout))
 
 
 conv3d_dw_cf.launches = 0
 
 
+def launch_dw_plan(x: torch.Tensor, dz: torch.Tensor, plan: DwPlan,
+                   passes: int = 3) -> torch.Tensor:
+    """Launch kernel D on the current stream with a given plan: its first
+    pass (bit 1 of ``passes``: the blocks' partials into a workspace) and
+    its sum pass (bit 2: the partials summed in a fixed order into dW).
+    Counts one launch on ``conv3d_dw_cf``. One pass alone is for timing:
+    the sum pass alone reads a workspace left unwritten."""
+    b, d, cin, h, w = x.shape
+    cout = dz.shape[2]
+    partial = torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
+    out = torch.empty((3, 3, 3, cin, cout), device=x.device,
+                      dtype=torch.float32)
+    rc = cuda_lib.lib().rag_conv3d_dw_cf(
+        x.data_ptr(), dz.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        b, d, cin, cout, h, w, plan.ci, plan.co_t, plan.kh_t, plan.groups,
+        plan.th, plan.tw, plan.db, passes, cuda_lib.stream_ptr(x))
+    conv3d_dw_cf.launches += 1
+    cuda_lib.check(rc, "conv3d_dw_cf")
+    return out
+
+
 def launch_dw(wrapper, entry: str, inputs, dz: torch.Tensor,
               cin: int) -> torch.Tensor:
-    """Launch a weight-gradient kernel (D, or F for the stem): one partial
-    dW per (b, d) plane into a workspace, then the fixed-order sum, both
-    on the current stream. Counts one launch on ``wrapper``."""
+    """Launch kernel F's weight-gradient engine (csrc/conv3x3x3_dw.cuh):
+    one block per ((b, d) plane, 4 input channels, co_tile(cout) output
+    channels) writes its partial dW into a workspace of B*D partials, then
+    the fixed-order sum over the planes, both on the current stream.
+    Counts one launch on ``wrapper``."""
     b, d, cout, h, w = dz.shape
     n_out = 27 * cin * cout
     partial = torch.empty(b * d * n_out, device=dz.device, dtype=torch.float32)

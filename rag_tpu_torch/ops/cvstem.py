@@ -26,8 +26,9 @@ partial sums of the chunks are added in chunk order by a second kernel.
 ``dxy_window``, ``dxy_tap_column`` and ``dxy_ring_slot`` are the kernel's
 index rules, which the CPU tests emulate.
 
-Kernel F, ``cvstem_dw``: the stem's weight gradient, kernel D's scheme
-with the input slab built from X and Y by the cost-volume load rule.
+Kernel F, ``cvstem_dw``: the stem's weight gradient, on the engine of
+csrc/conv3x3x3_dw.cuh with the input slab built from X and Y by the
+cost-volume load rule.
 Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas (body
 _cvstem_dw_kernel). CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu. Bound:
 operations, 24.0 GFLOP at the train shape (0.358 ms), the forward's
