@@ -5,8 +5,9 @@
 
 Two paths run through every phase: the default path (kernels A-G) and the
 variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
-on, where kernel H takes kernel A's place, kernel I the matrix resizes, and
-the shear stem (tap maps + kernels J and K) kernels B, E and F.
+on, where kernel H (kernel A's engine with four output planes a block)
+takes kernel A's place, kernel I the matrix resizes, and the shear stem
+(tap maps + kernels J and K) kernels B, E and F.
 
 Phases, in order; any failure exits non-zero and no phase swallows an
 exception:
@@ -28,9 +29,12 @@ exception:
                    backward) against their plain versions on the card, at
                    every recorded shape and at small shapes, and time kernel,
                    plain version and a library yardstick with CUDA events
-                   (H beside kernel A, J and K beside kernels B and E+F;
-                   A with one output plane per block and with its 4-byte
-                   copies, E at other chunk sizes, D's two passes apart);
+                   (H beside kernel A at its own plan, I beside
+                   F.interpolate or aten's upsample_trilinear3d_backward
+                   and through its C entry alone, J and K beside kernels
+                   B and E+F; A with one output plane per block and with
+                   its 4-byte copies, E at other chunk sizes, D's two
+                   passes apart);
                    kernel A's weight pass is held bit for bit against its
                    plain version, and two launches of kernel D on the same
                    inputs against each other;
@@ -56,10 +60,12 @@ build-and-check) and prints no report.
 Float32 throughout: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
 products are 3xTF32, which keeps float32 accuracy (its lines also carry
 bound_tf32x3_ms, the bound of those products at the TF32 peak, beside the
-float32 bound_ms). Kernel A's, D's and E's lines carry their plan: A's
-tile, splits and blocks per launch; D's blocks, tile, row groups, planes
-per block, channel chunks and workspace; E's chunks, blocks and
-workspace. D's report entry lists its shapes in a step of task 0's stage.
+float32 bound_ms). Kernel A's, D's, E's, H's and I's lines carry their
+plan: A's tile, splits and blocks per launch; H's the same, with A's plan
+for the call beside it; D's blocks, tile, row groups, planes per block,
+channel chunks and workspace; E's chunks, blocks and workspace; I's tile,
+runs of output planes, taps a table row, staged rows x columns and shared
+memory. D's report entry lists its shapes in a step of task 0's stage.
 """
 
 from __future__ import annotations
@@ -418,9 +424,41 @@ def _stem_inputs(b, h, w, co, dev, grad=False):
 
 
 def _dblock_beside(x, w, scale, bias, relu):
-    """Kernel A at kernel H's arguments."""
+    """Kernel A (its own plan) at kernel H's arguments."""
     return {"kernel_a_ms":
             lambda: conv3d_mod.conv3d_affine_cf(x, w, scale, bias, relu)}
+
+
+def _dblock_plan(x, w, scale, bias, relu):
+    """Kernel H's plan (kernel A's engine, db = 4) and kernel A's plan for
+    the same call beside it."""
+    def fields(p):
+        return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
+                "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db}
+    return {**fields(conv3d_mod.conv_plan_dblock(*x.shape, w.shape[4])),
+            "kernel_a_plan": fields(conv3d_mod.conv_plan(*x.shape,
+                                                         w.shape[4]))}
+
+
+def _resize_beside(x, d2, h2, w2, align_corners=True, transposed=False):
+    """Kernel I through its C entry with the plan, tables and output made
+    once (the wrapper's host work left out)."""
+    plan, itab, ftab = resize_mod.resize_setup(
+        tuple(x.shape), d2, h2, w2, align_corners, transposed, x.device)
+    out = torch.empty((x.shape[0], d2, x.shape[2], h2, w2), device=x.device)
+    return {"entry_ms": lambda: resize_mod.launch_resize(x, itab, ftab, out,
+                                                         plan)}
+
+
+def _resize_plan(x, d2, h2, w2, align_corners=True, transposed=False):
+    """Kernel I's plan for the call: tile, output planes per block, taps a
+    table row, blocks, staged rows and columns a plane, shared memory."""
+    b, d, c, h, w = x.shape
+    p = resize_mod.resize_plan(b, d, c, h, w, d2, h2, w2, align_corners,
+                               transposed)
+    return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "run": p.run,
+            "n_runs": p.n_runs, "k": p.k, "staged": f"{p.rows}x{p.pitch}",
+            "smem_bytes": p.smem}
 
 
 def _conv_beside(x, w, scale, bias, relu):
@@ -594,12 +632,12 @@ KERNELS = {
     "conv3d_dblock_cf": dict(
         site=(conv3d_mod, "conv3d_dblock_cf"),
         plain=conv3d_mod.conv3d_brc_cf_plain,
-        source="rag_tpu_torch/csrc/conv3d_dblock.cu",
+        source="rag_tpu_torch/csrc/conv3d.cu",
         replaces="rag_tpu/ops/pallas_conv3d.py:314",
         sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
         bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
-        library=_conv_library, beside=_dblock_beside, tol="conv",
-        path="variants", serving=True),
+        library=_conv_library, beside=_dblock_beside, plan=_dblock_plan,
+        tol="conv", path="variants", serving=True),
     "resize_taps_cf": dict(
         site=(resize_mod, "resize_taps_cf"),
         plain=resize_mod.resize_taps_plain,
@@ -608,8 +646,8 @@ KERNELS = {
         sig=lambda x, d2, h2, w2, align_corners=True, transposed=False:
             (tuple(x.shape), (d2, h2, w2), transposed),
         bound=lambda x, *a, **kw: resize_bound(x.shape, *a, **kw),
-        library=_resize_library, tol="conv",
-        path="variants", serving=True),
+        library=_resize_library, beside=_resize_beside, plan=_resize_plan,
+        tol="conv", path="variants", serving=True),
     "shear_forward": dict(
         site=(shear_mod, "shear_forward"),
         plain=shear_mod.shear_forward_plain,
@@ -651,11 +689,12 @@ def small_cases(dev, rng):
     """A few small shapes per kernel: Cout 1 with W not a multiple of 8,
     merged Cout 48, D not a multiple of kernel H's 4 planes, a D == W cost
     volume, num_disp past W, W = 13, a 4-tap and a 3-tap adjoint resize
-    table, batch 2 for every kernel; for kernel A's plans W = 80 (a 16-wide
-    tile), Cout 12 and 36 (N padded to 16 and 48) and Cin 12 and 36 (K
-    padded per stage, three stages per plane at 36); for kernel E's, D not
-    a multiple of its chunk (2 planes at small shapes, 16 at the last,
-    train-sized case) and W past one 64-wide tile."""
+    table, a 4x downsample (kernel I skips the planes and rows it does not
+    read) and its adjoint, batch 2 for every kernel; for kernel A's plans
+    W = 80 (a 16-wide tile), Cout 12 and 36 (N padded to 16 and 48) and
+    Cin 12 and 36 (K padded per stage, three stages per plane at 36); for
+    kernel E's, D not a multiple of its chunk (2 planes at small shapes, 16
+    at the last, train-sized case) and W past one 64-wide tile."""
     def t(*shape, s=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * s)
                                 .astype(np.float32)).to(dev)
@@ -707,7 +746,9 @@ def small_cases(dev, rng):
                               ((1, 6, 5, 16, 24), (6, 16, 11), False),
                               ((2, 12, 5, 32, 48), (6, 16, 24), True),
                               ((1, 11, 3, 11, 11), (6, 6, 6), True),
-                              ((1, 3, 4, 8, 12), (6, 16, 24), True)]:
+                              ((1, 3, 4, 8, 12), (6, 16, 24), True),
+                              ((1, 16, 2, 20, 40), (4, 5, 10), False),
+                              ((1, 4, 2, 5, 10), (16, 20, 40), True)]:
         cases.append(("resize_taps_cf", (t(*shape), *target, True, tr)))
     for b, d, h, w, md in [(1, 8, 16, 10, 24), (2, 4, 5, 43, 12)]:
         x = t(b, d, h, w, s=3.0)
@@ -1049,9 +1090,11 @@ def phase_serve(ri, requests, plain, path, default_outs=None):
 
 
 # kinds of device kernel in a trace, matched in order on the lower-cased
-# name (the port's A-K first; kernel_kind sorts B and F apart)
-KINDS = (("conv3d_tf32x3_kernel", "A"), ("conv3d_pack_kernel", "A"),
-         ("conv3x3x3_dblock_kernel", "H"), ("conv3d_dw_kernel", "D"),
+# name (the port's A-K first; kernel_kind sorts B and F apart). Kernel H
+# is kernel A's engine: "A (H)" is A on the default path, H on the variant
+# path, which runs no kernel A
+KINDS = (("conv3d_tf32x3_kernel", "A (H)"), ("conv3d_pack_kernel", "A (H)"),
+         ("conv3d_dw_kernel", "D"),
          ("conv3d_dw_sum_kernel", "D sum"), ("dw_reduce_kernel", "F reduce"),
          ("cvstem_dxy", "E"),
          ("soft_argmin_kernel", "C"), ("soft_argmin_fold_kernel", "G"),

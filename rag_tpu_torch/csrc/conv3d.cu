@@ -59,6 +59,10 @@
 //     fragments split once instead of three times. It is faster where N
 //     has one or two n-tiles and K is large, and slower elsewhere;
 //     conv_plan picks DB (chip_smoke.py times the plan with DB = 1).
+//     Kernel H (the variant path's counterpart of the TPU's D-blocked v4
+//     kernel, rag_tpu/ops/pallas_conv3d.py::_conv3d_kernel_v4) is this
+//     kernel with DB = 4 at every shape (ops/conv3d.py::conv_plan_dblock);
+//     the <2, 3, 4> instance is H's alone.
 //   * The affine (folded frozen BatchNorm) and ReLU run in the epilogue.
 //     The dx conv of training is this kernel on flipped, io-transposed,
 //     scale-folded weights.
@@ -437,6 +441,7 @@ extern "C" int rag_conv3d_brc_cf(const void* x, const void* w, void* frag,
   RAG_CONV_CASE(2, 1, 4)
   RAG_CONV_CASE(2, 2, 4)
   RAG_CONV_CASE(4, 1, 4)
+  RAG_CONV_CASE(2, 3, 4)
 #undef RAG_CONV_CASE
   return (int)cudaErrorInvalidValue;
 }

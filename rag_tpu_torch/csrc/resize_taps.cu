@@ -12,101 +12,309 @@
 // the same float32 interpolation matrices the plain version contracts with
 // (rag_tpu/ops/pallas_resize.py::_taps_np). K is 2 for a linear resize; the
 // adjoint tables of the model's resizes have up to 4 (a 2x upsample's; 3
-// for an odd-size upsample, 1 for a 2x downsample). Padded taps have
-// weight 0 and index 0. An axis whose size does not change has the one-tap identity
-// table (weight 1), so it passes through exactly, as the TPU kernel's skip
-// does. Only the order of the float32 sums differs from the matrix form.
+// for an odd-size upsample, 1 for a 2x downsample). Padded taps have weight
+// 0 and index 0 and are skipped. An axis whose size does not change has the
+// one-tap identity table (weight 1), so it passes through exactly, as the
+// TPU kernel's skip does. Only the order of the float32 sums differs from
+// the matrix form: W taps innermost, then H taps, then D taps from the last
+// to the first.
 //
-// Bound: bytes (at most 2*27 FLOP per output against 4 bytes written; at
-// the head's last up-resize at the eval geometry it reads 19.7 MB and
-// writes 157 MB, ~0.053 ms at 3.35 TB/s). Design: one thread per output
-// pixel (b, c, oh, ow) keeps its H and W taps in registers and walks the D2
-// output planes; the D taps are the same for the whole block. Along W the
-// writes are coalesced and a warp's gathers fall on a few neighbouring
-// input rows, which successive planes read again from L1, so the input is
-// read from device memory about once. (The first version, one thread per
-// output element, re-read it for every output plane and took 13x its bound
-// on a 2x upsample.) Nothing is staged in shared memory.
+// Bound: bytes (a few FLOP per output against 4 bytes written; the head's
+// last up-resize at the eval geometry reads 19.7 MB and writes 157 MB,
+// ~0.053 ms at 3.35 TB/s).
+//
+// Design: separable, with D last.
+//   * A block owns (b, c, a tile of 8*RPW output rows x 16*QC output
+//     columns, a run of output planes); its 4 warps' lanes are 2 rows x 16
+//     columns, so a warp's stores and its gathers from shared memory fall
+//     on neighbouring columns (a 2x downsample's lanes read every second
+//     staged column: at most 2-way bank conflicts, where float4s of four
+//     neighbouring outputs would give 8-way ones).
+//   * The host (rag_tpu_torch/ops/resize.py::resize_tables) lists, per run,
+//     the source planes its output planes' real D taps read, and per row
+//     tile the source rows its H taps read (a 4x downsample reads half the
+//     planes and half the rows), and per column tile the span of source
+//     columns from a multiple of 4. The block walks its run's planes; each
+//     plane's listed rows x the column span land in a ring of kRing slots
+//     in shared memory with cp.async (16-byte pieces where W % 4 == 0 and
+//     x is 16-byte aligned, else 4-byte ones), kRing - 1 planes ahead.
+//   * For each staged plane every thread computes its pixels' H/W
+//     interpolation once and shifts it into a register window of the last
+//     K planes. An output plane whose last D tap is that plane then costs
+//     kd FMAs from the window and one coalesced store per pixel. A run
+//     that does not start at plane 0 restages its first planes; a plane
+//     that no output of the run reads is never staged.
+//   * rag_tpu_torch/ops/resize.py::resize_plan picks the tile and the run
+//     length per shape: a downsample's runs restage no plane, so they are
+//     cut short until the grid holds four waves of resident blocks; an
+//     upsample's restage one or two planes each, so they stay long.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): 0.42 ms of
+// device time a request, against F.interpolate's 0.76-0.80 ms.
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxK = 4;  // taps per output on one axis
+using rag::cp_async4;
+using rag::cp_async16;
+using rag::cp_async_commit;
 
+constexpr int kThreads = 128;
+constexpr int kRing = 4;  // staged planes: kRing - 1 in flight, one read
+
+struct ResizeArgs {
+  const float* x;
+  float* out;
+  // int32 tables (rag_tpu_torch/ops/resize.py::resize_tables)
+  const int* wt_lo;       // (n_wt) first staged column of each W tile
+  const int* wt_n;        // (n_wt) staged columns
+  const int* col_off;     // (W2) first tap's column in its tile's span
+  const int* col_n;       // (W2) real taps
+  const int* ht_n;        // (n_ht) staged rows
+  const int* ht_rows;     // (n_ht, rows) their source rows
+  const int* row_slot;    // (H2) staged slot of the first tap
+  const int* row_n;       // (H2) real taps
+  const int* run_n;       // (n_runs) staged planes
+  const int* run_planes;  // (n_runs, planes) their source planes
+  const int* pl_last;     // (D2) list position of the last tap, -1: none
+  const int* pl_n;        // (D2) real taps
+  // float32 weights, K a row
+  const float* col_w;     // (W2, K) tap order
+  const float* row_w;     // (H2, K) tap order
+  const float* pl_w;      // (D2, K) last tap first
+  int D, C, H, W, D2, H2, W2;
+  int n_wt, n_ht, n_runs, run, rows, pitch, planes, vec;
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Grid: one block per (b, c, run, row tile, column tile), column tiles
+// fastest, so neighbouring blocks share the halo of their staged spans.
+template <int QC, int RPW, int K>
 __global__ void __launch_bounds__(kThreads)
-resize_taps_kernel(const float* __restrict__ x, const int* __restrict__ id,
-                   const float* __restrict__ wd, const int* __restrict__ ih,
-                   const float* __restrict__ wh, const int* __restrict__ iw,
-                   const float* __restrict__ ww, float* __restrict__ out,
-                   int B, int D, int C, int H, int W, int D2, int H2, int W2,
-                   int kd, int kh, int kw) {
-  const int hw = blockIdx.x * kThreads + threadIdx.x;
-  if (hw >= H2 * W2) return;
-  const int oh = hw / W2;
-  const int ow = hw - oh * W2;
-  // this pixel's H and W taps, in registers for every output plane
-  int rows[kMaxK], cols[kMaxK];
-  float wrow[kMaxK], wcol[kMaxK];
+resize_taps_kernel(const ResizeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  int t = blockIdx.x;
+  const int wt = t % a.n_wt;
+  t /= a.n_wt;
+  const int ht = t % a.n_ht;
+  t /= a.n_ht;
+  const int run = t % a.n_runs;
+  t /= a.n_runs;
+  const int c = t % a.C, b = t / a.C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ow0 = wt * 16 * QC + lane % 16;
+  const int oh0 = ht * 8 * RPW + 2 * warp + lane / 16;
+
+  // this thread's columns and rows: first tap, real taps, weights (no
+  // taps outside the volume, so those pixels stay 0 and are not stored)
+  int coff[QC], cn[QC];
+  float cw[QC][K];
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    rows[k] = k < kh ? __ldg(ih + oh * kh + k) : 0;
-    wrow[k] = k < kh ? __ldg(wh + oh * kh + k) : 0.f;
-    cols[k] = k < kw ? __ldg(iw + ow * kw + k) : 0;
-    wcol[k] = k < kw ? __ldg(ww + ow * kw + k) : 0.f;
+  for (int q = 0; q < QC; ++q) {
+    const int ow = ow0 + 16 * q;
+    const bool ok = ow < a.W2;
+    coff[q] = ok ? __ldg(a.col_off + ow) : 0;
+    cn[q] = ok ? __ldg(a.col_n + ow) : 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) cw[q][k] = ok ? __ldg(a.col_w + ow * K + k) : 0.f;
   }
-  const size_t in_plane = (size_t)H * W;
-  const size_t out_plane = (size_t)H2 * W2;
-  // one (b, c) per grid row; the thread walks the D2 output planes
-  for (int p = blockIdx.y; p < B * C; p += gridDim.y) {
-    const int c = p % C;
-    const int b = p / C;
-    const float* xc = x + ((size_t)b * D * C + c) * in_plane;
-    float* o = out + ((size_t)b * D2 * C + c) * out_plane + hw;
-    for (int od = 0; od < D2; ++od) {
-      float acc = 0.f;
-      for (int a = 0; a < kd; ++a) {
-        const float* xp = xc + (size_t)__ldg(id + od * kd + a) * C * in_plane;
-        float acc_h = 0.f;
+  int rslot[RPW], rn[RPW];
+  float rw[RPW][K];
 #pragma unroll
-        for (int q = 0; q < kMaxK; ++q) {
-          if (q >= kh) break;
-          const float* row = xp + (size_t)rows[q] * W;
-          float acc_w = 0.f;
+  for (int r = 0; r < RPW; ++r) {
+    const int oh = oh0 + 8 * r;
+    const bool ok = oh < a.H2;
+    rslot[r] = ok ? __ldg(a.row_slot + oh) : 0;
+    rn[r] = ok ? __ldg(a.row_n + oh) : 0;
 #pragma unroll
-          for (int k = 0; k < kMaxK; ++k)
-            if (k < kw) acc_w = fmaf(wcol[k], __ldg(row + cols[k]), acc_w);
-          acc_h = fmaf(wrow[q], acc_w, acc_h);
-        }
-        acc = fmaf(__ldg(wd + od * kd + a), acc_h, acc);
+    for (int k = 0; k < K; ++k) rw[r][k] = ok ? __ldg(a.row_w + oh * K + k) : 0.f;
+  }
+
+  const int lo = __ldg(a.wt_lo + wt), n_col = __ldg(a.wt_n + wt);
+  const int n_row = __ldg(a.ht_n + ht);
+  const int* rows = a.ht_rows + (size_t)ht * a.rows;
+  const int* planes = a.run_planes + (size_t)run * a.planes;
+  const int n_plane = __ldg(a.run_n + run);
+  const int buf = a.rows * a.pitch;
+  const size_t in_plane = (size_t)a.H * a.W;
+
+  // list entry e's staged rows x column span into ring slot e % kRing
+  auto stage = [&](int e) {
+    if (e >= n_plane) return;
+    float* dst = smem + (e % kRing) * buf;
+    const float* src =
+        a.x + (((size_t)b * a.D + __ldg(planes + e)) * a.C + c) * in_plane + lo;
+    if (a.vec) {
+      const int chunks = n_col / 4, n = n_row * chunks;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int s = i / chunks, q = i - s * chunks;
+        cp_async16(dst + s * a.pitch + 4 * q,
+                   src + (size_t)__ldg(rows + s) * a.W + 4 * q, true);
       }
-      o[(size_t)od * C * out_plane] = acc;
+    } else {
+      const int n = n_row * n_col;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int s = i / n_col, q = i - s * n_col;
+        cp_async4(dst + s * a.pitch + q,
+                  src + (size_t)__ldg(rows + s) * a.W + q, true);
+      }
+    }
+  };
+
+  // win[j]: this thread's pixels interpolated in H and W on list entry
+  // e - j, e the newest entry computed
+  float win[K][RPW][QC];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+#pragma unroll
+      for (int q = 0; q < QC; ++q) win[j][r][q] = 0.f;
+
+#pragma unroll
+  for (int e = 0; e < kRing - 1; ++e) {
+    stage(e);
+    cp_async_commit();
+  }
+  int e = -1;
+  const int od1 = min(a.D2, (run + 1) * a.run);
+  for (int od = run * a.run; od < od1; ++od) {
+    const int n = __ldg(a.pl_n + od);
+    const int last = __ldg(a.pl_last + od);
+    while (e < last) {  // uniform: the tables are the block's
+      ++e;
+      cp_async_wait<kRing - 2>();  // entry e landed (this thread's copies)
+      __syncthreads();  // everyone's; slot (e - 1) % kRing is free again
+      stage(e + kRing - 1);
+      cp_async_commit();
+      const float* sb = smem + (e % kRing) * buf;
+#pragma unroll
+      for (int j = K - 1; j > 0; --j)
+#pragma unroll
+        for (int r = 0; r < RPW; ++r)
+#pragma unroll
+          for (int q = 0; q < QC; ++q) win[j][r][q] = win[j - 1][r][q];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+#pragma unroll
+        for (int q = 0; q < QC; ++q) {
+          float acc_h = 0.f;
+#pragma unroll
+          for (int qq = 0; qq < K; ++qq) {
+            if (qq < rn[r]) {
+              const float* row = sb + (rslot[r] + qq) * a.pitch + coff[q];
+              float acc_w = 0.f;
+#pragma unroll
+              for (int k = 0; k < K; ++k)
+                if (k < cn[q]) acc_w = fmaf(cw[q][k], row[k], acc_w);
+              acc_h = fmaf(rw[r][qq], acc_w, acc_h);
+            }
+          }
+          win[0][r][q] = acc_h;
+        }
+      }
+    }
+    // output plane od: its taps are the window's newest n entries
+    float wd[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) wd[j] = j < n ? __ldg(a.pl_w + od * K + j) : 0.f;
+    float* o = a.out + (((size_t)b * a.D2 + od) * a.C + c) * a.H2 *
+                           (size_t)a.W2;
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int oh = oh0 + 8 * r;
+      if (oh >= a.H2) continue;
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        const int ow = ow0 + 16 * q;
+        if (ow >= a.W2) continue;
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          if (j < n) acc = fmaf(wd[j], win[j][r][q], acc);
+        o[(size_t)oh * a.W2 + ow] = acc;
+      }
     }
   }
+  cp_async_wait<0>();  // the empty groups committed past the last entry
+}
+
+template <int QC, int RPW, int K>
+int launch(const ResizeArgs& a, unsigned blocks, int smem,
+           cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        resize_taps_kernel<QC, RPW, K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  resize_taps_kernel<QC, RPW, K><<<blocks, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Tables: (D2, kd), (H2, kh), (W2, kw) int32 indices into the input axis
-// and float32 weights. Returns a cudaError_t.
-extern "C" int rag_resize_taps_cf(const void* x, const void* id,
-                                  const void* wd, const void* ih,
-                                  const void* wh, const void* iw,
-                                  const void* ww, void* out, int B, int D,
+// itab, ftab: rag_tpu_torch/ops/resize.py::resize_tables for the plan's
+// integers: k taps a table row, qc columns and rpw rows a thread, run
+// output planes a block, rows staged rows and pitch floats a staged row at
+// most, planes source planes a run at most. Returns a cudaError_t.
+extern "C" int rag_resize_taps_cf(const void* x, const void* itab,
+                                  const void* ftab, void* out, int B, int D,
                                   int C, int H, int W, int D2, int H2, int W2,
-                                  int kd, int kh, int kw, void* stream) {
+                                  int k, int qc, int rpw, int run, int rows,
+                                  int pitch, int planes, void* stream) {
   if (B <= 0 || D <= 0 || C <= 0 || H <= 0 || W <= 0 || D2 <= 0 || H2 <= 0 ||
-      W2 <= 0 || kd < 1 || kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK ||
-      (long long)H2 * W2 > 2147483647LL || (long long)B * C > 2147483647LL)
+      W2 <= 0 || (k != 2 && k != 4) || run <= 0 || rows <= 0 || pitch <= 0 ||
+      pitch % 4 != 0 || planes <= 0)
     return (int)cudaErrorInvalidValue;
-  const int planes = B * C;
-  const dim3 grid((unsigned)((H2 * W2 + kThreads - 1) / kThreads),
-                  (unsigned)(planes < 65535 ? planes : 65535));
-  resize_taps_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(id),
-      static_cast<const float*>(wd), static_cast<const int*>(ih),
-      static_cast<const float*>(wh), static_cast<const int*>(iw),
-      static_cast<const float*>(ww), static_cast<float*>(out), B, D, C, H, W,
-      D2, H2, W2, kd, kh, kw);
-  return (int)cudaGetLastError();
+  ResizeArgs a;
+  a.x = static_cast<const float*>(x);
+  a.out = static_cast<float*>(out);
+  a.D = D, a.C = C, a.H = H, a.W = W, a.D2 = D2, a.H2 = H2, a.W2 = W2;
+  a.n_wt = (W2 + 16 * qc - 1) / (16 * qc);
+  a.n_ht = (H2 + 8 * rpw - 1) / (8 * rpw);
+  a.n_runs = (D2 + run - 1) / run;
+  a.run = run, a.rows = rows, a.pitch = pitch, a.planes = planes;
+  a.vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int* it = static_cast<const int*>(itab);
+  a.wt_lo = it, it += a.n_wt;
+  a.wt_n = it, it += a.n_wt;
+  a.col_off = it, it += W2;
+  a.col_n = it, it += W2;
+  a.ht_n = it, it += a.n_ht;
+  a.ht_rows = it, it += (size_t)a.n_ht * rows;
+  a.row_slot = it, it += H2;
+  a.row_n = it, it += H2;
+  a.run_n = it, it += a.n_runs;
+  a.run_planes = it, it += (size_t)a.n_runs * planes;
+  a.pl_last = it, it += D2;
+  a.pl_n = it;
+  const float* ft = static_cast<const float*>(ftab);
+  a.col_w = ft, ft += (size_t)W2 * k;
+  a.row_w = ft, ft += (size_t)H2 * k;
+  a.pl_w = ft;
+  const long long blocks =
+      (long long)B * C * a.n_runs * a.n_ht * a.n_wt;
+  const long long smem = 4LL * kRing * rows * pitch;
+  if (blocks > 2147483647LL || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RAG_RESIZE_CASE(Q, R, K_)           \
+  if (qc == Q && rpw == R && k == K_)       \
+    return launch<Q, R, K_>(a, (unsigned)blocks, (int)smem, st);
+  RAG_RESIZE_CASE(1, 4, 2)
+  RAG_RESIZE_CASE(2, 2, 2)
+  RAG_RESIZE_CASE(4, 1, 2)
+  RAG_RESIZE_CASE(1, 4, 4)
+  RAG_RESIZE_CASE(2, 2, 4)
+  RAG_RESIZE_CASE(4, 1, 4)
+#undef RAG_RESIZE_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -45,10 +45,11 @@ rag_tpu/ops/pallas_conv3d.py::_fwd_cf does; the backward (_bwd_cf) is
 kernel A again on the masked cotangent with flipped, io-transposed,
 scale-folded weights for dx, and kernel D post-scaled for dW.
 
-Kernel H, ``conv3d_dblock_cf``: the D-blocked float32 form of the same
-conv (rag_tpu's v4 tiling), taken for the forward and dx where
-``KernelVariants.conv3d_dblock`` is set (see its docstring and
-rag_tpu_torch/csrc/conv3d_dblock.cu).
+Kernel H, ``conv3d_dblock_cf``: the D-blocked form of the same conv
+(rag_tpu's v4 tiling), taken for the forward and dx where
+``KernelVariants.conv3d_dblock`` is set. It is kernel A's engine with
+``conv_plan_dblock``'s plans, which put four output planes in every block
+(db = 4); its launches count on ``conv3d_dblock_cf``.
 
 Weights stay in the reference's (3, 3, 3, Cin, Cout) layout; kernel A's
 first pass and the other wrappers pack them per call. Each wrapper runs its plain PyTorch version for CPU
@@ -100,7 +101,13 @@ CONV_TILES = ((4, 64), (4, 32), (4, 16), (2, 64), (2, 32), (2, 16))
 # block, output planes per block
 CONV_INSTANCES = frozenset(
     [(2, nt, 1) for nt in (1, 2, 3, 4, 6)]
-    + [(4, nt, 1) for nt in (1, 2, 3, 4)] + [(2, 1, 4), (2, 2, 4), (4, 1, 4)])
+    + [(4, nt, 1) for nt in (1, 2, 3, 4)]
+    + [(2, 1, 4), (2, 2, 4), (4, 1, 4), (2, 3, 4)])
+# the instances only kernel H's plans take: (2, 3, 4) was measured faster
+# than every other db = 4 plan at Cout 24 and 48 (scripts/
+# torch_dblock_sweep.py); (2, 4, 4) and (4, 2, 4) were not kept (3 % at one
+# shape, none)
+CONV_DBLOCK_ONLY = frozenset([(2, 3, 4)])
 CONV_NT = (1, 2, 3, 4, 6)
 CONV_MAX_CC = 16              # input channels per stage
 CONV_SMS = 132                # streaming multiprocessors of the H100 SXM
@@ -131,21 +138,24 @@ def _chan_stride(th: int, tw: int) -> int:
     return ((th + 2) * (tw + 8) + 23) // 32 * 32 + 8
 
 
-@functools.lru_cache(maxsize=None)
-def conv_plan(b: int, d: int, cin: int, h: int, w: int,
-              cout: int) -> ConvPlan:
-    """Kernel A's tile, Cout split and planes per block for x (b, d, cin,
-    h, w) -> cout channels. Where the output holds at least
-    CONV_MIN_VOXELS voxels (b*d*h*w) the grid gets at least two waves of
-    blocks; a smaller shape gets no tile less than half full where one
-    exists. Among those, the least estimated time: the blocks' warp
-    instructions (per staged input plane: 8 per 16 pixels and k-step for
-    the A fragments, 6 per staged row; per output plane and tap: 7 per
-    16 pixels, k-step and n-tile for the B load and 3 mma), scaled up
-    where the grid leaves an SM fewer than four blocks; then bigger and
-    wider tiles. Four output planes share a block (db = 4) where that was
-    measured faster on the H100: one n-tile, or two with at least 12 input
-    channels per stage, and tiles of at least four rows."""
+def conv_candidates(b: int, d: int, cin: int, h: int, w: int, cout: int,
+                    dblock: bool = False):
+    """Every blocking of kernel A for x (b, d, cin, h, w) -> cout channels,
+    as (not enough blocks, estimated cost, plan). Where the output holds at
+    least CONV_MIN_VOXELS voxels (b*d*h*w) a plan needs at least two waves
+    of blocks; a smaller shape needs a tile at least half full. The cost:
+    the blocks' warp instructions (per staged input plane: 8 per 16 pixels
+    and k-step for the A fragments, 6 per staged row; per output plane and
+    tap: 7 per 16 pixels, k-step and n-tile for the B load and 3 mma),
+    scaled up where the grid leaves an SM fewer than four blocks; then
+    bigger and wider tiles. Four output planes share a block (db = 4) only
+    with tiles of at least four rows, and, unless ``dblock`` (kernel H,
+    which takes db = 4 alone), with one n-tile, or two with at least 12
+    input channels per stage: where that was measured faster than db = 1
+    on the H100 for kernel A. Kernel H's plans take tiles at most 32
+    columns wide: at db = 4 the 64-wide ones were measured slower than
+    the best other tile at every main-path shape (scripts/
+    torch_dblock_sweep.py)."""
     n_cc = -(-cin // CONV_MAX_CC)
     cc = -(-cin // n_cc)
     ksteps = -(-9 * cc // 8)
@@ -159,15 +169,19 @@ def conv_plan(b: int, d: int, cin: int, h: int, w: int,
         if (n_split - 1) * nt * 8 < cout:      # no split left empty
             splits.append((n_split, nt))
     big = b * d * h * w >= CONV_MIN_VOXELS
-    cands = []
     for mt, tw in CONV_TILES:
+        if dblock and tw > 32:
+            continue
         th = 64 * mt // tw
         n_wt, n_ht = -(-w // tw), -(-h // th)
         fill = ((w - (n_wt - 1) * tw) / tw) * ((h - (n_ht - 1) * th) / th)
         m_tiles = th * tw // 16
-        for (n_split, nt), db in ((s_, db) for s_ in splits for db in (1, 4)):
-            if (mt, nt, db) not in CONV_INSTANCES or (
-                    db == 4 and (th < 4 or (nt == 2 and cc < 12))):
+        for (n_split, nt), db in ((s_, db) for s_ in splits
+                                  for db in ((4,) if dblock else (1, 4))):
+            if (mt, nt, db) not in CONV_INSTANCES or (db == 4 and (
+                    th < 4 or (not dblock and (
+                        (mt, nt, db) in CONV_DBLOCK_ONLY
+                        or (nt == 2 and cc < 12))))):
                 continue
             blocks = n_wt * n_ht * -(-d // db) * b * n_split
             per_block = (db + 2) * n_cc * (m_tiles * ksteps * 8
@@ -181,8 +195,30 @@ def conv_plan(b: int, d: int, cin: int, h: int, w: int,
             # fewer than four blocks to hide latency with
             key = (blocks * per_block * (1 + 1 / min(blocks / CONV_SMS, 4)),
                    -th * tw, -tw)
-            cands.append((not ok, key, plan))
-    return min(cands, key=lambda c: (c[0], c[1]))[2]
+            yield not ok, key, plan
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, d: int, cin: int, h: int, w: int,
+              cout: int) -> ConvPlan:
+    """Kernel A's tile, Cout split and planes per block for x (b, d, cin,
+    h, w) -> cout channels: the first of ``conv_candidates`` by (enough
+    blocks, estimated cost)."""
+    return min(conv_candidates(b, d, cin, h, w, cout),
+               key=lambda c: (c[0], c[1]))[2]
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan_dblock(b: int, d: int, cin: int, h: int, w: int,
+                     cout: int) -> ConvPlan:
+    """Kernel H's plan: kernel A's engine with four output planes a block
+    (db = 4), the first of the db = 4 candidates by the same rule. One
+    exists at every shape: the (mt, 1, 4) instances with a tile of at
+    least four rows and at most 32 columns and ceil(Cout / 8) splits
+    always qualify. On the 29 conv shapes of a request and a task-0 step
+    the choice is within 1 % of the fastest db = 4 plans timed."""
+    return min(conv_candidates(b, d, cin, h, w, cout, dblock=True),
+               key=lambda c: (c[0], c[1]))[2]
 
 
 def conv_block_region(plan: ConvPlan, bx: int, by: int, bz: int):
@@ -479,9 +515,11 @@ def conv3d_affine_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor, relu: bool, plan: ConvPlan) -> torch.Tensor:
-    """Launch kernel A (its weight pass, then the conv) on the current
-    stream with a given plan. Counts one launch on ``conv3d_affine_cf``."""
+                bias: torch.Tensor, relu: bool, plan: ConvPlan,
+                counter=None) -> torch.Tensor:
+    """Launch kernel A's engine (its weight pass, then the conv) on the
+    current stream with a given plan. Counts one launch on ``counter``:
+    ``conv3d_affine_cf`` (kernel A) unless another wrapper is given."""
     b, d, cin, h, wd = x.shape
     cout = w.shape[4]
     frag = torch.empty(fragment_floats(plan), device=x.device,
@@ -492,8 +530,9 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         bias.data_ptr(), out.data_ptr(), b, d, cin, h, wd, cout, int(relu),
         plan.mt, plan.nt, plan.tw, plan.n_split, plan.cc, plan.db,
         cuda_lib.stream_ptr(x))
-    conv3d_affine_cf.launches += 1
-    cuda_lib.check(rc, "conv3d_affine_cf")
+    counter = counter or conv3d_affine_cf
+    counter.launches += 1
+    cuda_lib.check(rc, counter.__name__)
     return out
 
 
@@ -517,34 +556,20 @@ conv3d_affine_cf.launches = 0
 
 def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, relu: bool) -> torch.Tensor:
-    """Kernel H, the D-blocked mode of kernel A (``KernelVariants.
-    conv3d_dblock``): the same function, so the same plain version and
-    arguments. Replaces rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf's
-    D-blocked form (body _conv3d_kernel_v4). CUDA source:
-    rag_tpu_torch/csrc/conv3d_dblock.cu. Bound: operations, as A. Each
-    block stages a 6-plane input window once for 4 output planes and every
-    thread keeps 4 planes x 2 pixels x up to 16 channels in registers.
-    Takes every D (tail planes are masked), where the TPU kernel needed
-    d % db == 0."""
+    """Kernel H (``KernelVariants.conv3d_dblock``): the same function as
+    kernel A, so the same plain version and arguments. Replaces
+    rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf's D-blocked form (body
+    _conv3d_kernel_v4). It runs kernel A's engine (csrc/conv3d.cu) with
+    ``conv_plan_dblock``'s plan, which keeps v4's D-blocking: four output
+    planes a block, each staged input plane feeding the three that read
+    it. Bound: operations, as A. Takes every D (tail planes are masked),
+    where the TPU kernel needed d % 4 == 0."""
     if not x.is_cuda:
         return conv3d_brc_cf_plain(x, w, scale, bias, relu)
     _check_conv_args("conv3d_dblock_cf", x, w, scale, bias)
-    b, d, cin, h, wd = x.shape
-    cout = w.shape[4]
-    co_t = co_tile(cout)
-    n_pad = -(-cout // co_t) * co_t
-    # the packed operands stay referenced until the launch is queued
-    wpk = pack_weights(w, co_t)
-    sc = pad_channels(scale, n_pad)
-    bi = pad_channels(bias, n_pad)
-    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=torch.float32)
-    rc = cuda_lib.lib().rag_conv3d_dblock_cf(
-        x.data_ptr(), wpk.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-        out.data_ptr(), b, d, cin, h, wd, cout, co_t, int(relu),
-        cuda_lib.stream_ptr(x))
-    conv3d_dblock_cf.launches += 1
-    cuda_lib.check(rc, "conv3d_dblock_cf")
-    return out
+    return launch_conv(x, w, scale, bias, relu,
+                       conv_plan_dblock(*x.shape, w.shape[4]),
+                       conv3d_dblock_cf)
 
 
 conv3d_dblock_cf.launches = 0

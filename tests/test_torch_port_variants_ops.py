@@ -101,9 +101,10 @@ def test_resize_cf_matches_jax(interpret, target):
 
 
 def _emulate_resize(x, d2, h2, w2, transposed):
-    """numpy form of csrc/resize_taps.cu: per output, the W taps gathered
-    and weighted innermost, then the H taps, then the D taps, from the
-    port's tap tables."""
+    """numpy form of csrc/resize_taps.cu's arithmetic: per output, the W
+    taps gathered and weighted innermost, then the H taps, then the D
+    taps, from the port's tap tables (tests/test_torch_port_resize_plan.py
+    emulates its blocking and its order of sums within each axis)."""
     d, h, w = x.shape[1], x.shape[3], x.shape[4]
     (id_, wd), (ih, wh), (iw, ww) = (
         _taps_np(*((n2, n) if transposed else (n, n2)), True, transposed)
