@@ -34,10 +34,14 @@ exception:
                    and through its C entry alone, J and K beside kernels
                    B and E+F; A with one output plane per block and with
                    its 4-byte copies, E at other chunk sizes, D's two
-                   passes apart);
+                   passes apart;
+                   B beside kernel A on the materialized cost volume, F
+                   beside kernel D on it, alone and with the volume's build,
+                   and F's two passes apart);
                    kernel A's weight pass is held bit for bit against its
-                   plain version, and two launches of kernel D on the same
-                   inputs against each other;
+                   plain version (kernel B's plan among its plans), and two
+                   launches of kernel D, and of F, on the same inputs
+                   against each other;
   6. serve         per path, in turns (default, variants, variants,
                    default): set every launch count to 0, answer 3 requests
                    per task path through RoutedInference.predict, read the
@@ -60,12 +64,15 @@ build-and-check) and prints no report.
 Float32 throughout: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
 products are 3xTF32, which keeps float32 accuracy (its lines also carry
 bound_tf32x3_ms, the bound of those products at the TF32 peak, beside the
-float32 bound_ms). Kernel A's, D's, E's, H's and I's lines carry their
-plan: A's tile, splits and blocks per launch; H's the same, with A's plan
-for the call beside it; D's blocks, tile, row groups, planes per block,
-channel chunks and workspace; E's chunks, blocks and workspace; I's tile,
-runs of output planes, taps a table row, staged rows x columns and shared
-memory. D's report entry lists its shapes in a step of task 0's stage.
+float32 bound_ms; so do kernel B's, which runs A's engine). Kernel A's,
+B's, D's, E's, F's, H's and I's lines carry their plan: A's tile, splits
+and blocks per launch; B's and H's the same, with A's plan for the call
+beside it; D's and F's blocks, tile, row groups, planes per block, channel
+chunks and workspace (F's also the share of its blocks' plane steps that
+run, and D's plan for the materialized volume); E's chunks, blocks and
+workspace; I's tile, runs of output planes, taps a table row, staged rows
+x columns and shared memory. D's report entry lists its shapes in a step
+of task 0's stage.
 """
 
 from __future__ import annotations
@@ -209,12 +216,15 @@ def _stem_products(nd, w, dv_needed=False):
     return int(inside.sum())
 
 
-def cvstem_bound(x_shape, nd, cout):
+def cvstem_bound(x_shape, nd, cout, flops_only=False):
     """Multiply-adds that read a voxel of the cost volume that is not a
     structural zero (outside the planes, left of the diagonal, or padding);
-    bytes: the two feature maps, weights, affine in, the output out."""
+    bytes: the two feature maps, weights, affine in, the output out. With
+    flops_only: the time of those operations alone at the float32 peak."""
     b, c, h, w = x_shape
     flops = 2.0 * b * _stem_products(nd, w) * _taps(h) * 2 * c * cout
+    if flops_only:
+        return flops / PEAK_FP32_FLOPS * 1e3
     nbytes = 4.0 * (2 * b * c * h * w + b * nd * cout * h * w
                     + 27 * 2 * c * cout + 2 * cout)
     return _bound(flops, nbytes)
@@ -508,16 +518,69 @@ def _dw_beside(x, dz):
             "sum_ms": lambda: conv3d_mod.launch_dw_plan(x, dz, plan, 2)}
 
 
+def _cvstem_beside(x_cf, y_cf, w3, scale, bias, nd, relu=True):
+    """Kernel A on the materialized cost volume (made once, outside the
+    timing): the same engine with the volume's bytes."""
+    vol = cvstem_mod._volume(x_cf, y_cf, nd).contiguous()
+    return {"kernel_a_on_volume_ms": lambda: conv3d_mod.conv3d_affine_cf(
+        vol, w3, scale, bias, relu)}
+
+
+def _cvstem_plan(x_cf, y_cf, w3, scale, bias, nd, relu=True):
+    """Kernel B's plan (kernel A's engine on the cost volume), kernel A's
+    plan for the materialized volume beside it, and the 3xTF32 bound."""
+    b, c, h, w = x_cf.shape
+    p = cvstem_mod.cvstem_plan(b, nd, c, h, w, w3.shape[4])
+    a = conv3d_mod.conv_plan(b, nd, 2 * c, h, w, w3.shape[4])
+    return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
+            "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db,
+            "kernel_a_plan": f"{a.mt},{a.nt},{a.db} {a.th}x{a.tw}",
+            "bound_tf32x3_ms": 3 * cvstem_bound(x_cf.shape, nd, w3.shape[4],
+                                                flops_only=True)
+            * PEAK_FP32_FLOPS / PEAK_TF32_FLOPS}
+
+
+def _cvstem_dw_beside(x_cf, y_cf, dz, nd):
+    """Kernel D on the materialized cost volume: alone (the volume made
+    once, outside the timing) and with the volume's build, as the plain
+    path would run it; kernel F's two passes apart."""
+    vol = cvstem_mod._volume(x_cf, y_cf, nd).contiguous()
+    b, c, h, w = x_cf.shape
+    plan = cvstem_mod.cvstem_dw_plan(b, nd, c, h, w, dz.shape[2])
+    return {"kernel_d_on_volume_ms": lambda: conv3d_mod.conv3d_dw_cf(vol, dz),
+            "volume_and_kernel_d_ms": lambda: conv3d_mod.conv3d_dw_cf(
+                cvstem_mod._volume(x_cf, y_cf, nd).contiguous(), dz),
+            "partial_ms": lambda: cvstem_mod.launch_cvstem_dw(x_cf, y_cf, dz,
+                                                              plan, 1),
+            "sum_ms": lambda: cvstem_mod.launch_cvstem_dw(x_cf, y_cf, dz,
+                                                          plan, 2)}
+
+
+def _cvstem_dw_plan(x_cf, y_cf, dz, nd):
+    """Kernel F's plan (kernel D's engine on the cost volume), the share of
+    its blocks' plane steps that run, and kernel D's plan for the
+    materialized volume beside it."""
+    b, c, h, w = x_cf.shape
+    p = cvstem_mod.cvstem_dw_plan(b, nd, c, h, w, dz.shape[2])
+    d = conv3d_mod.dw_plan(b, nd, 2 * c, h, w, dz.shape[2])
+    return {**_dw_fields(p),
+            "live_share": cvstem_mod.cvstem_live_share(p, nd, w),
+            "kernel_d_plan": f"{d.th}x{d.tw} db {d.db} co_t {d.co_t} kh_t "
+                             f"{d.kh_t}"}
+
+
+def _dw_fields(p):
+    return {"blocks": p.blocks, "threads": p.threads,
+            "tile": f"{p.th}x{p.tw}", "groups": p.groups, "db": p.db,
+            "ci": p.ci, "n_ci": p.n_ci, "co_t": p.co_t, "n_co": p.n_co,
+            "kh_t": p.kh_t, "workspace_bytes": 4 * p.workspace}
+
+
 def _dw_plan(x, dz):
     """Kernel D's plan for the call: blocks, tile (band of rows x columns),
     row groups, output planes per block, input- and output-channel chunks,
     workspace."""
-    p = conv3d_mod.dw_plan(*x.shape, dz.shape[2])
-    return {"blocks": p.blocks, "threads": p.threads,
-            "tile": f"{p.th}x{p.tw}", "groups": p.groups, "db": p.db,
-            "ci": p.ci, "n_ci": p.n_ci, "co_t": p.co_t, "n_co": p.n_co,
-            "kh_t": p.kh_t,
-            "workspace_bytes": 4 * p.workspace}
+    return _dw_fields(conv3d_mod.dw_plan(*x.shape, dz.shape[2]))
 
 
 def _dxy_plan(dz, w3, nd):
@@ -578,8 +641,8 @@ KERNELS = {
             (tuple(x.shape), w3.shape[4], nd, relu),
         bound=lambda x, y, w3, scale, bias, nd, relu=True:
             cvstem_bound(x.shape, nd, w3.shape[4]),
-        library=_cvstem_library, tol="conv", path="default",
-        serving=True),
+        library=_cvstem_library, beside=_cvstem_beside, plan=_cvstem_plan,
+        tol="conv", path="default", serving=True),
     "fused_soft_argmin": dict(
         site=(disparity_mod, "soft_argmin_fwd"),
         plain=disparity_mod.soft_argmin_disparity,
@@ -618,8 +681,9 @@ KERNELS = {
         sig=lambda x, y, dz, nd: (tuple(x.shape), dz.shape[2], nd),
         bound=lambda x, y, dz, nd: cvstem_dw_bound(x.shape, dz.shape, nd),
         magnitude=lambda x, y, dz, nd: (x.abs(), y.abs(), dz.abs(), nd),
-        library=_cvstem_dw_library, tol="bwd", path="default",
-        serving=False),
+        library=_cvstem_dw_library, beside=_cvstem_dw_beside,
+        plan=_cvstem_dw_plan, tol="bwd", path="default", serving=False,
+        bitwise=True),
     "soft_argmin_bwd": dict(
         site=(disparity_mod, "soft_argmin_bwd"),
         plain=disparity_mod.soft_argmin_bwd_plain,
@@ -688,7 +752,11 @@ TRAIN_KERNELS = {
 def small_cases(dev, rng):
     """A few small shapes per kernel: Cout 1 with W not a multiple of 8,
     merged Cout 48, D not a multiple of kernel H's 4 planes, a D == W cost
-    volume, num_disp past W, W = 13, a 4-tap and a 3-tap adjoint resize
+    volume, num_disp past W, W = 13; for kernels B and F at C = 12 (one
+    half of the volume a channel chunk) D past W with W % 4 != 0 (4-byte
+    copies) and with W % 4 == 0 (16-byte copies; Y's rows at planes
+    p % 4 != 0 and the diagonal's pieces in 4-byte ones, up to the right
+    edge of a ragged last tile), a 4-tap and a 3-tap adjoint resize
     table, a 4x downsample (kernel I skips the planes and rows it does not
     read) and its adjoint, batch 2 for every kernel; for kernel A's plans
     W = 80 (a 16-wide tile), Cout 12 and 36 (N padded to 16 and 48) and
@@ -727,7 +795,9 @@ def small_cases(dev, rng):
     for b, c, h, w, nd, cout in [(1, 12, 8, 20, 6, 12), (1, 2, 8, 8, 8, 3),
                                  (2, 3, 6, 11, 5, 4), (1, 2, 5, 6, 9, 3),
                                  (1, 3, 8, 13, 13, 12),
-                                 (2, 12, 9, 130, 11, 12)]:
+                                 (2, 12, 9, 130, 11, 12),
+                                 (1, 12, 7, 21, 24, 12),
+                                 (2, 12, 10, 68, 72, 12)]:
         x, y, w3 = t(b, c, h, w), t(b, c, h, w), t(3, 3, 3, 2 * c, cout, s=0.2)
         dz = t(b, nd, cout, h, w)
         cases.append(("cvstem_brc", (x, y, w3, *aff(cout), nd, True)))
@@ -975,14 +1045,19 @@ def check_kernel(name, args, kw, reps, beside):
 def check_weight_pass(dev, rng):
     """Kernel A's first pass (the weights' TF32 split, in mma fragment
     order) against its plain version, bit for bit: K padded per stage (Cin
-    12, 36), N padded (Cout 1, 12, 36), a Cout split, 16 channels a stage."""
-    for cin, cout, b, d, h, w in [(12, 12, 1, 64, 160, 320), (12, 1, 1, 64,
-                                  160, 320), (36, 36, 1, 3, 10, 80),
-                                  (16, 48, 1, 16, 40, 80), (48, 16, 4, 16,
-                                  16, 32), (4, 8, 1, 64, 160, 320)]:
+    12, 36), N padded (Cout 1, 12, 36), a Cout split, 16 channels a stage,
+    and kernel B's plan at the eval geometry (two stages of 12 a plane)."""
+    plans = [((cin, cout), conv3d_mod.conv_plan(b, d, cin, h, w, cout))
+             for cin, cout, b, d, h, w in [
+                 (12, 12, 1, 64, 160, 320), (12, 1, 1, 64, 160, 320),
+                 (36, 36, 1, 3, 10, 80), (16, 48, 1, 16, 40, 80),
+                 (48, 16, 4, 16, 16, 32), (4, 8, 1, 64, 160, 320)]]
+    # kernel B's at the eval geometry (the stem's 24 -> 12)
+    plans.append(((2 * STEM_C, 12), cvstem_mod.cvstem_plan(
+        1, MAXDISP // 3, STEM_C, H // 3, W // 3, 12)))
+    for (cin, cout), plan in plans:
         wt = torch.from_numpy(rng.standard_normal((3, 3, 3, cin, cout))
                               .astype(np.float32)).to(dev)
-        plan = conv3d_mod.conv_plan(b, d, cin, h, w, cout)
         got = conv3d_mod.pack_weights_cuda(wt, plan)
         want = conv3d_mod.pack_weights_tf32(wt, plan)
         if not torch.equal(got, want):
@@ -990,7 +1065,7 @@ def check_weight_pass(dev, rng):
                              f"from pack_weights_tf32 at Cin {cin} Cout "
                              f"{cout}")
     log("[kernels] kernel A's weight pass equals pack_weights_tf32 bit for "
-        "bit at 6 plans")
+        f"bit at {len(plans)} plans (kernel B's at the eval geometry)")
 
 
 def phase_kernels(args_of, dev):
@@ -1090,12 +1165,14 @@ def phase_serve(ri, requests, plain, path, default_outs=None):
 
 
 # kinds of device kernel in a trace, matched in order on the lower-cased
-# name (the port's A-K first; kernel_kind sorts B and F apart). Kernel H
-# is kernel A's engine: "A (H)" is A on the default path, H on the variant
-# path, which runs no kernel A
+# name (the port's A-K first; kernel_kind sorts B and F apart: they are the
+# engines of A and D with the cost-volume policy). Kernel H is kernel A's
+# engine: "A (H)" is A on the default path, H on the variant path, which
+# runs no kernel A; it also holds B's weight pass. "D (F) sum" holds both
+# sum passes
 KINDS = (("conv3d_tf32x3_kernel", "A (H)"), ("conv3d_pack_kernel", "A (H)"),
          ("conv3d_dw_kernel", "D"),
-         ("conv3d_dw_sum_kernel", "D sum"), ("dw_reduce_kernel", "F reduce"),
+         ("conv3d_dw_sum_kernel", "D (F) sum"),
          ("cvstem_dxy", "E"),
          ("soft_argmin_kernel", "C"), ("soft_argmin_fold_kernel", "G"),
          ("soft_argmin_gather_kernel", "G"), ("resize_taps_kernel", "I"),
@@ -1107,7 +1184,7 @@ KINDS = (("conv3d_tf32x3_kernel", "A (H)"), ("conv3d_pack_kernel", "A (H)"),
 
 def kernel_kind(name: str) -> str:
     if "CostVolumeSrc" in name:
-        return "F" if "dw_partial_kernel" in name else "B"
+        return "F" if "conv3d_dw_kernel" in name else "B"
     low = name.lower()
     return next(kind for key, kind in KINDS if key in low)
 

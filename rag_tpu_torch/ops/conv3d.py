@@ -6,37 +6,37 @@ D-blocked variant kernel H, and kernel D (the weight gradient), with
 Kernel A, ``conv3d_affine_cf``: conv + per-channel affine + optional ReLU.
 Replaces the TPU kernel rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf
 (kernel bodies _conv3d_kernel and, at the eval geometry, the H-tiled
-_conv3d_kernel_v3). CUDA source: rag_tpu_torch/csrc/conv3d.cu. Bound on the
-H100: operations. At the eval geometry ``stem_3d1`` alone is
-2*27*12*12*64*160*320 = 25.5 GFLOP on a 157 MB input (0.38 ms at the fp32
-non-tensor peak of 67 TFLOP/s, 0.15 ms for the three TF32 products of each
-at 495 TFLOP/s, against 0.09 ms to move its bytes). The design is an
-implicit GEMM on the tensor cores (``mma.sync`` m16n8k8 in 3xTF32: float32
-accuracy from three TF32 products), with the input slab of each stage
-streaming into shared memory while the previous one is multiplied.
-``conv_plan`` picks the tile, the Cout split and the output planes per
-block per shape; ``split_tf32`` and ``pack_weights_tf32`` are the plain
-version of the kernel's first pass, which splits the weights and writes
-them in the mma's fragment order.
+_conv3d_kernel_v3). CUDA source: rag_tpu_torch/csrc/conv3d.cu on the
+engine of csrc/conv3d.cuh. Bound on the H100: operations. At the eval
+geometry ``stem_3d1`` alone is 2*27*12*12*64*160*320 = 25.5 GFLOP on a 157
+MB input (0.38 ms at the fp32 non-tensor peak of 67 TFLOP/s, 0.15 ms for
+the three TF32 products of each at 495 TFLOP/s, against 0.09 ms to move
+its bytes). The design is an implicit GEMM on the tensor cores
+(``mma.sync`` m16n8k8 in 3xTF32: float32 accuracy from three TF32
+products), with the input slab of each stage streaming into shared memory
+while the previous one is multiplied. ``conv_plan`` picks the tile, the
+Cout split and the output planes per block per shape; ``split_tf32`` and
+``pack_weights_tf32`` are the plain version of the kernel's first pass,
+which splits the weights and writes them in the mma's fragment order.
 
 Kernel D, ``conv3d_dw_cf``: the weight gradient
 ``dW[kd,kh,kw,ci,co] = sum_{b,d,h,w} x[b,d+kd-1,ci,h+kh-1,w+kw-1] dz[b,d,co,h,w]``.
 Replaces rag_tpu/ops/pallas_conv3d.py::conv3d_dw_pallas_pre (body
 _conv3d_dw_kernel), whose grid carries the sum in one revisited output
-block. CUDA source: rag_tpu_torch/csrc/conv3d_dw.cu, a register-blocked
-float32 kernel on the CUDA cores. Bound: operations at every train shape
-with Cout >= 4 (15.9 GFLOP at ``stem_3d1``'s, 0.24 ms at 67 TFLOP/s),
-bytes at the Cout-1 head. A thread owns one (ci, kd), kh_t of its kh
-taps (1, or all 3 at co_t <= 8) and the three kw taps x co_t output
-channels; walking staged rows four columns at a time it reads kh_t
-float4s of x and co_t float4 broadcasts of dz for 12*kh_t*co_t FMAs
-(20.6 per shared load at co_t 4, kh_t 3). ``dw_plan`` cuts the work into
-blocks of (b, run of output planes, tile of rows x columns, input-channel
-chunk, Cout chunk) that fill the card; each block walks its planes with
-the next input plane and dz plane landing by cp.async while the current
-one multiplies, adds its row groups' sums in a fixed order and writes one
-partial dW; a second kernel sums the partials in a fixed order: no float
-atomics, the same bits on every run.
+block. CUDA source: rag_tpu_torch/csrc/conv3d_dw.cu on the engine of
+csrc/conv3d_dw.cuh, a register-blocked float32 kernel on the CUDA cores.
+Bound: operations at every train shape with Cout >= 4 (15.9 GFLOP at
+``stem_3d1``'s, 0.24 ms at 67 TFLOP/s), bytes at the Cout-1 head. A thread
+owns one (ci, kd), kh_t of its kh taps (1, or all 3 at co_t <= 8) and the
+three kw taps x co_t output channels; walking staged rows four columns at
+a time it reads kh_t float4s of x and co_t float4 broadcasts of dz for
+12*kh_t*co_t FMAs (20.6 per shared load at co_t 4, kh_t 3). ``dw_plan``
+cuts the work into blocks of (b, run of output planes, tile of rows x
+columns, input-channel chunk, Cout chunk) that fill the card; each block
+walks its planes with the next input plane and dz plane landing by
+cp.async while the current one multiplies, adds its row groups' sums in a
+fixed order and writes one partial dW; a second kernel sums the partials
+in a fixed order: no float atomics, the same bits on every run.
 
 ``conv3d_brc_cf`` is the entry point. Without a gradient it is one fused
 kernel A call. With one it runs kernel A at identity affine, keeps the
@@ -51,9 +51,12 @@ Kernel H, ``conv3d_dblock_cf``: the D-blocked form of the same conv
 ``conv_plan_dblock``'s plans, which put four output planes in every block
 (db = 4); its launches count on ``conv3d_dblock_cf``.
 
+Kernels B and F (ops/cvstem.py) run the engines of A and D on the
+matching stem's cost volume, with plans from the same candidates.
+
 Weights stay in the reference's (3, 3, 3, Cin, Cout) layout; kernel A's
-first pass and the other wrappers pack them per call. Each wrapper runs its plain PyTorch version for CPU
-tensors only; on a CUDA tensor it launches its kernel or raises.
+first pass packs them per call. Each wrapper runs its plain PyTorch version
+for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -69,8 +72,8 @@ from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 
 def co_tile(cout: int) -> int:
-    """Output channels per thread: the tile that wastes the fewest padded
-    channels among the compiled ones (1, 4, 8, 12, 16)."""
+    """The widest Cout chunk kernel D's plans consider: the one that wastes
+    the fewest padded channels among 1, 4, 8, 12 and 16."""
     if cout == 1:
         return 1
     if cout <= 8:
@@ -80,18 +83,6 @@ def co_tile(cout: int) -> int:
     if cout % 12 == 0:
         return 12
     return 16
-
-
-def pack_weights(w: torch.Tensor, co_t: int) -> torch.Tensor:
-    """(3,3,3,Cin,Cout) -> (n_co, Cin, 27, co_t), zero-padded past Cout."""
-    cin, cout = w.shape[3], w.shape[4]
-    n_co = -(-cout // co_t)
-    w27 = F.pad(w.reshape(27, cin, cout), (0, n_co * co_t - cout))
-    return w27.reshape(27, cin, n_co, co_t).permute(2, 1, 0, 3).contiguous()
-
-
-def pad_channels(v: torch.Tensor, n: int) -> torch.Tensor:
-    return F.pad(v, (0, n - v.shape[0])).contiguous()
 
 
 # Kernel A's tiling (csrc/conv3d.cu): 4 warps, each MT m-tiles of 16 pixels
@@ -139,22 +130,24 @@ def _chan_stride(th: int, tw: int) -> int:
 
 
 def conv_candidates(b: int, d: int, cin: int, h: int, w: int, cout: int,
-                    dblock: bool = False):
-    """Every blocking of kernel A for x (b, d, cin, h, w) -> cout channels,
-    as (not enough blocks, estimated cost, plan). Where the output holds at
-    least CONV_MIN_VOXELS voxels (b*d*h*w) a plan needs at least two waves
-    of blocks; a smaller shape needs a tile at least half full. The cost:
-    the blocks' warp instructions (per staged input plane: 8 per 16 pixels
-    and k-step for the A fragments, 6 per staged row; per output plane and
-    tap: 7 per 16 pixels, k-step and n-tile for the B load and 3 mma),
-    scaled up where the grid leaves an SM fewer than four blocks; then
-    bigger and wider tiles. Four output planes share a block (db = 4) only
-    with tiles of at least four rows, and, unless ``dblock`` (kernel H,
-    which takes db = 4 alone), with one n-tile, or two with at least 12
-    input channels per stage: where that was measured faster than db = 1
-    on the H100 for kernel A. Kernel H's plans take tiles at most 32
-    columns wide: at db = 4 the 64-wide ones were measured slower than
-    the best other tile at every main-path shape (scripts/
+                    dblock: bool = False, instances=CONV_INSTANCES,
+                    row_cost: int = 6):
+    """Every blocking of kernel A's engine for x (b, d, cin, h, w) -> cout
+    channels among the compiled ``instances`` (mt, nt, db), as (not enough
+    blocks, estimated cost, plan). Where the output holds at least
+    CONV_MIN_VOXELS voxels (b*d*h*w) a plan needs at least two waves of
+    blocks; a smaller shape needs a tile at least half full. The cost: the
+    blocks' warp instructions (per staged input plane: 8 per 16 pixels and
+    k-step for the A fragments, ``row_cost`` per staged row; per output
+    plane and tap: 7 per 16 pixels, k-step and n-tile for the B load and 3
+    mma), scaled up where the grid leaves an SM fewer than four blocks;
+    then bigger and wider tiles. Four output planes share a block (db = 4)
+    only with tiles of at least four rows, and, unless ``dblock`` (kernel
+    H, which takes db = 4 alone), with one n-tile, or two with at least 12
+    input channels per stage: where that was measured faster than db = 1 on
+    the H100 for kernel A. Kernel H's plans take tiles at most 32 columns
+    wide: at db = 4 the 64-wide ones were measured slower than the best
+    other tile at every main-path shape (scripts/
     torch_dblock_sweep.py)."""
     n_cc = -(-cin // CONV_MAX_CC)
     cc = -(-cin // n_cc)
@@ -178,14 +171,14 @@ def conv_candidates(b: int, d: int, cin: int, h: int, w: int, cout: int,
         m_tiles = th * tw // 16
         for (n_split, nt), db in ((s_, db) for s_ in splits
                                   for db in ((4,) if dblock else (1, 4))):
-            if (mt, nt, db) not in CONV_INSTANCES or (db == 4 and (
+            if (mt, nt, db) not in instances or (db == 4 and (
                     th < 4 or (not dblock and (
                         (mt, nt, db) in CONV_DBLOCK_ONLY
                         or (nt == 2 and cc < 12))))):
                 continue
             blocks = n_wt * n_ht * -(-d // db) * b * n_split
             per_block = (db + 2) * n_cc * (m_tiles * ksteps * 8
-                                           + cc * (th + 2) * 6) \
+                                           + cc * (th + 2) * row_cost) \
                 + 3 * db * n_cc * m_tiles * ksteps * 7 * nt
             cs = _chan_stride(th, tw)
             plan = ConvPlan(mt, nt, tw, th, n_split, cc, n_cc, ksteps, n_wt,
@@ -315,19 +308,24 @@ DW_IPC, DW_FULL_WARPS, DW_STEP_CYCLES, DW_COPY_ISSUE = 0.6, 12, 3000, 32
 DW_CLOCK_MHZ = 1755
 
 
-def _dw_cost_us(p: DwPlan) -> float:
-    """dw_plan's estimate of a plan's time, in microseconds."""
+def _dw_cost_us(p: DwPlan, x_copies: float = 1.0, live: float = 1.0,
+                regs=DW_INSTANCES) -> float:
+    """dw_plan's estimate of a plan's time, in microseconds. A staged x
+    piece costs ``x_copies`` 16-byte copies' issue slots, a share ``live``
+    of the blocks' plane steps runs, and ``regs`` gives the instances'
+    registers (kernel F's input policy: ops/cvstem.py::cvstem_dw_plan)."""
     warps = -(-p.threads // 32)
-    per_sm = min(65536 // (32 * warps * DW_INSTANCES[(p.co_t, p.kh_t)]),
+    per_sm = min(65536 // (32 * warps * regs[(p.co_t, p.kh_t)]),
                  (228 << 10) // (p.smem + 1024), 64 // warps, 32)
     chunk = 12 * p.kh_t * p.co_t + p.kh_t + p.co_t + 3
     step = warps * (p.th // p.groups) * ((p.tw // 4) * chunk + 8 * p.kh_t) \
-        + -(-(p.ci * (p.th + 2) * (p.tw + 8) + p.co_t * p.th * p.tw)
-            // (4 * 32)) * DW_COPY_ISSUE
+        + -(-(x_copies * p.ci * (p.th + 2) * (p.tw + 8)
+              + p.co_t * p.th * p.tw) // (4 * 32)) * DW_COPY_ISSUE
     n_sm = -(-p.blocks // CONV_SMS)
     held = min(per_sm, n_sm)
     ipc = DW_IPC * min(1.0, held * warps / DW_FULL_WARPS)
-    cycles = n_sm * (p.db + 1) * (step / (4 * ipc) + DW_STEP_CYCLES / held)
+    cycles = n_sm * (p.db * live + 1) * (step / (4 * ipc)
+                                         + DW_STEP_CYCLES / held)
     # the sum pass: the workspace written and read at 2.5 TB/s, and its
     # rounds of eight loads
     return (cycles / DW_CLOCK_MHZ + 2 * p.workspace * 4 / 2.5e6
@@ -616,27 +614,6 @@ def launch_dw_plan(x: torch.Tensor, dz: torch.Tensor, plan: DwPlan,
         plan.th, plan.tw, plan.db, passes, cuda_lib.stream_ptr(x))
     conv3d_dw_cf.launches += 1
     cuda_lib.check(rc, "conv3d_dw_cf")
-    return out
-
-
-def launch_dw(wrapper, entry: str, inputs, dz: torch.Tensor,
-              cin: int) -> torch.Tensor:
-    """Launch kernel F's weight-gradient engine (csrc/conv3x3x3_dw.cuh):
-    one block per ((b, d) plane, 4 input channels, co_tile(cout) output
-    channels) writes its partial dW into a workspace of B*D partials, then
-    the fixed-order sum over the planes, both on the current stream.
-    Counts one launch on ``wrapper``."""
-    b, d, cout, h, w = dz.shape
-    n_out = 27 * cin * cout
-    partial = torch.empty(b * d * n_out, device=dz.device, dtype=torch.float32)
-    out = torch.empty((3, 3, 3, cin, cout), device=dz.device,
-                      dtype=torch.float32)
-    rc = getattr(cuda_lib.lib(), entry)(
-        *[t.data_ptr() for t in inputs], dz.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), b, d, cin, cout, h, w, co_tile(cout),
-        cuda_lib.stream_ptr(dz))
-    wrapper.launches += 1
-    cuda_lib.check(rc, entry)
     return out
 
 

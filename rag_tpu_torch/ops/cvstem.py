@@ -3,15 +3,20 @@ kernel B (forward), kernel E (dX, dY) and kernel F (dW), with
 ``cvstem_conv`` and ``cvstem_brc`` differentiable. The (B, D, 2C, H, W)
 volume never exists on the card, forward or backward.
 
+The volume's load rule is one input policy of the engines of kernels A
+and D (csrc/volume_src.cuh::CostVolumeSrc): a staged row of plane p is X's
+row from the diagonal j = p on, or Y's row shifted right by p, and zero at
+j >= W. ``stage_row``, ``stage_piece`` and ``live_plane`` are its rules
+in Python, which the CPU tests emulate.
+
 Kernel B, ``cvstem_affine``: conv3d(cost_volume_cf(X, Y, D), w3) * scale +
 bias (+ReLU). Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_forward_cf
 (body _cvstem_kernel) and its H-tiled form cvstem_forward_cf_v3
-(_cvstem_kernel_v3). CUDA source: rag_tpu_torch/csrc/cvstem.cu, sharing
-the tile engine of kernel A. Bound: operations, ~51 GFLOP at the eval
-geometry against ~5 MB of features read and 157 MB written. Each block
-builds its haloed slab of the volume in shared memory straight from the
-two feature maps, masked on load, so the conv's W halo sees the volume's
-zeros left of the diagonal.
+(_cvstem_kernel_v3). CUDA source: rag_tpu_torch/csrc/cvstem.cu, kernel A's
+engine (csrc/conv3d.cuh: a 3xTF32 implicit GEMM on the tensor cores) with
+the cost-volume policy, planned by ``cvstem_plan``. Bound: operations,
+45.2 GFLOP at the eval geometry (0.675 ms at 67 TFLOP/s) against ~5 MB of
+features read and 157 MB written.
 
 Kernel E, ``cvstem_dxy``: with dv = conv3d(dz, flipped io-transposed w3),
 ``dX[c,h,j] = sum_d [j >= d] dv[d,c,h,j]`` and
@@ -26,13 +31,13 @@ partial sums of the chunks are added in chunk order by a second kernel.
 ``dxy_window``, ``dxy_tap_column`` and ``dxy_ring_slot`` are the kernel's
 index rules, which the CPU tests emulate.
 
-Kernel F, ``cvstem_dw``: the stem's weight gradient, on the engine of
-csrc/conv3x3x3_dw.cuh with the input slab built from X and Y by the
-cost-volume load rule.
-Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas (body
-_cvstem_dw_kernel). CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu. Bound:
-operations, 24.0 GFLOP at the train shape (0.358 ms), the forward's
-products that read a voxel of the volume that is not a structural zero.
+Kernel F, ``cvstem_dw``: the stem's weight gradient. Replaces
+rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas (body _cvstem_dw_kernel).
+CUDA source: rag_tpu_torch/csrc/cvstem_bwd.cu, kernel D's register-blocked
+float32 engine (csrc/conv3d_dw.cuh) with the cost-volume policy, planned by
+``cvstem_dw_plan``. Bound: operations, 24.0 GFLOP at the train shape
+(0.358 ms), the forward's products that read a voxel of the volume that is
+not a structural zero.
 
 ``cvstem_conv`` (pre-affine, for a stem whose BatchNorm trains) and
 ``cvstem_brc`` (frozen BN folded into the affine) follow
@@ -51,16 +56,69 @@ import torch
 
 from rag_tpu_torch.ops import cuda_lib
 from rag_tpu_torch.ops.conv3d import (
+    CONV_MIN_BLOCKS,
+    CONV_MIN_VOXELS,
+    CONV_SMS,
+    ConvPlan,
+    DwPlan,
+    _dw_cost_us,
     check_f32,
-    co_tile,
     conv3d_brc_cf_plain,
     conv3d_dw_cf_plain,
-    launch_dw,
+    conv_candidates,
+    dw_candidates,
+    fragment_floats,
     needs_grad,
-    pack_weights,
-    pad_channels,
 )
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
+
+
+# -- the cost volume's load rule (csrc/volume_src.cuh::CostVolumeSrc) --------
+
+def stage_row(half: int, p: int, w: int):
+    """The source of a staged row of plane p of the cost volume, in the X
+    (half 0) or Y (half 1) half, as (shift, lo, hi): column j reads source
+    column j - shift of the feature map's row where lo <= j < hi, and is
+    zero elsewhere: left of the diagonal, and at j >= W, where Y[j - p]
+    exists but the volume is zero (the reference clips, then masks)."""
+    return (p if half else 0), p, w
+
+
+def stage_piece(half: int, p: int, j0: int, w: int, vec: bool):
+    """How columns j0 .. j0+3 of a row of plane p land in shared memory
+    (csrc/volume_src.cuh::stage_piece where rows copy in 16-byte pieces,
+    ``vec``; else stage_col for each column): a list of (copy width in
+    bytes, first column of the piece, source column or None for a zero
+    fill). One 16-byte copy where all four columns are inside and the
+    source is 16-byte aligned (Y's rows at p % 4 == 0), one 16-byte zero
+    fill where none is; else 4-byte copies and fills: the piece that
+    straddles the diagonal, Y's rows at other planes, and every piece where
+    W % 4 != 0."""
+    shift, lo, hi = stage_row(half, p, w)
+    s0 = j0 - shift
+    if vec and lo <= j0 and j0 + 4 <= hi and s0 % 4 == 0:
+        return [(16, j0, s0)]
+    if vec and (j0 + 4 <= lo or j0 >= hi):
+        return [(16, j0, None)]
+    return [(4, j, j - shift if lo <= j < hi else None)
+            for j in range(j0, j0 + 4)]
+
+
+def live_plane(p: int, w0: int, tw: int) -> bool:
+    """Whether plane p of the volume holds a nonzero value under a tile of
+    tw columns at w0 and its one-column halo (columns up to w0 + tw):
+    plane p is zero left of column p. Kernel B skips the stages of dead
+    planes, kernel F the output planes whose three input planes are dead
+    (csrc/volume_src.cuh::CostVolumeSrc::last_live_plane)."""
+    return p <= w0 + tw
+
+
+def dw_live_steps(d0: int, n: int, w0: int, tw: int) -> int:
+    """The output planes d0 .. d0 + k - 1 of a run of n that a kernel F
+    block walks: it stops at the first d whose lowest input plane d - 1 is
+    dead, since every later one is too."""
+    return max(0, min(n, w0 + tw - d0 + 2))
+
 
 # Kernel E's tile (csrc/cvstem_dxy.cu): 8 x 64 pixels, 4 per thread kTX apart
 DXY_TH, DXY_TW = 8, 64
@@ -176,6 +234,88 @@ def cvstem_dw_plain(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
     return conv3d_dw_cf_plain(_volume(x_cf, y_cf, num_disp), dz)
 
 
+# Kernel B: the (mt, nt, db) instances of kernel A's engine compiled with
+# the cost-volume policy (csrc/cvstem.cu): those its plans take at the
+# eval and train geometries and chip_smoke.py's small shapes, and the
+# others scripts/torch_stem_sweep.py times beside them
+CVSTEM_INSTANCES = frozenset([(2, 1, 1), (2, 2, 1), (4, 1, 1), (4, 2, 1),
+                              (2, 1, 4), (2, 2, 4), (4, 1, 4)])
+# conv_candidates' cost of a staged row under the policy: kernel A's 6 for
+# a row of 16-byte copies, four times that for the Y half's rows at three
+# planes in four (4-byte copies), averaged over the two halves
+CVSTEM_ROW_COST = 13
+# kernel F: a staged x piece's issue slots, in 16-byte copies, averaged
+# over the halves: X's rows copy 16 bytes, Y's 4 bytes at three planes in
+# four
+CVSTEM_DW_X_COPIES = (1 + 0.25 + 0.75 * 4) / 2
+# kernel F's instances of kernel D's engine -> registers a thread (ptxas,
+# sm_90a, CUDA 12.8), as conv3d.py::DW_INSTANCES for kernel D
+CVSTEM_DW_REGS = {(1, 3): 72, (4, 3): 127, (8, 3): 168, (12, 1): 108}
+
+
+def cvstem_candidates(b: int, d: int, c: int, h: int, w: int, cout: int):
+    """Kernel B's blockings: kernel A's candidates for the (b, d, 2c, h, w)
+    volume among CVSTEM_INSTANCES, with the policy's staging cost."""
+    return conv_candidates(b, d, 2 * c, h, w, cout,
+                           instances=CVSTEM_INSTANCES,
+                           row_cost=CVSTEM_ROW_COST)
+
+
+@functools.lru_cache(maxsize=None)
+def cvstem_plan(b: int, d: int, c: int, h: int, w: int,
+                cout: int) -> ConvPlan:
+    """Kernel B's plan for features (b, c, h, w) and d planes: the first of
+    ``cvstem_candidates`` by (enough blocks, estimated cost), as
+    conv_plan chooses. At the eval and train geometries it is kernel A's
+    plan for the volume, 4 x 32 tiles of four planes a block and both
+    n-tiles (112 x 16 of K x N per stage of one half): 4-5 % slower than
+    the fastest of the 19 plans timed by scripts/torch_stem_sweep.py on
+    the H100 at both (16 x 16 tiles of one plane a block, which A's cost
+    model, made for stored volumes, ranks below four planes a block)."""
+    return min(cvstem_candidates(b, d, c, h, w, cout),
+               key=lambda t: (t[0], t[1]))[2]
+
+
+def cvstem_live_share(plan: DwPlan, d: int, w: int) -> float:
+    """The share of kernel F's block plane steps that run under a plan
+    (``dw_live_steps`` over its runs and W tiles)."""
+    live = sum(dw_live_steps(dc * plan.db, min(plan.db, d - dc * plan.db),
+                             wt * plan.tw, plan.tw)
+               for dc in range(plan.n_dc) for wt in range(plan.n_wt))
+    return live / (plan.n_wt * d)
+
+
+@functools.lru_cache(maxsize=None)
+def cvstem_dw_plan(b: int, d: int, c: int, h: int, w: int,
+                   cout: int) -> DwPlan:
+    """Kernel F's blocking: kernel D's candidates for the (b, d, 2c, h, w)
+    volume (at 2c = 24, two channel chunks of 12, one half each), chosen
+    as dw_plan chooses, with the policy's cost: CVSTEM_DW_X_COPIES per
+    staged x piece, F's registers (CVSTEM_DW_REGS), only the plane steps
+    that run
+    (``cvstem_live_share``), and a tail: blocks left of the diagonal stop
+    early, so runs differ in length and an SM's last block runs alone,
+    which adds one block's share, 1 / (blocks per SM), to the estimate.
+    At the train shape the choice (8 x 16 tiles, runs of 16 planes, 2048
+    blocks) is within 0.1 % of the fastest of the 92 blockings timed by
+    scripts/torch_stem_sweep.py on the H100; without the tail the estimate
+    took runs of 64 planes, 15.6 % slower."""
+    big = b * d * h * w >= CONV_MIN_VOXELS
+    return min(dw_candidates(b, d, 2 * c, h, w, cout),
+               key=lambda p: (big and p.blocks < CONV_MIN_BLOCKS,
+                              _dw_cost_us(p, CVSTEM_DW_X_COPIES,
+                                          cvstem_live_share(p, d, w),
+                                          CVSTEM_DW_REGS)
+                              * (1 + 1 / -(-p.blocks // CONV_SMS)),
+                              p.n_pos))
+
+
+def _check_stem(name, x_cf, y_cf, nd):
+    if x_cf.dim() != 4 or y_cf.shape != x_cf.shape or nd < 1:
+        raise ValueError(f"{name}: unsupported x {tuple(x_cf.shape)}, y "
+                         f"{tuple(y_cf.shape)}, num_disp {nd}")
+
+
 def cvstem_affine(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
                   scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
                   relu: bool = True) -> torch.Tensor:
@@ -183,25 +323,34 @@ def cvstem_affine(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
     features; w3: (3,3,3,2C,Cout); returns (B, num_disp, Cout, H, W)."""
     if not x_cf.is_cuda:
         return cvstem_brc_plain(x_cf, y_cf, w3, scale, bias, num_disp, relu)
+    _check_stem("cvstem_affine", x_cf, y_cf, num_disp)
     b, c, h, w = x_cf.shape
     cout = w3.shape[4]
-    if (y_cf.shape != x_cf.shape or w3.shape[:4] != (3, 3, 3, 2 * c)
-            or scale.shape != (cout,) or bias.shape != (cout,)
-            or num_disp < 1):
-        raise ValueError(f"cvstem_affine: unsupported x {tuple(x_cf.shape)} "
-                         f"y {tuple(y_cf.shape)} w {tuple(w3.shape)}")
+    if (w3.shape[:4] != (3, 3, 3, 2 * c) or scale.shape != (cout,)
+            or bias.shape != (cout,)):
+        raise ValueError(f"cvstem_affine: unsupported w {tuple(w3.shape)}")
     check_f32("cvstem_affine", x_cf, y_cf, w3, scale, bias)
-    co_t = co_tile(cout)
-    n_pad = -(-cout // co_t) * co_t
-    wpk = pack_weights(w3, co_t)
-    sc = pad_channels(scale, n_pad)
-    bi = pad_channels(bias, n_pad)
+    return launch_cvstem(x_cf, y_cf, w3, scale, bias, num_disp, relu,
+                         cvstem_plan(b, num_disp, c, h, w, cout))
+
+
+def launch_cvstem(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
+                  scale: torch.Tensor, bias: torch.Tensor, num_disp: int,
+                  relu: bool, plan: ConvPlan) -> torch.Tensor:
+    """Launch kernel B (kernel A's weight pass, then the conv of the cost
+    volume) on the current stream with a given plan. Counts one launch on
+    ``cvstem_affine``."""
+    b, c, h, w = x_cf.shape
+    cout = w3.shape[4]
+    frag = torch.empty(fragment_floats(plan), device=x_cf.device,
+                       dtype=torch.float32)
     out = torch.empty((b, num_disp, cout, h, w), device=x_cf.device,
                       dtype=torch.float32)
     rc = cuda_lib.lib().rag_cvstem_brc(
-        x_cf.data_ptr(), y_cf.data_ptr(), wpk.data_ptr(), sc.data_ptr(),
-        bi.data_ptr(), out.data_ptr(), b, c, h, w, num_disp, cout, co_t,
-        int(relu), cuda_lib.stream_ptr(x_cf))
+        x_cf.data_ptr(), y_cf.data_ptr(), w3.data_ptr(), frag.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w,
+        num_disp, cout, int(relu), plan.mt, plan.nt, plan.tw, plan.n_split,
+        plan.cc, plan.db, cuda_lib.stream_ptr(x_cf))
     cvstem_affine.launches += 1
     cuda_lib.check(rc, "cvstem_affine")
     return out
@@ -254,16 +403,40 @@ def cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
     pre-affine cotangent dz (B, num_disp, Cout, H, W)."""
     if not x_cf.is_cuda:
         return cvstem_dw_plain(x_cf, y_cf, dz, num_disp)
+    _check_stem("cvstem_dw", x_cf, y_cf, num_disp)
     b, c, h, w = x_cf.shape
-    if y_cf.shape != x_cf.shape or dz.shape[:2] != (b, num_disp) \
+    if dz.dim() != 5 or dz.shape[:2] != (b, num_disp) \
             or dz.shape[3:] != (h, w):
-        raise ValueError(f"cvstem_dw: x {tuple(x_cf.shape)}, y "
-                         f"{tuple(y_cf.shape)}, dz {tuple(dz.shape)}")
+        raise ValueError(f"cvstem_dw: x {tuple(x_cf.shape)}, dz "
+                         f"{tuple(dz.shape)}")
     check_f32("cvstem_dw", x_cf, y_cf, dz)
-    return launch_dw(cvstem_dw, "rag_cvstem_dw", [x_cf, y_cf], dz, 2 * c)
+    return launch_cvstem_dw(x_cf, y_cf, dz, cvstem_dw_plan(
+        b, num_disp, c, h, w, dz.shape[2]))
 
 
 cvstem_dw.launches = 0
+
+
+def launch_cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
+                     plan: DwPlan, passes: int = 3) -> torch.Tensor:
+    """Launch kernel F on the current stream with a given plan: the blocks'
+    partials into a workspace (bit 1 of ``passes``), then their sum in a
+    fixed order (bit 2), as kernel D's launch_dw_plan. Counts one launch on
+    ``cvstem_dw``."""
+    b, c, h, w = x_cf.shape
+    d, cout = dz.shape[1], dz.shape[2]
+    partial = torch.empty(plan.workspace, device=dz.device,
+                          dtype=torch.float32)
+    out = torch.empty((3, 3, 3, 2 * c, cout), device=dz.device,
+                      dtype=torch.float32)
+    rc = cuda_lib.lib().rag_cvstem_dw(
+        x_cf.data_ptr(), y_cf.data_ptr(), dz.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), b, d, c, cout, h, w, plan.ci, plan.co_t, plan.kh_t,
+        plan.groups, plan.th, plan.tw, plan.db, passes,
+        cuda_lib.stream_ptr(dz))
+    cvstem_dw.launches += 1
+    cuda_lib.check(rc, "cvstem_dw")
+    return out
 
 
 class _CvstemConv(torch.autograd.Function):

@@ -6,8 +6,8 @@ PyTorch version; it is held against the JAX Pallas kernel in interpret mode
 and against the JAX plain reference, on the same numpy inputs. The CUDA
 kernels themselves run only on the card (chip_smoke.py holds each against
 its plain version there); what surrounds them and is reachable here -- the
-weight packing, the output-channel tiling, the interpolation tap tables and
-the cost-volume load rule the kernels implement -- is checked here too.
+interpolation tap tables and the cost-volume load rule the kernels
+implement -- is checked here too.
 
 Tolerances: float32 sums in another order than XLA's give ~1e-6 relative
 error per conv; 1e-5 relative (of the output's largest magnitude) leaves
@@ -30,7 +30,7 @@ from rag_tpu.ops.pallas_cvstem import (
 )
 from rag_tpu.ops.pallas_kernels import _disp_pallas_raw, _disp_reference
 from rag_tpu.ops.resize import _interp_matrix_np as jax_interp_matrix_np
-from rag_tpu_torch.ops.conv3d import co_tile, conv3d_brc_cf, pack_weights
+from rag_tpu_torch.ops.conv3d import conv3d_brc_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 from rag_tpu_torch.ops.cvstem import cvstem_brc
 from rag_tpu_torch.ops.disparity import (
@@ -81,26 +81,6 @@ def test_conv3d_matches_jax(b, d, cin, h, w, cout, relu):
                               jnp.asarray(scale), jnp.asarray(bias), relu)
     _close(out.numpy(), kern)
     _close(out.numpy(), plain)
-
-
-@pytest.mark.parametrize("cout", [1, 3, 4, 8, 12, 16, 24, 32, 48])
-def test_pack_weights_layout(cout):
-    """The kernel reads wpk[chunk, ci, tap, co % co_t] for output channel
-    chunk * co_t + co and tap = kd*9 + kh*3 + kw; padding is zero."""
-    cin = 5
-    rng = np.random.default_rng(cout)
-    w = torch.from_numpy(rng.standard_normal((3, 3, 3, cin, cout)).astype(np.float32))
-    co_t = co_tile(cout)
-    assert co_t in (1, 4, 8, 12, 16)
-    pk = pack_weights(w, co_t)
-    n_co = -(-cout // co_t)
-    assert pk.shape == (n_co, cin, 27, co_t) and pk.is_contiguous()
-    for kd, kh, kw in [(0, 0, 0), (1, 2, 0), (2, 1, 2)]:
-        tap = kd * 9 + kh * 3 + kw
-        for co in range(n_co * co_t):
-            got = pk[co // co_t, :, tap, co % co_t]
-            want = w[kd, kh, kw, :, co] if co < cout else torch.zeros(cin)
-            assert torch.equal(got, want)
 
 
 # (b, c, h, w, num_disp, cout): the edge cases tests/test_cvstem.py pins
@@ -155,8 +135,9 @@ def test_cvstem_integer_exact(b, c, h, w, nd, cout):
 
 
 def _cost_volume_load(x, y, nd, db, hb, jb):
-    """numpy form of CostVolumeSrc::load in csrc/conv3x3x3_tile.cuh, over
-    broadcast index grids (d, c, h, j) that reach one step past every edge."""
+    """numpy form of the cost volume's load rule, csrc/volume_src.cuh::
+    CostVolumeSrc::row (ops/cvstem.py::stage_row), over broadcast index
+    grids (d, c, h, j) that reach one step past every edge."""
     b, c, h, w = x.shape
     d = db[:, None, None, None]
     cc = np.arange(2 * c)[None, :, None, None]
