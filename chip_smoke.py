@@ -37,10 +37,11 @@ exception:
                    passes apart;
                    B beside kernel A on the materialized cost volume, F
                    beside kernel D on it, alone and with the volume's build,
-                   and F's two passes apart);
+                   and F's two passes apart; G's two passes apart, as
+                   CUDA-graph replays);
                    kernel A's weight pass is held bit for bit against its
                    plain version (kernel B's plan among its plans), and two
-                   launches of kernel D, and of F, on the same inputs
+                   launches of kernels C, D, F and G on the same inputs
                    against each other;
   6. serve         per path, in turns (default, variants, variants,
                    default): set every launch count to 0, answer 3 requests
@@ -71,8 +72,10 @@ beside it; D's and F's blocks, tile, row groups, planes per block, channel
 chunks and workspace (F's also the share of its blocks' plane steps that
 run, and D's plan for the materialized volume); E's chunks, blocks and
 workspace; I's tile, runs of output planes, taps a table row, staged rows
-x columns and shared memory. D's report entry lists its shapes in a step
-of task 0's stage.
+x columns and shared memory; C's its instance (D of the periodic one, or
+0 for the general one) and blocks, G's its instance, strips, warps,
+blocks of its two passes and workspace. D's report entry lists its shapes
+in a step of task 0's stage.
 """
 
 from __future__ import annotations
@@ -102,6 +105,7 @@ from rag_tpu_torch.ops import disparity as disparity_mod  # noqa: E402
 from rag_tpu_torch.ops import resize as resize_mod  # noqa: E402
 from rag_tpu_torch.ops import shear as shear_mod  # noqa: E402
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
+from rag_tpu_torch.ops.resize import _interp_matrix_np  # noqa: E402
 from rag_tpu_torch.ops.variants import KernelVariants  # noqa: E402
 from rag_tpu_torch.train.trainer import (  # noqa: E402
     cosine_lr,
@@ -173,6 +177,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn()'s launches captured once as a CUDA graph
+    and replayed (free of the host's launch time), after warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 # -- bounds: the least time the card could take for one call ---------------
@@ -279,8 +294,8 @@ def disp_bwd_bound(x_shape, maxdisp, scale):
     over its inverse H and W taps (2*KW + 2 per H tap). Bytes: x and g in,
     dx out."""
     b, d, h, w = x_shape
-    kh, kw = (disparity_mod._inverse_taps_np(n, n * scale)[0].shape[1]
-              for n in (h, w))
+    kh, kw = (int(np.count_nonzero(_interp_matrix_np(n, n * scale, False),
+                                   axis=0).max()) for n in (h, w))
     pixels = b * h * scale * w * scale
     flops = (pixels * (9.0 * d + 21.0 * maxdisp)
              + b * d * h * w * kh * (2.0 * kw + 2.0))
@@ -591,6 +606,35 @@ def _dxy_plan(dz, w3, nd):
             "workspace_bytes": 4 * p.workspace}
 
 
+def _head_plan(x, maxdisp, scale=3):
+    """Kernel C's instance (D of the periodic one, 0 = general) and
+    blocks."""
+    p = disparity_mod.head_plan(*x.shape, maxdisp, scale)
+    return {"instance": p.instance, "blocks": p.blocks}
+
+
+def _head_bwd_plan(x, g, maxdisp, scale=3):
+    """Kernel G's instance, strips a row, warps a block, blocks of its two
+    passes and workspace."""
+    p = disparity_mod.head_bwd_plan(*x.shape, maxdisp)
+    return {"instance": p.instance, "strip": p.strip, "strips": p.strips,
+            "warps": p.warps, "fold_blocks": p.fold_blocks,
+            "gather_blocks": p.gather_blocks,
+            "workspace_bytes": 4 * p.workspace}
+
+
+def _head_bwd_beside(x, g, maxdisp, scale=3):
+    """Kernel G's two passes timed apart, as CUDA-graph replays (the H fold
+    alone takes less than the wrapper's host time): the D and W folds into
+    the workspace alone, the H fold alone (over a workspace left
+    unwritten)."""
+    plan = disparity_mod.head_bwd_plan(*x.shape, maxdisp)
+    return {"fold_ms": lambda: disparity_mod.launch_head_bwd(x, g, maxdisp,
+                                                             plan, 1),
+            "gather_ms": lambda: disparity_mod.launch_head_bwd(x, g, maxdisp,
+                                                               plan, 2)}
+
+
 def _shear_beside(px, py, scale, bias, nd, relu=False):
     """The whole shear stem (tap maps + J) against kernel B, on random
     features of the same shapes (they set the work, not the values)."""
@@ -621,7 +665,8 @@ def _shear_adj_beside(dz, nd):
 # TPU kernel it replaces, and how to sign, bound and yardstick one call;
 # "path": the path it reports from, "serving": whether that path serves
 # through it (else it runs in training only); "beside": other calls timed
-# at its arguments and printed beside it.
+# at its arguments and printed beside it ("beside_graph": as replays of a
+# CUDA graph, free of the host's launch time).
 KERNELS = {
     "conv3d_brc_cf": dict(
         site=(conv3d_mod, "conv3d_affine_cf"),
@@ -650,8 +695,8 @@ KERNELS = {
         replaces="rag_tpu/ops/pallas_kernels.py:163",
         sig=lambda x, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
         bound=lambda x, maxdisp, scale=3: disp_bound(x.shape, maxdisp, scale),
-        library=None, tol="disp", path="default",
-        serving=True),
+        library=None, plan=_head_plan, tol="disp", path="default",
+        serving=True, bitwise=True),
     "conv3d_dw_cf": dict(
         site=(conv3d_mod, "conv3d_dw_cf"),
         plain=conv3d_mod.conv3d_dw_cf_plain,
@@ -692,7 +737,9 @@ KERNELS = {
         sig=lambda x, g, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
         bound=lambda x, g, maxdisp, scale=3:
             disp_bwd_bound(x.shape, maxdisp, scale),
-        library=None, tol="bwd", path="default", serving=False),
+        library=None, beside=_head_bwd_beside, beside_graph=True,
+        plan=_head_bwd_plan, tol="bwd", path="default", serving=False,
+        bitwise=True),
     "conv3d_dblock_cf": dict(
         site=(conv3d_mod, "conv3d_dblock_cf"),
         plain=conv3d_mod.conv3d_brc_cf_plain,
@@ -820,7 +867,10 @@ def small_cases(dev, rng):
                               ((1, 16, 2, 20, 40), (4, 5, 10), False),
                               ((1, 4, 2, 5, 10), (16, 20, 40), True)]:
         cases.append(("resize_taps_cf", (t(*shape), *target, True, tr)))
-    for b, d, h, w, md in [(1, 8, 16, 10, 24), (2, 4, 5, 43, 12)]:
+    # the head: the periodic instance at D = 8, W = 10; the general one
+    # at D = 4 (no instance) and at maxdisp not a multiple of D
+    for b, d, h, w, md in [(1, 8, 16, 10, 24), (2, 4, 5, 43, 12),
+                           (1, 8, 16, 10, 26)]:
         x = t(b, d, h, w, s=3.0)
         cases.append(("fused_soft_argmin", (x, md, 3)))
         cases.append(("soft_argmin_bwd", (x, t(b, 3 * h, 3 * w), md, 3)))
@@ -1031,7 +1081,8 @@ def check_kernel(name, args, kw, reps, beside):
     extra = {}
     if beside and "beside" in k:
         # outside inference mode: the shear stem's backward is autograd's
-        extra = {f: cuda_ms(fn, reps)
+        timer = graph_ms if k.get("beside_graph") else cuda_ms
+        extra = {f: timer(fn, reps)
                  for f, fn in k["beside"](*args, **kw).items()}
     bound_ms, bound_by = k["bound"](*args, **kw)
     plan = k["plan"](*args, **kw) if "plan" in k else {}

@@ -37,11 +37,11 @@ SIGNATURES = {
     "rag_conv3d_brc_cf": [_P] * 6 + [_I] * 13 + [_P],
     "rag_conv3d_pack": [_P] * 2 + [_I] * 5 + [_P],
     "rag_cvstem_brc": [_P] * 7 + [_I] * 13 + [_P],
-    "rag_soft_argmin": [_P] * 4 + [_I] * 7 + [_P],
+    "rag_soft_argmin": [_P] * 5 + [_I] * 8 + [_P],
     "rag_conv3d_dw_cf": [_P] * 4 + [_I] * 14 + [_P],
     "rag_cvstem_dw": [_P] * 5 + [_I] * 14 + [_P],
     "rag_cvstem_dxy": [_P] * 5 + [_I] * 11 + [_P],
-    "rag_soft_argmin_bwd": [_P] * 10 + [_I] * 9 + [_P],
+    "rag_soft_argmin_bwd": [_P] * 8 + [_I] * 9 + [_P],
     "rag_resize_taps_cf": [_P] * 4 + [_I] * 15 + [_P],
     "rag_shear_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "rag_shear_adj": [_P] * 3 + [_I] * 5 + [_P],

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from head_emulation import emulate_head
 from rag_tpu.ops.pallas_conv3d import (
     _conv3d_pallas_cf,
     conv3d_brc_cf as jax_conv3d_brc_cf,
@@ -37,7 +38,6 @@ from rag_tpu_torch.ops.disparity import (
     _taps_np,
     fused_soft_argmin,
     soft_argmin_disparity,
-    tap_tables,
 )
 
 CONV_RTOL = 1e-5   # of max |ref|: f32 summation order only
@@ -207,25 +207,12 @@ def test_tap_tables_rebuild_reference_matrix(n_in, n_out):
 
 
 def _emulate_disp_kernel(x, maxdisp, scale):
-    """numpy form of soft_argmin_kernel in csrc/disp_head.cu: per pixel,
-    blend the H/W taps for each level, then a two-pass softmin over the
-    D taps."""
-    b, d, h, w = x.shape
-    idx, wts = (t.numpy() for t in tap_tables(d, h, w, maxdisp, scale,
-                                             torch.device("cpu")))
-    ho, wo = h * scale, w * scale
-    hr = slice(maxdisp, maxdisp + ho)
-    wr = slice(maxdisp + ho, maxdisp + ho + wo)
-    h0, h1, a0, a1 = idx[hr, 0], idx[hr, 1], wts[hr, 0], wts[hr, 1]
-    w0, w1, b0, b1 = idx[wr, 0], idx[wr, 1], wts[wr, 0], wts[wr, 1]
-    xh = lambda hi, a: (b0 * x[:, :, hi][..., w0] + b1 * x[:, :, hi][..., w1]) \
-        * a[None, None, :, None]
-    s_y = xh(h0, a0) + xh(h1, a1)                       # (B, D, Ho, Wo)
-    di, dw = idx[:maxdisp], wts[:maxdisp]
-    y = dw[:, 0, None, None] * s_y[:, di[:, 0]] + dw[:, 1, None, None] * s_y[:, di[:, 1]]
-    z = -y
-    e = np.exp(z - z.max(axis=1, keepdims=True))
-    return (np.arange(maxdisp)[None, :, None, None] * e).sum(1) / e.sum(1)
+    """numpy form of soft_argmin_kernel in csrc/disp_head.cu
+    (tests/head_emulation.py): per pixel, blend the H/W taps for each
+    cost level, take the minimum over the blended source levels, then one
+    walk over the disparity levels for sum(e) and sum(k e)."""
+    assert scale == 3
+    return emulate_head(x, maxdisp)
 
 
 @pytest.mark.parametrize("b,d,h,w,maxdisp", DISP_CASES)

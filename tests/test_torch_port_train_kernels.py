@@ -7,7 +7,8 @@ versions; each is held against the JAX Pallas kernel it replaces in
 interpret mode and against ``jax.vjp`` of the JAX plain reference, on the
 same numpy inputs. What the CUDA kernels compute beyond their plain
 versions and is reachable here is checked too: kernel G's two passes
-(forward tap tables, inverse tap tables, the D fold) emulated in numpy.
+(the softmin walk, the D fold, the W fold over warp strips, the H fold)
+emulated in numpy, and its fold windows.
 The four ``torch.autograd.Function``s (``conv3d_brc_cf``, ``cvstem_conv``,
 ``cvstem_brc``, ``fused_soft_argmin``) pass ``gradcheck`` in float64, and
 a frozen input costs no backward kernel call.
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from head_emulation import emulate_head_bwd
 from rag_tpu.ops.pallas_conv3d import _xla_conv3d_cf, conv3d_dw_pallas
 from rag_tpu.ops.pallas_cvstem import (
     _xla_cvstem,
@@ -39,11 +41,9 @@ from rag_tpu_torch.ops import cvstem as cvstem_mod
 from rag_tpu_torch.ops.conv3d import conv3d_brc_cf, conv3d_dw_cf
 from rag_tpu_torch.ops.cvstem import cvstem_brc, cvstem_conv, cvstem_dw, cvstem_dxy
 from rag_tpu_torch.ops.disparity import (
-    _inverse_taps_np,
+    fold_taps_np,
     fused_soft_argmin,
-    inverse_tap_tables,
     soft_argmin_bwd,
-    tap_tables,
 )
 
 DW_RTOL = 1e-5
@@ -177,45 +177,30 @@ def test_soft_argmin_bwd_matches_analytic(b, d, h, w, maxdisp):
 @pytest.mark.parametrize("n_in,n_out", [(64, 192), (128, 384), (4, 12),
                                         (7, 21), (5, 5), (1, 3)])
 def test_inverse_tap_tables_rebuild_transpose(n_in, n_out):
-    """Kernel G's inverse tap lists hold exactly the columns of the
-    float32 matrix the reference contracts with."""
-    idx, wts = _inverse_taps_np(n_in, n_out)
+    """Kernel G's fold windows (row q: U[s*q - (s-1)/2 + i, q] at scale s)
+    hold exactly the columns of the float32 matrix the reference
+    contracts with."""
+    scale = n_out // n_in
+    wts = fold_taps_np(n_in, scale)
+    lo = (scale - 1) // 2
     m = np.zeros((n_out, n_in), np.float32)
-    for i in range(n_in):
-        for j in range(idx.shape[1]):
-            m[idx[i, j], i] += wts[i, j]
+    for q in range(n_in):
+        for i in range(wts.shape[1]):
+            o = scale * q - lo + i
+            if 0 <= o < n_out:
+                m[o, q] += wts[q, i]
+            else:
+                assert wts[q, i] == 0
     np.testing.assert_array_equal(m, jax_interp_matrix_np(n_in, n_out, False))
 
 
 def _emulate_disp_bwd(x, g, maxdisp, scale):
-    """numpy form of csrc/disp_head.cu's kernel G: pass 1 recomputes the
-    softmin per output pixel from the forward tap tables and folds dy
-    through the D taps; pass 2 gathers per input voxel over the inverse
-    H/W tap lists."""
-    b, d, h, w = x.shape
-    cpu = torch.device("cpu")
-    idx, wts = (t.numpy() for t in tap_tables(d, h, w, maxdisp, scale, cpu))
-    ih, wh, iw, ww = (t.numpy() for t in inverse_tap_tables(h, w, scale, cpu))
-    ho, wo = h * scale, w * scale
-    hr = slice(maxdisp, maxdisp + ho)
-    wr = slice(maxdisp + ho, maxdisp + ho + wo)
-    h0, h1, a0, a1 = idx[hr, 0], idx[hr, 1], wts[hr, 0], wts[hr, 1]
-    w0, w1, b0, b1 = idx[wr, 0], idx[wr, 1], wts[wr, 0], wts[wr, 1]
-    xh = lambda hi, a: (b0 * x[:, :, hi][..., w0] + b1 * x[:, :, hi][..., w1]) \
-        * a[None, None, :, None]
-    s_y = xh(h0, a0) + xh(h1, a1)                       # (B, D, Ho, Wo)
-    di, dw = idx[:maxdisp], wts[:maxdisp]
-    y = dw[:, 0, None, None] * s_y[:, di[:, 0]] + dw[:, 1, None, None] * s_y[:, di[:, 1]]
-    e = np.exp(-y - (-y).max(axis=1, keepdims=True))
-    p = e / e.sum(1, keepdims=True)
-    k = np.arange(maxdisp, dtype=np.float32)[None, :, None, None]
-    out = (k * p).sum(1, keepdims=True)
-    dy = -p * (k - out) * g[:, None]
-    fold = np.zeros((b, d, ho, wo), np.float32)
-    for j in range(2):
-        np.add.at(fold, (slice(None), di[:, j]), dw[:, j, None, None] * dy)
-    rows = (wh[None, None, :, :, None] * fold[:, :, ih, :]).sum(3)  # (B,D,h,Wo)
-    return (ww[None, None, None] * rows[..., iw]).sum(-1)
+    """numpy form of csrc/disp_head.cu's kernel G (tests/head_emulation.py):
+    pass 1 recomputes the softmin per output pixel, walks the levels again
+    folding dy through the D taps, and folds W over each warp's strip of
+    source columns; pass 2 folds H per input voxel."""
+    assert scale == 3
+    return emulate_head_bwd(x, g, maxdisp)
 
 
 @pytest.mark.parametrize("b,d,h,w,maxdisp", [(1, 8, 16, 10, 24),
