@@ -40,9 +40,10 @@ exception:
                    and F's two passes apart; G's two passes apart, as
                    CUDA-graph replays);
                    kernel A's weight pass is held bit for bit against its
-                   plain version (kernel B's plan among its plans), and two
-                   launches of kernels C, D, F and G on the same inputs
-                   against each other;
+                   plain version (kernel B's plan among its plans), two
+                   launches of kernels C, D, F, G, J and K on the same
+                   inputs against each other, and J and K against their
+                   plain versions bit for bit on integer-valued inputs;
   6. serve         per path, in turns (default, variants, variants,
                    default): set every launch count to 0, answer 3 requests
                    per task path through RoutedInference.predict, read the
@@ -74,8 +75,9 @@ run, and D's plan for the materialized volume); E's chunks, blocks and
 workspace; I's tile, runs of output planes, taps a table row, staged rows
 x columns and shared memory; C's its instance (D of the periodic one, or
 0 for the general one) and blocks, G's its instance, strips, warps,
-blocks of its two passes and workspace. D's report entry lists its shapes
-in a step of task 0's stage.
+blocks of its two passes and workspace; J's and K's their grid, block,
+staged bytes, planes, columns and pieces (J) or runs (K) a row, copy
+width, splits and column splits, as the library reports them. D's report entry lists its shapes in a step of task 0's stage.
 """
 
 from __future__ import annotations
@@ -635,6 +637,29 @@ def _head_bwd_beside(x, g, maxdisp, scale=3):
                                                                plan, 2)}
 
 
+def _shear_fields(p):
+    return {"grid": p.blocks, "block": p.threads, "staged_bytes": p.smem,
+            "planes": p.planes, "cols": p.cols, "runs": p.runs,
+            "copy_bytes": 16 if p.vec else 4, "splits": p.splits,
+            "col_splits": p.col_splits}
+
+
+def _shear_plan(px, py, scale, bias, nd, relu=False):
+    """Kernel J's launch: blocks (a row each), threads (a task each: a run
+    of planes down a group of columns), shared memory (a piece's staged
+    tap-map rows, P and R), planes and columns a piece, pieces a row."""
+    b, _, co, h, w = px.shape
+    return _shear_fields(shear_mod.shear_plan(False, b, nd, co, h, w))
+
+
+def _shear_adj_plan(dz, nd):
+    """Kernel K's launch: blocks (row, split), threads (walkers), shared
+    memory (the staged run of dz), planes a run, the slab's row pitch, runs
+    a row, splits a row and the column blocks among them."""
+    b, _, co, h, w = dz.shape
+    return _shear_fields(shear_mod.shear_plan(True, b, nd, co, h, w))
+
+
 def _shear_beside(px, py, scale, bias, nd, relu=False):
     """The whole shear stem (tap maps + J) against kernel B, on random
     features of the same shapes (they set the work, not the values)."""
@@ -768,8 +793,8 @@ KERNELS = {
             (tuple(px.shape), nd, relu),
         bound=lambda px, py, scale, bias, nd, relu=False:
             shear_bound(px.shape, nd, relu),
-        library=None, beside=_shear_beside, tol="conv", path="variants",
-        serving=True),
+        library=None, beside=_shear_beside, plan=_shear_plan, tol="conv",
+        path="variants", serving=True, bitwise=True),
     "shear_adjoint": dict(
         site=(shear_mod, "shear_adjoint"),
         plain=shear_mod.shear_adjoint_plain,
@@ -778,8 +803,8 @@ KERNELS = {
         sig=lambda dz, nd: (tuple(dz.shape), nd),
         bound=lambda dz, nd: shear_adj_bound(dz.shape, nd),
         magnitude=lambda dz, nd: (dz.abs(), nd),
-        library=None, beside=_shear_adj_beside, tol="bwd", path="variants",
-        serving=False),
+        library=None, beside=_shear_adj_beside, plan=_shear_adj_plan,
+        tol="bwd", path="variants", serving=False, bitwise=True),
 }
 for _k in KERNELS.values():
     _k["wrapper"] = getattr(*_k["site"])
@@ -874,6 +899,38 @@ def small_cases(dev, rng):
         x = t(b, d, h, w, s=3.0)
         cases.append(("fused_soft_argmin", (x, md, 3)))
         cases.append(("soft_argmin_bwd", (x, t(b, 3 * h, 3 * w), md, 3)))
+    return cases
+
+
+def exact_cases(dev, rng):
+    """Kernels J and K on integer-valued inputs, where every order of
+    summation is exact and kernel and plain version must agree bit for bit:
+    D = 2 (every plane a first or last one) at odd W, the diagonal band,
+    the first and last planes and the interior at odd W (4-byte copies)
+    and at W % 4 == 0 (16-byte copies and stores), ReLU on and off; D = 1;
+    rows wider than one block of K's walkers (K's column and diagonal
+    blocks, with runs of planes: W = 520, 2100, 3001) and than one piece of
+    J (column tiles: W = 2100, 3001; plane chunks: D = 70); W = 60001, past
+    where a whole staged row (J) or plane (K) would fit shared memory."""
+    def ints(*shape, lo=-3, hi=4):
+        return torch.from_numpy(rng.integers(lo, hi, shape)
+                                .astype(np.float32)).to(dev)
+
+    cases = []
+    for b, co, h, w, nd, relu in [(2, 3, 5, 13, 2, False),
+                                  (1, 4, 6, 21, 9, True),
+                                  (1, 4, 5, 24, 7, False),
+                                  (1, 3, 4, 12, 1, True),
+                                  (1, 2, 2, 520, 40, False),
+                                  (1, 1, 2, 2100, 70, True),
+                                  (1, 1, 1, 3001, 5, False),
+                                  (1, 1, 1, 60001, 3, True)]:
+        scale = torch.arange(1, co + 1, dtype=torch.float32, device=dev)
+        bias = torch.full((co,), -3.0, device=dev)
+        cases.append(("shear_forward", (ints(b, 9, co, h, w),
+                                        ints(b, 9, co, h, w), scale, bias,
+                                        nd, relu)))
+        cases.append(("shear_adjoint", (ints(b, nd, co, h, w), nd)))
     return cases
 
 
@@ -1054,17 +1111,22 @@ def _max_err(out, ref):
     return err, max(float(r.abs().max()) for r in refs)
 
 
-def check_kernel(name, args, kw, reps, beside):
-    """Kernel vs plain on one set of arguments; times of kernel, plain,
-    library and (with beside) the calls timed beside it. Returns a result
-    dict (no assertion here)."""
+def check_kernel(name, args, kw, reps, beside, exact=False):
+    """Kernel vs plain on one set of arguments (with exact: bit for bit);
+    times of kernel, plain, library and (with beside) the calls timed
+    beside it. Returns a result dict (no assertion here)."""
     k = KERNELS[name]
     with torch.inference_mode():
         out = k["wrapper"](*args, **kw)
         ref = k["plain"](*args, **kw)
         # a kernel that sums in a fixed order gives the same bits twice
-        same = torch.equal(out, k["wrapper"](*args, **kw)) \
-            if k.get("bitwise") else True
+        same = True
+        if k.get("bitwise"):
+            again = k["wrapper"](*args, **kw)
+            same = all(torch.equal(o, a) for o, a in zip(
+                out if isinstance(out, tuple) else (out,),
+                again if isinstance(again, tuple) else (again,)))
+            del again
         torch.cuda.synchronize()
         err, ref_max = _max_err(out, ref)
         del out, ref
@@ -1072,8 +1134,9 @@ def check_kernel(name, args, kw, reps, beside):
             mags = k["plain"](*k["magnitude"](*args), **kw)
             ref_max = _max_err(mags, mags)[1]
             del mags
-        tol = {"conv": CONV_RTOL * max(1.0, ref_max), "disp": DISP_ATOL,
-               "bwd": BWD_RTOL * ref_max}[k["tol"]]
+        tol = 0.0 if exact else {"conv": CONV_RTOL * max(1.0, ref_max),
+                                 "disp": DISP_ATOL,
+                                 "bwd": BWD_RTOL * ref_max}[k["tol"]]
         ms = cuda_ms(lambda: k["wrapper"](*args, **kw), reps)
         plain_ms = cuda_ms(lambda: k["plain"](*args, **kw), max(1, reps // 2))
         lib_ms = (cuda_ms(k["library"](*args, **kw), reps)
@@ -1125,11 +1188,14 @@ def phase_kernels(args_of, dev):
     check_weight_pass(dev, rng)
     todo = [("main", name, sig, args, kw)
             for (name, sig), (args, kw) in args_of.items()]
-    todo += [("small", name, KERNELS[name]["sig"](*args), args, {})
-             for name, args in small_cases(dev, rng)]
+    todo += [(where, name, KERNELS[name]["sig"](*args), args, {})
+             for where, cases in (("small", small_cases(dev, rng)),
+                                  ("exact", exact_cases(dev, rng)))
+             for name, args in cases]
     for where, name, sig, args, kw in todo:
         main = where == "main"
-        r = check_kernel(name, args, kw, REPS if main else 5, main)
+        r = check_kernel(name, args, kw, REPS if main else 5, main,
+                         exact=where == "exact")
         if main:
             results[(name, sig)] = r
         line = {"kernel": name, "at": where, "sig": str(sig),

@@ -45,6 +45,7 @@ SIGNATURES = {
     "rag_resize_taps_cf": [_P] * 4 + [_I] * 15 + [_P],
     "rag_shear_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "rag_shear_adj": [_P] * 3 + [_I] * 5 + [_P],
+    "rag_shear_plan": [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

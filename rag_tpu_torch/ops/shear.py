@@ -14,14 +14,31 @@ shear_forward (body _shear_kernel), with the per-channel affine and
 optional ReLU of its epilogue. Kernel K, ``shear_adjoint``: replaces
 rag_tpu/ops/pallas_shear.py::shear_adjoint (body _shear_adj_kernel). CUDA
 source for both: rag_tpu_torch/csrc/shear.cu, where the index rule, the
-bounds (bytes for both: ~0.06 ms for J at the eval geometry, ~0.04 ms for
-K at the train shape) and the designs are written out. K's threads each own
-their outputs and loop over d, so no float atomics are needed.
+class table, the bounds (bytes for both: 0.060 ms for J at the eval
+geometry, 0.0385 ms for J and K at the train shape) and the designs are
+written out. J: a block takes one (b, co, h) row in pieces of at most
+1024 columns x 64 planes (one piece at every main-path shape), stages the
+piece's tap-map rows in shared memory, builds the two rows P[j] = sum_t
+px[t][j] and R[u] = sum_t py[t][u - k_t] there, and writes the piece's
+outputs: first the groups of columns that the diagonal band, the first
+and last planes or the last column touch, term by term in the TPU
+kernel's order, then the rest as P[j] + R[j - d] (or the zero region's
+bias), each thread walking a group of columns down a run of 8 planes. K:
+one thread walks each column (dpx) and one each diagonal (dpy) in
+ascending d, with running sums from d = 0 and d = 1 written where each
+output's range ends, so every output is the TPU kernel's sequential sum:
+no float atomics, the same bits on every run. Where a row's 2W + 4
+walkers fit one block (W <= 510) the block stages the row's D x W slab of
+dz once; wider rows go to column blocks and diagonal blocks that stage
+only the columns they read. ``shear_plan`` reads either launch from the
+library.
 
 rag_tpu engages the shear only where its VMEM estimate fits 12 MB
 (``shear_vmem_ok``), which keeps it off at 480x960. J and K take every
-shape, so the port serves 480x960 through them too; the same holds for
-D == W, ``num_disp`` past W and any W.
+shape (their shared memory is bounded whatever W and D are), so the port
+serves 480x960 through them too; the same holds for D == W, ``num_disp``
+past W and any W % 4 (16-byte copies and stores where W % 4 == 0, 4-byte
+ones elsewhere).
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; on a CUDA
 tensor it launches its kernel or raises. The plain versions are masked,
@@ -30,6 +47,9 @@ input dtype.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -179,6 +199,31 @@ def shear_adjoint(dz: torch.Tensor, num_disp: int):
 
 
 shear_adjoint.launches = 0
+
+
+class ShearPlan(NamedTuple):
+    """A launch of kernel J or K (csrc/shear.cu::rag_shear_plan)."""
+    blocks: int        # J: one a row; K: splits a row
+    threads: int       # a block
+    smem: int          # bytes of shared memory a block
+    planes: int        # J: planes a staged piece; K: dz planes a run
+    cols: int          # J: columns a piece; K: the staged slab's row pitch
+    runs: int          # J: pieces a row; K: runs of planes a row
+    vec: int           # 16-byte copies (1) or 4-byte (0)
+    splits: int        # blocks a row (K's column and diagonal blocks)
+    col_splits: int    # K's column blocks a row (0: one block, both kinds)
+
+
+def shear_plan(adjoint: bool, b: int, num_disp: int, co: int, h: int,
+               w: int) -> ShearPlan:
+    """The launch kernel J (or K, with adjoint) takes at a shape, as the
+    library's entry point chooses it (16-byte aligned operands). Loads the
+    library: CUDA hosts only."""
+    out = (ctypes.c_longlong * len(ShearPlan._fields))()
+    rc = cuda_lib.lib().rag_shear_plan(int(adjoint), b, num_disp, co, h, w,
+                                       ctypes.cast(out, ctypes.c_void_p))
+    cuda_lib.check(rc, "shear_plan")
+    return ShearPlan(*out)
 
 
 class _ShearOp(torch.autograd.Function):
