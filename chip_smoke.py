@@ -51,14 +51,38 @@ exception:
                    other), and check every disparity: finite, in [0, 191],
                    within tolerance of the path's plain disparity (the
                    variant path's also of the default path's);
-  7. train         per path, in the same turns: set every launch count to 0,
+  7. route         load the committed Scene Router (logs/canonical_learn_r4/
+                   router.npz) onto the card and build the canonical run's
+                   four styled test scenes there (SyntheticStereoDataset,
+                   16 frames of 480x960 each, seeds 30-33, one weather style
+                   each); route all 64 left frames on the card and again on
+                   the CPU in float32 (the ids must be equal) and print the
+                   scene accuracy and confusion matrix beside result.json's;
+                   then per path, in the same turns, every launch count set
+                   to 0: each scene through RoutedInference(net, router)
+                   .evaluate(task=None) against evaluate(task=t) (equal
+                   metrics where every frame was routed to its own task;
+                   D1 and EPE printed beside result.json's routed values),
+                   3 routed requests per scene beside the same requests with
+                   the task given (ms/request, equal disparity where routed
+                   right), the counts read (each kernel of the path
+                   launched, no other); the router alone timed with CUDA
+                   events; a fresh router trained on the card for 3 epochs
+                   of batch 8 on four styled scenes of 32 pairs at 192x384
+                   (its first Adam step within 1e-4 relative L2 of the same
+                   step on the CPU, losses finite and falling; accuracy on
+                   the test scenes printed, not gated);
+  8. train         per path, in the same turns: set every launch count to 0,
                    take 3 steps of each training configuration through
                    make_train_step, read the counts, check the loss and
                    every updated leaf finite and the first step against the
                    path's plain step of phase 4; print ms/step, training
                    pairs/s and peak memory;
-  8. report        one JSON line of kernels, the card's name and power limit,
-                   and as the last line {"ok": true, "device": {...}}.
+  9. report        one JSON line of the route phase ("route": its figures
+                   and the card's name and power limit), one of kernels
+                   (launches: the serve, route and train runs), the card's
+                   name and power limit, and as the last line
+                   {"ok": true, "device": {...}}.
 
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
 build-and-check) and prints no report.
@@ -98,8 +122,21 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 from rag_tpu_torch.continual.inference import RoutedInference  # noqa: E402
-from rag_tpu_torch.continual.state import load_checkpoint  # noqa: E402
+from rag_tpu_torch.continual.state import (  # noqa: E402
+    load_checkpoint,
+    load_router,
+)
+from rag_tpu_torch.data.synthetic import (  # noqa: E402
+    WEATHER_STYLES,
+    DeviceCache,
+    SyntheticStereoDataset,
+)
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
+from rag_tpu_torch.models.router import (  # noqa: E402
+    SceneRouter,
+    make_router_train_step,
+    router_logits,
+)
 from rag_tpu_torch.ops import conv3d as conv3d_mod  # noqa: E402
 from rag_tpu_torch.ops import cuda_lib  # noqa: E402
 from rag_tpu_torch.ops import cvstem as cvstem_mod  # noqa: E402
@@ -129,7 +166,16 @@ STEM_C = 12                    # feature channels into the matching stem
 PATHS = {"default": KernelVariants(),
          "variants": KernelVariants(conv3d_dblock=True, resize_kernel=True,
                                     shear_stem=True)}
-TURNS = ("default", "variants", "variants", "default")  # serve, train timing
+TURNS = ("default", "variants", "variants", "default")  # serve, route, train
+# the route phase: the canonical run's four styled test scenes (scene t
+# styled WEATHER_STYLES[t], seed 30 + t, disparity up to 64 px;
+# rag_tpu/cli.py:260-267) and its router training (rag_tpu's driver
+# defaults, continual/driver.py:61-62, on the train sets' seeds 10 + t)
+RESULT = ROOT / "logs" / "drivingstereo_rag_0_canonical_learn_r4" / "result.json"
+SCENE_FRAMES, SCENE_DISP = 16, 64.0
+ROUTE_REQUESTS = 3             # per scene, routed and with the task given
+ROUTER_TRAIN_PAIRS, ROUTER_TRAIN_H, ROUTER_TRAIN_W = 32, 192, 384
+ROUTER_EPOCHS, ROUTER_BATCH = 3, 8
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -151,6 +197,9 @@ STEP_RTOL = 1e-2   # a train step, kernels vs plain: relative L2 of dp/lr over
                    # through ~25 layers, where a ReLU input within float32
                    # noise of zero takes the other branch (ROADMAP Queue 3)
 STATS_RTOL = 1e-3  # of max(1, |stat|), new BN running statistics of that step
+ROUTER_STEP_RTOL = 1e-4  # the router's first Adam step, card vs CPU: relative
+                   # L2 of the update, mu and nu; float32 convs and
+                   # reductions summed in another order (~1e-6)
 SERVE_ATOL = 1e-2  # px, whole request: ~25 float32 layers summed in another
                    # order, amplified by the softmin; 1% of the 1-px Thres1
 
@@ -1281,6 +1330,235 @@ def phase_serve(ri, requests, plain, path, default_outs=None):
     return launches, per_task, outs
 
 
+def router_bound(params, b, h, w):
+    """Least device time of router_logits on (b, h, w, 3) frames: its conv
+    products at the float32 peak, or its frames and weights read once."""
+    flops, hh, ww = 0, h, w
+    for name in ("c0", "c1", "c2"):
+        hh, ww = -(-hh // 2), -(-ww // 2)
+        kh, kw, cin, cout = params[name].shape
+        flops += 2 * b * hh * ww * cout * cin * kh * kw
+    nbytes = 4 * (b * h * w * 3 + sum(v.numel() for v in params.values()))
+    return _bound(flops, nbytes)
+
+
+def route_scenes(dev, cache):
+    """The canonical run's four styled 480x960 test scenes on the card."""
+    return [SyntheticStereoDataset(SCENE_FRAMES, H, W, seed=30 + t,
+                                   max_disp=SCENE_DISP,
+                                   style=WEATHER_STYLES[t], device=dev,
+                                   cache=cache)
+            for t in range(len(WEATHER_STYLES))]
+
+
+def phase_route_setup(dev, cache):
+    """Load the committed router onto the card (and onto the CPU), build
+    the test scenes on the card, route every left frame on the card and
+    again on the CPU in float32: the ids must be equal frame by frame.
+    Returns the router, the scenes, the ids per scene and a summary."""
+    t0 = time.perf_counter()
+    router = load_router(str(CKPT), device=dev)
+    router_cpu = load_router(str(CKPT), device="cpu")
+    if (router is None or router.num_tasks != 4
+            or router.input_key != "left"):
+        raise SystemExit(f"chip_smoke: route: {CKPT.relative_to(ROOT)}/"
+                         "router.npz missing or not a 4-task router on "
+                         "'left' frames")
+    scenes = route_scenes(dev, cache)
+    ids, failures = [], []
+    for t, ds in enumerate(scenes):
+        left = next(ds.batches(len(ds), False))["left"]
+        if left.device.type != router.device.type:
+            raise SystemExit(f"chip_smoke: route: the test scenes are on "
+                             f"{left.device}, not on {router.device}")
+        ids.append(router.predict(left))
+        on_cpu = router_cpu.predict(ds._samples()["left"])
+        if not np.array_equal(ids[t], on_cpu):
+            failures.append(f"scene {t}: card routes {ids[t].tolist()}, CPU "
+                            f"{on_cpu.tolist()}")
+    if failures:
+        raise SystemExit("chip_smoke: route failed:\n  "
+                         + "\n  ".join(failures))
+    n = len(scenes)
+    confusion = np.zeros((n, router.num_tasks), np.int64)
+    for t, i in enumerate(ids):
+        np.add.at(confusion[t], i, 1)
+    ref = json.loads(RESULT.read_text())["router"]
+    summary = dict(scene_accuracy=float(np.trace(confusion) / confusion.sum()),
+                   confusion=confusion.tolist(),
+                   confusion_result_json=ref["confusion"],
+                   card_equals_cpu=True,
+                   resident_gb=cache.nbytes / 1e9,
+                   setup_s=time.perf_counter() - t0)
+    log(f"[route] {CKPT.relative_to(ROOT)}/router.npz on the card; "
+        f"{n} scenes x {SCENE_FRAMES} frames of {H}x{W} on the card "
+        f"({summary['resident_gb']:.2f} GB); card and CPU route ids equal "
+        f"on all {confusion.sum()} frames; scene accuracy "
+        f"{summary['scene_accuracy']:.4f}; confusion {summary['confusion']} "
+        f"(result.json {ref['confusion']}); {summary['setup_s']:.1f} s")
+    return router, scenes, ids, summary
+
+
+def phase_route(ri, scenes, ids, path):
+    """Per path, every launch count set to 0 first: routed evaluation of
+    each scene against evaluation on its own task path (equal metrics
+    where every frame was routed to its own task), and ROUTE_REQUESTS
+    routed requests per scene beside the same requests with the task
+    given (equal disparity where the frame was routed right)."""
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = json.loads(RESULT.read_text())["router"]["routed"]
+    per_scene, failures = {}, []
+    for t, ds in enumerate(scenes):
+        right_scene = bool((ids[t] == t).all())
+        routed = ri.evaluate(ds, task=None)
+        oracle = ri.evaluate(ds, task=t)
+        if right_scene and routed != oracle:
+            failures.append(f"{path} scene {t}: routed {routed} != oracle "
+                            f"{oracle}")
+        host = ds._samples()
+        times = {"routed": [], "fixed": []}
+        for i in range(ROUTE_REQUESTS):
+            left, right = host["left"][i:i + 1], host["right"][i:i + 1]
+            order = (("routed", None), ("fixed", t))
+            outs = {}
+            for kind, task in (order if i % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                outs[kind] = ri.predict(left, right, task=task)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+                failures += check_disparity(f"{path} scene {t} {kind} "
+                                            f"request {i}", outs[kind])
+            if ids[t][i] == t and not np.array_equal(outs["routed"],
+                                                     outs["fixed"]):
+                failures.append(f"{path} scene {t} request {i}: routed "
+                                "disparity != the task's")
+        per_scene[t] = dict(
+            routed_right=right_scene, routed=routed, oracle=oracle,
+            d1_vs_result_json=routed["D1"] - ref["D1"][t],
+            epe_vs_result_json=routed["EPE"] - ref["EPE"][t],
+            routed_ms_per_request=float(np.mean(times["routed"])),
+            fixed_ms_per_request=float(np.mean(times["fixed"])))
+        log(f"[route] {path} scene {t}: routed D1 {routed['D1']:.6f} EPE "
+            f"{routed['EPE']:.6f} (result.json {ref['D1'][t]:.6f} / "
+            f"{ref['EPE'][t]:.6f}, diff {per_scene[t]['d1_vs_result_json']:+.2e}"
+            f" / {per_scene[t]['epe_vs_result_json']:+.2e}); routed == oracle "
+            f"{routed == oracle}; ms/request routed "
+            f"{per_scene[t]['routed_ms_per_request']:.2f}, task given "
+            f"{per_scene[t]['fixed_ms_per_request']:.2f}")
+    launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[route] {path}: launches in the routed run: {launches}; peak "
+        f"device memory {peak_gb:.2f} GB (with the resident scenes)")
+    failures += [f"{path}: {n} never launched" for n in SERVE_KERNELS[path]
+                 if launches[n] <= 0]
+    failures += [f"{path}: {n} launched while serving"
+                 for n, c in launches.items()
+                 if n not in SERVE_KERNELS[path] and c != 0]
+    if failures:
+        raise SystemExit("chip_smoke: route failed:\n  "
+                         + "\n  ".join(failures))
+    return launches, dict(scenes=per_scene, peak_gb=peak_gb, routed_ms=float(
+        np.mean([v["routed_ms_per_request"] for v in per_scene.values()])),
+        fixed_ms=float(np.mean([v["fixed_ms_per_request"]
+                                for v in per_scene.values()])))
+
+
+def router_time(router, scenes):
+    """The router alone on one 1x480x960 frame: its logits timed with CUDA
+    events back to back (~20 launches, so the host's launch rate shows)
+    and as replays of a CUDA graph (device time alone), the host time of
+    a routing decision (logits, argmax and the ids' copy to the host), and
+    its bound."""
+    frame = next(scenes[0].batches(1, False))["left"]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: router_logits(router.params, frame), REPS * 2)
+        graph = graph_ms(lambda: router_logits(router.params, frame),
+                         REPS * 2)
+        router.predict(frame)
+        host = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            router.predict(frame)
+            host.append((time.perf_counter() - t0) * 1e3)
+    bound, bound_by = router_bound(router.params, 1, H, W)
+    out = dict(logits_ms=ms, logits_graph_ms=graph,
+               route_host_ms=float(np.mean(host)),
+               bound_ms=bound, bound_by=bound_by)
+    log(f"[route] router alone, 1x{H}x{W}: {json.dumps(out)}")
+    return out
+
+
+def _rel_l2(a, b):
+    num = sum(float(((x.double().cpu() - y.double()) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((y.double() ** 2).sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def phase_router_train(dev, scenes):
+    """A fresh router on the card: its first Adam step against the same
+    step of the port on the CPU from the same state and batch, then
+    ROUTER_EPOCHS epochs on four styled train scenes (losses finite and
+    falling), and its accuracy on the test scenes (not gated: far fewer
+    pairs and epochs than the canonical run)."""
+    t0 = time.perf_counter()
+    cache = DeviceCache()
+    train = [SyntheticStereoDataset(ROUTER_TRAIN_PAIRS, ROUTER_TRAIN_H,
+                                    ROUTER_TRAIN_W, seed=10 + t,
+                                    max_disp=SCENE_DISP,
+                                    style=WEATHER_STYLES[t], device=dev,
+                                    cache=cache)
+             for t in range(len(WEATHER_STYLES))]
+    # the first step of train(): scene 0's first batch of epoch 0, label 0
+    frames = next(train[0].batches(ROUTER_BATCH, True, seed=0))["left"]
+    labels = torch.zeros(frames.shape[0], dtype=torch.int64)
+    steps = {}
+    for where, x, y in (("card", frames, labels.to(dev)),
+                        ("cpu", frames.cpu(), labels)):
+        r = SceneRouter(4, seed=0, device=x.device)
+        before = r.params
+        p, o, loss = make_router_train_step(r.optimizer)(
+            r.params, r.opt_state, x, y)
+        steps[where] = ([p[k] - before[k] for k in sorted(p)],
+                        [o["mu"][k] for k in sorted(p)],
+                        [o["nu"][k] for k in sorted(p)], float(loss),
+                        int(o["count"]))
+    step_err = {name: _rel_l2(steps["card"][i], steps["cpu"][i])
+                for i, name in enumerate(("update", "mu", "nu"))}
+    failures = [f"first step, {k} vs the CPU: {v:.3g} > {ROUTER_STEP_RTOL}"
+                for k, v in step_err.items() if not v <= ROUTER_STEP_RTOL]
+    if steps["card"][4] != steps["cpu"][4]:
+        failures.append(f"first step: count {steps['card'][4]} != "
+                        f"{steps['cpu'][4]}")
+
+    router = SceneRouter(4, seed=0, device=dev)
+    for ds in train:        # make and upload every set before the clock
+        next(ds.batches(1, False))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = router.train(train, epochs=ROUTER_EPOCHS, batch=ROUTER_BATCH,
+                          log=log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    if (len(losses) != ROUTER_EPOCHS or not np.isfinite(losses).all()
+            or not losses[-1] < losses[0]):
+        failures.append(f"router losses {losses}: not finite and falling")
+    if failures:
+        raise SystemExit("chip_smoke: router training failed:\n  "
+                         + "\n  ".join(failures))
+    acc = router.accuracy(scenes)
+    steps_run = int(router.opt_state["count"])
+    out = dict(first_step_vs_cpu=step_err,
+               first_loss_card=steps["card"][3], first_loss_cpu=steps["cpu"][3],
+               losses=losses, steps=steps_run, train_s=train_s,
+               ms_per_step=train_s * 1e3 / steps_run,
+               test_accuracy=acc, wall_s=time.perf_counter() - t0)
+    log(f"[route] router training on the card: {json.dumps(out)}")
+    return out
+
+
 # kinds of device kernel in a trace, matched in order on the lower-cased
 # name (the port's A-K first; kernel_kind sorts B and F apart: they are the
 # engines of A and D with the cost-volume policy). Kernel H is kernel A's
@@ -1569,6 +1847,23 @@ def main() -> int:
         per_task[p].append(tasks)
         outs[p].append(o)
         launches = {k: launches[k] + n[k] for k in KERNELS}
+    t_route = time.perf_counter()
+    scene_cache = DeviceCache()
+    router, scenes, ids, route = phase_route_setup(dev, scene_cache)
+    routed_ris = {p: RoutedInference(net, router=router, maxdisp=MAXDISP,
+                                     device=dev, variants=v)
+                  for p, v in PATHS.items()}
+    per_route = {p: [] for p in PATHS}
+    for p in TURNS:
+        n, res = phase_route(routed_ris[p], scenes, ids, p)
+        per_route[p].append(res)
+        launches = {k: launches[k] + n[k] for k in KERNELS}
+    route["router_alone"] = router_time(router, scenes)
+    route["router_training"] = phase_router_train(dev, scenes)
+    del routed_ris, router, scenes, scene_cache
+    torch.cuda.empty_cache()
+    route["wall_s"] = time.perf_counter() - t_route
+    log(f"[route] phase wall time {route['wall_s']:.1f} s")
     for p in TURNS:
         n, cfgs = phase_train(dev, plain_train[p], p)
         per_cfg[p].append(cfgs)
@@ -1606,7 +1901,15 @@ def main() -> int:
     for key in ("ms_per_step", "pairs_per_s", "peak_gb"):
         log(f"[report] {key} (default turns 1, 4 / variants turns 2, 3): "
             + side_by_side(per_cfg, key))
+    log("[report] routed ms/request (default turns 1, 4 / variants turns "
+        "2, 3): " + " / ".join(", ".join(f"{r['routed_ms']:.2f}"
+                                        for r in per_route[p]) for p in PATHS)
+        + "; task given: " + " / ".join(
+            ", ".join(f"{r['fixed_ms']:.2f}" for r in per_route[p])
+            for p in PATHS))
     log(f"[report] total wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"route": {"device": smi, **route,
+                                "turns": {p: per_route[p] for p in PATHS}}}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

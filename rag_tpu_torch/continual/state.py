@@ -1,9 +1,14 @@
-"""Checkpoint restore for the growable stereo network (read side).
+"""Checkpoint restore for the growable stereo network (read side), and the
+Scene Router's file (both sides).
 
-Counterpart of rag_tpu/continual/state.py::load_checkpoint. A checkpoint is
-a JSON manifest (genotypes, per-site candidate counts and birth tasks,
-per-task arch maps, the units the latest task trains) plus an .npz of every parameter/stat leaf; both packages
-read the same files. Arrays go straight to tensors on the requested device.
+Counterpart of rag_tpu/continual/state.py::load_checkpoint, save_router and
+load_router. A checkpoint is a JSON manifest (genotypes, per-site
+candidate counts and birth tasks, per-task arch maps, the units the latest
+task trains) plus an .npz of every parameter/stat leaf; the router is one
+``router.npz`` beside it (``num_tasks``, ``input_key``, ``trained_task``
+and the ``router_leaf_{i}`` of ``SceneRouter.state_arrays``). Both packages
+read each other's files. Arrays go straight to tensors on the requested
+device.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 
 from rag_tpu_torch.convert import to_torch, unflatten
 from rag_tpu_torch.models.growable import GrowableStereoNet, Unit
+from rag_tpu_torch.models.router import SceneRouter
 from rag_tpu_torch.models.stereo import (
     HEAD_NAMES,
     SITE_NAMES,
@@ -29,6 +35,34 @@ from rag_tpu_torch.search.genotype import Genotype
 def _geno_from(d) -> Genotype:
     return Genotype(normal=canonicalize_gene(d["normal"]),
                     reduce=canonicalize_gene(d["reduce"]))
+
+
+def save_router(directory: str, router: SceneRouter,
+                name: str = "router.npz") -> None:
+    """Persist the Scene Router (params + Adam state) beside the task
+    checkpoints, with ``trained_task``, the last task it was trained
+    after (-1: unknown), so that a resume can tell a stale router."""
+    os.makedirs(directory, exist_ok=True)
+    np.savez(os.path.join(directory, name),
+             num_tasks=router.num_tasks, input_key=router.input_key,
+             trained_task=router.trained_task, **router.state_arrays())
+
+
+def load_router(directory: str, name: str = "router.npz",
+                device="cuda") -> Optional[SceneRouter]:
+    """The saved SceneRouter on ``device``; None if none was saved. A file
+    without ``trained_task`` gives -1."""
+    path = os.path.join(directory, name)
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as npz:
+        data = dict(npz)
+    router = SceneRouter(int(data["num_tasks"]),
+                         input_key=str(data.get("input_key", "left")),
+                         device=device)
+    router.load_arrays(data)
+    router.trained_task = int(data.get("trained_task", -1))
+    return router
 
 
 def latest_task(directory: str) -> Optional[int]:

@@ -159,7 +159,9 @@ class _Pair:
         p_t = to_torch(params, "cpu")
         self.state_t = [p_t, to_torch(stats, "cpu"), opt_t.init(p_t)]
 
-    def step_and_compare(self, lr, left, right, gt):
+    def step_and_compare(self, lr, left, right, gt, loss_tol=None):
+        """One step of both packages, compared at TOLS[dtype]; loss_tol,
+        if given, replaces the relative bound on the loss and EPE."""
         dt = self.dtype
         left, right, gt = (a.astype(dt) for a in (left, right, gt))
         old = _flat(self.state_j[0])
@@ -174,7 +176,8 @@ class _Pair:
             *self.state_t, lr, torch.from_numpy(left), torch.from_numpy(right),
             torch.from_numpy(gt))
         self.state_t = [p_t, s_t, o_t]
-        upd_tol, stats_tol, loss_tol = TOLS[dt]
+        upd_tol, stats_tol, default_loss_tol = TOLS[dt]
+        loss_tol = default_loss_tol if loss_tol is None else loss_tol
 
         new_j, new_t = _flat(p_j), _flat(p_t)
         trace_j, trace_t = _flat(o_j[2].trace), _flat(o_t)
