@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--profile DIR] [--small-only]
 
-Two paths run through every phase: the default path (kernels A-G) and the
-variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
+Two paths run through every phase but learn: the default path (kernels
+A-G) and the variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
 on, where kernel H (kernel A's engine with four output planes a block)
 takes kernel A's place, kernel I the matrix resizes, and the shear stem
 (tap maps + kernels J and K) kernels B, E and F.
@@ -24,7 +24,10 @@ exception:
   4. record-train  the same for one training step of each training
                    configuration (task 3's fine-tune stage, task 0's stage;
                    batch 4, 192x384 crops, maxdisp 192), on each path,
-                   keeping the plain step's updates and statistics;
+                   keeping the plain step's updates and statistics; and
+                   the first train step of the learn phase's supernet
+                   (batch 8, 192x384), recording its calls of kernels A and
+                   D (no other kernel may run there);
   5. kernels       hold all eleven kernels (A-C, H-J forward, D-G, K
                    backward) against their plain versions on the card, at
                    every recorded shape and at small shapes, and time kernel,
@@ -78,11 +81,34 @@ exception:
                    every updated leaf finite and the first step against the
                    path's plain step of phase 4; print ms/step, training
                    pairs/s and peak memory;
-  9. report        one JSON line of the route phase ("route": its figures
-                   and the card's name and power limit), one of kernels
-                   (launches: the serve, route and train runs), the card's
-                   name and power limit, and as the last line
-                   {"ok": true, "device": {...}}.
+  9. learn         the port's continual-learning path on the default
+                   path: ContinualDriver.run over two styled synthetic
+                   scenes (WEATHER_STYLES[0] and [1]; 32 train pairs and 8
+                   valid pairs at 192x384, 8 test frames at 480x960) with
+                   run_rag_tpu.sh's hyperparameters, its epochs cut to 2
+                   (router 1), full width; per task cell search, (task 1:
+                   expand, op search, select), fine-tune, the forgetting
+                   row, checkpoints to a temporary directory, the router.
+                   Every stage starts with every launch count at 0 and
+                   prints its seconds, pairs/s, peak memory and launches.
+                   Gates: cell search runs kernels A and D only, op search
+                   and fine-tune A, B, C, D and G (E where a feature-net
+                   site trains, F where stem_3d0 does) and each evaluation
+                   A, B and C only; the first supernet step through the
+                   kernels against the plain one of phase 4 (STEP_RTOL,
+                   STATS_RTOL); each genotype parse_genotype(p) of its
+                   search, every p row summing to 1, archis[1] and
+                   model_to_train by select's rule from the op search's p,
+                   every logged value finite; matrix[1, 0] equal to
+                   matrix[0, 0] in all six metrics (ZERO_FORGET_RTOL where
+                   not bit-equal); the final checkpoint reloaded on the card
+                   reproducing matrix[1, u] through RoutedInference
+                   (ROUNDTRIP_RTOL), routed accuracy printed;
+ 10. report        one JSON line of the route phase ("route": its figures
+                   and the card's name and power limit), one of the learn
+                   phase ("learn"), one of kernels (launches: the serve,
+                   route, train and learn runs), the card's name and power
+                   limit, and as the last line {"ok": true, "device": {...}}.
 
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
 build-and-check) and prints no report.
@@ -108,9 +134,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -121,6 +149,11 @@ import torch.nn.functional as F
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
+from rag_tpu_torch.continual.driver import (  # noqa: E402
+    ContinualDriver,
+    ExperimentConfig,
+    TrainConfig,
+)
 from rag_tpu_torch.continual.inference import RoutedInference  # noqa: E402
 from rag_tpu_torch.continual.state import (  # noqa: E402
     load_checkpoint,
@@ -131,7 +164,10 @@ from rag_tpu_torch.data.synthetic import (  # noqa: E402
     DeviceCache,
     SyntheticStereoDataset,
 )
+from rag_tpu_torch.data.stereo_dataset import split_half  # noqa: E402
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
+from rag_tpu_torch.models.stereo import SITE_NAMES  # noqa: E402
+from rag_tpu_torch.models.supernet import NUM_EDGES  # noqa: E402
 from rag_tpu_torch.models.router import (  # noqa: E402
     SceneRouter,
     make_router_train_step,
@@ -146,7 +182,14 @@ from rag_tpu_torch.ops import shear as shear_mod  # noqa: E402
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
 from rag_tpu_torch.ops.resize import _interp_matrix_np  # noqa: E402
 from rag_tpu_torch.ops.variants import KernelVariants  # noqa: E402
+from rag_tpu_torch.search.genotype import parse_genotype  # noqa: E402
+from rag_tpu_torch.search.growth import OpSearchConfig  # noqa: E402
+from rag_tpu_torch.search.mdenas import (  # noqa: E402
+    CellSearch,
+    CellSearchConfig,
+)
 from rag_tpu_torch.train.trainer import (  # noqa: E402
+    clone_tree,
     cosine_lr,
     make_optimizer,
     make_train_step,
@@ -176,6 +219,30 @@ SCENE_FRAMES, SCENE_DISP = 16, 64.0
 ROUTE_REQUESTS = 3             # per scene, routed and with the task given
 ROUTER_TRAIN_PAIRS, ROUTER_TRAIN_H, ROUTER_TRAIN_W = 32, 192, 384
 ROUTER_EPOCHS, ROUTER_BATCH = 3, 8
+
+# the learn phase: the port's continual driver (rag_tpu/cli.py:250-267's
+# styled synthetic scenes, run_rag_tpu.sh's hyperparameters) at full width
+# and the reference geometry, with epochs and scenes cut
+LEARN_TASKS = 2                 # scenes, styled WEATHER_STYLES[0] and [1] (was 4)
+LEARN_PAIRS = (32, 8, 8)        # train, valid, test pairs a scene
+LEARN_TRAIN_HW, LEARN_TEST_HW = (192, 384), (480, 960)
+LEARN_SCENE_DISP = 64.0         # min(64, maxdisp / 3)
+LEARN_CFG = ExperimentConfig(
+    cell=CellSearchConfig(epochs=2, batch=8, lr=0.002, lr_a=0.01),
+    op=OpSearchConfig(epochs=2, batch=6, lr=0.001, lr_a=0.01, o_size=10),
+    train=TrainConfig(epochs=2, batch=4, lr=0.001, weight_decay=0.003),
+    num_tasks=LEARN_TASKS, seed=0, maxdisp=MAXDISP, use_router=True,
+    router_epochs=1, router_batch=8)
+LEARN_CUTS = ("scenes 4 -> 2", "cell-search epochs 100 -> 2",
+              "op-search epochs 100 -> 2", "fine-tune epochs 400 -> 2",
+              "router epochs 3 -> 1",
+              "pairs a scene: 32 train, 8 valid, 8 test")
+KA, KB, KC, KD, KE, KF, KG = (
+    "conv3d_brc_cf", "cvstem_brc", "fused_soft_argmin", "conv3d_dw_cf",
+    "cvstem_dxy", "cvstem_dw", "soft_argmin_bwd")
+FEATURE_SITES = frozenset(s for s in SITE_NAMES if "2d" in s)
+ZERO_FORGET_RTOL = 1e-6   # matrix[1, 0] vs matrix[0, 0] where not bit-equal
+ROUNDTRIP_RTOL = 1e-6     # the reloaded checkpoint's evaluation vs the matrix
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -1231,20 +1298,27 @@ def check_weight_pass(dev, rng):
         f"bit at {len(plans)} plans (kernel B's at the eval geometry)")
 
 
-def phase_kernels(args_of, dev):
+def phase_kernels(args_of, dev, learn_args=None):
+    """Every kernel against its plain version: at the recorded main-path
+    calls (timed, with the calls beside them), at the supernet step's calls
+    of the learn phase that the main path does not make (fewer timings,
+    nothing beside), and at the small and exact cases."""
     results, failures = {}, []
     rng = np.random.default_rng(7)
     check_weight_pass(dev, rng)
     todo = [("main", name, sig, args, kw)
             for (name, sig), (args, kw) in args_of.items()]
+    todo += [("learn", name, sig, args, kw)
+             for (name, sig), (args, kw) in (learn_args or {}).items()
+             if (name, sig) not in args_of]
     todo += [(where, name, KERNELS[name]["sig"](*args), args, {})
              for where, cases in (("small", small_cases(dev, rng)),
                                   ("exact", exact_cases(dev, rng)))
              for name, args in cases]
     for where, name, sig, args, kw in todo:
         main = where == "main"
-        r = check_kernel(name, args, kw, REPS if main else 5, main,
-                         exact=where == "exact")
+        r = check_kernel(name, args, kw, REPS if main else 3 if where ==
+                         "learn" else 5, main, exact=where == "exact")
         if main:
             results[(name, sig)] = r
         line = {"kernel": name, "at": where, "sig": str(sig),
@@ -1642,7 +1716,8 @@ def profile(fn, label: str, out_dir: Path) -> None:
 
 def phase_profile(ris, requests, dev, out_dir: Path) -> None:
     """Per path: one steady request of the last task path and one steady
-    train step of task 0's stage under the profiler."""
+    train step of task 0's stage under the profiler; then the learn
+    phase's first supernet train step (default path)."""
     t = max(requests)
     left, right = requests[t][0]
     batch = train_batch(dev)
@@ -1655,6 +1730,9 @@ def phase_profile(ris, requests, dev, out_dir: Path) -> None:
         def step():
             state[:3] = train_step(cfg, *state, LR, batch, path)[:3]
         profile(step, f"train_task0_{path}", out_dir)
+    counts = {"trained": 0, "evaluated": 0}
+    cs, lr, args = first_supernet_step(dev, learn_scenes(dev, counts)[0][0])
+    profile(lambda: supernet_step(cs, lr, args), "supernet_step", out_dir)
 
 
 def compare_step(name, delta, new_stats, plain):
@@ -1737,6 +1815,332 @@ def phase_train(dev, plain, path):
     return launches, per_cfg
 
 
+# -- the learn phase ---------------------------------------------------------
+
+class Counted:
+    """A dataset that counts the pairs its shuffled (training) batches and
+    its ordered (evaluation) batches yield, into ``counts``."""
+
+    def __init__(self, ds, counts):
+        self.ds, self.counts = ds, counts
+
+    def __len__(self):
+        return len(self.ds)
+
+    def batches(self, batch_size, shuffle=True, seed=0, **kw):
+        key = "trained" if shuffle else "evaluated"
+        for b in self.ds.batches(batch_size, shuffle, seed, **kw):
+            self.counts[key] += int(b["left"].shape[0])
+            yield b
+
+
+def learn_scenes(dev, counts):
+    """Per task t: train (32 pairs 192x384, seed 10 + t), valid (8, seed
+    20 + t) and test (8 frames 480x960, seed 30 + t), styled
+    WEATHER_STYLES[t], disparity up to 64 px, on the card."""
+    cache = DeviceCache()
+    (hh, ww), (eh, ew) = LEARN_TRAIN_HW, LEARN_TEST_HW
+    mk = lambda n, h, w, seed, t: Counted(SyntheticStereoDataset(
+        n, h, w, seed=seed, max_disp=LEARN_SCENE_DISP,
+        style=WEATHER_STYLES[t], device=dev, cache=cache), counts)
+    n_tr, n_va, n_te = LEARN_PAIRS
+    return ([mk(n_tr, hh, ww, 10 + t, t) for t in range(LEARN_TASKS)],
+            [mk(n_va, hh, ww, 20 + t, t) for t in range(LEARN_TASKS)],
+            [mk(n_te, eh, ew, 30 + t, t) for t in range(LEARN_TASKS)])
+
+
+def first_supernet_step(dev, train0):
+    """Task 0's cell search as the driver builds it, and the arguments of
+    its first train step: the first batch of its weight-training half and
+    the ops it samples first (CellSearch.search's streams)."""
+    cfg = dataclasses.replace(LEARN_CFG.cell, maxdisp=MAXDISP)  # seed + 0
+    cs = CellSearch(cfg, log=None, device=dev)
+    rng = np.random.default_rng(cfg.seed)
+    train_idx, _ = split_half(len(train0), seed=cfg.seed)
+    ops = [np.array([rng.choice(cfg.num_ops, p=cs.p[k][e])
+                     for e in range(NUM_EDGES)], np.int32)
+           for k in ("normal", "reduce")]
+    b = next(train0.ds.batches(cfg.batch, True, seed=0, indices=train_idx))
+    lr = cosine_lr(cfg.lr, cfg.epochs, 0, cfg.lr_min)
+    return cs, lr, (b["left"], b["right"], b["disparity"], *ops)
+
+
+def supernet_step(cs, lr, args):
+    """One step from a copy of cs's state: (dp/lr by leaf, new stats by
+    leaf, loss)."""
+    params = clone_tree(cs.params)
+    params, new_stats, _, sc = cs._train_step(
+        params, cs.stats, cs.optimizer.init(params), lr, *args)
+    before = dict(leaves(cs.params))
+    return ({k: (v - before[k]) / lr for k, v in leaves(params)},
+            dict(leaves(new_stats)), float(sc["loss"]))
+
+
+def phase_record_learn(dev, args_of):
+    """The first supernet train step with the plain versions in the
+    wrappers' places. Returns its dp/lr and statistics."""
+    counts = {"trained": 0, "evaluated": 0}
+    train, _, _ = learn_scenes(dev, counts)
+    cs, lr, args = first_supernet_step(dev, train[0])
+    calls = []
+    t0 = time.perf_counter()
+    with recording(calls, args_of):
+        delta, stats, loss = supernet_step(cs, lr, args)
+    torch.cuda.synchronize()
+    n_calls = count_calls(calls)
+    log(f"[record-learn] first supernet train step (batch "
+        f"{LEARN_CFG.cell.batch}, {LEARN_TRAIN_HW[0]}x{LEARN_TRAIN_HW[1]}, "
+        f"ops {args[3].tolist()} / {args[4].tolist()}): plain "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms, loss {loss:.4f}, "
+        f"kernel calls {n_calls}")
+    check_called("supernet step", n_calls, (KA, KD))
+    return delta, stats
+
+
+class StagedDriver(ContinualDriver):
+    """The port's ContinualDriver with each stage timed on synchronized
+    host clocks, its peak memory and launches read, and the trainable
+    sites of every step it builds kept."""
+
+    def __init__(self, *a, counts, **kw):
+        super().__init__(*a, **kw)
+        self.counts = counts
+        self.stages, self.cell_searches, self.op_p = [], [], {}
+        self._trainable = None
+
+    @contextlib.contextmanager
+    def _stage(self, name, t, trainable=None):
+        for k in KERNELS.values():
+            k["wrapper"].launches = 0
+        self.counts.update(trained=0, evaluated=0)
+        self._trainable = [] if trainable is None else [trainable]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        rec = {"stage": name, "task": t, "s": sec,
+               "trained_pairs": self.counts["trained"],
+               "evaluated_pairs": self.counts["evaluated"],
+               "pairs_per_s": (self.counts["trained"]
+                               or self.counts["evaluated"]) / sec,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {n: k["wrapper"].launches
+                            for n, k in KERNELS.items()},
+               "stem_trains": any("stem_3d0" in s for s in self._trainable),
+               "features_train": any(s & FEATURE_SITES
+                                     for s in self._trainable)}
+        self.stages.append(rec)
+        log(f"[learn] t{t} {name}: {sec:.2f} s, {rec['trained_pairs']} "
+            f"pairs trained, {rec['evaluated_pairs']} evaluated, "
+            f"{rec['pairs_per_s']:.2f} pairs/s, peak {rec['peak_gb']:.2f} "
+            f"GB, launches {json.dumps({n: c for n, c in rec['launches'].items() if c})}"
+            f", stem_3d0 trains: {rec['stem_trains']}, a feature site "
+            f"trains: {rec['features_train']}")
+
+    def _cell_search(self, t):
+        cs = super()._cell_search(t)
+        self.cell_searches.append(cs)
+        return cs
+
+    def search_cell(self, t, train_data):
+        with self._stage("cell", t):
+            return super().search_cell(t, train_data)
+
+    def _op_search(self):
+        search = super()._op_search()
+        steps_for, run = search._steps_for, search.search
+
+        def staged_steps_for(arch, trainable):
+            self._trainable.append(trainable)
+            return steps_for(arch, trainable)
+
+        def staged_search(t, data, writer=None):
+            with self._stage("op", t):
+                run(t, data, writer=writer)
+            self.op_p[t] = [p.copy() for p in self.net.p]
+
+        search._steps_for, search.search = staged_steps_for, staged_search
+        return search
+
+    def fine_tune(self, t, train_data, valid_data):
+        with self._stage("train", t, self.net.trainable_sites(t)):
+            super().fine_tune(t, train_data, valid_data)
+        log(f"[learn] after task {t}: genotype {self.net.genotypes[t]}, "
+            f"archis[{t}] {self.net.archis[t]}, size "
+            f"{self.net.size_m():.6f} M params")
+
+    def evaluate(self, u, test_data, batch=1):
+        with self._stage(f"eval u{u}", len(self.net.archis) - 1):
+            return super().evaluate(u, test_data, batch)
+
+    def train_router(self, t, train_datasets, test_datasets):
+        with self._stage("router", t):
+            super().train_router(t, train_datasets, test_datasets)
+
+    def _routed_eval(self, u, test_data, confusion):
+        with self._stage(f"routed eval u{u}", len(self.net.archis) - 1):
+            return super()._routed_eval(u, test_data, confusion)
+
+
+class Scalars:
+    """A MetricWriter that keeps every scalar for the finiteness gate."""
+
+    def __init__(self):
+        self.values = []
+
+    def scalars(self, tag, values, step=0):
+        self.values += [(tag, k, float(v)) for k, v in values.items()]
+
+    def text(self, tag, value, step=0):
+        pass
+
+
+def stage_failures(rec):
+    """The launch gate of one stage: which kernels it must run (E only
+    where a feature-net site trains, F only where stem_3d0 does) and that
+    no other kernel ran."""
+    name, n = rec["stage"], rec["launches"]
+    if name == "cell":
+        must = (KA, KD)
+    elif name in ("op", "train"):
+        must = (KA, KB, KC, KD, KG) + ((KE,) if rec["features_train"] else ()) \
+            + ((KF,) if rec["stem_trains"] else ())
+    elif name == "router":
+        must = ()
+    else:
+        must = (KA, KB, KC)
+    what = f"learn t{rec['task']} {name}"
+    bad = [f"{what}: {k} never launched" for k in must if n[k] <= 0]
+    bad += [f"{what}: {k} launched {c} times" for k, c in n.items()
+            if c and k not in must]
+    return bad
+
+
+def phase_learn(dev, plain_step, smi):
+    """Two tasks of ContinualDriver.run on the card (default path) and the
+    five gates: stage launches, the first supernet step vs plain, search
+    state and growth, zero forgetting, the checkpoint round trip."""
+    t_phase = time.perf_counter()
+    log(f"[learn] configuration: {json.dumps(dataclasses.asdict(LEARN_CFG))}")
+    log(f"[learn] cut from the canonical run: {'; '.join(LEARN_CUTS)}; "
+        f"widths and crops unchanged")
+    counts = {"trained": 0, "evaluated": 0}
+    train, valid, test = learn_scenes(dev, counts)
+    failures = []
+
+    # gate 2: the first supernet step through the kernels vs the plain one
+    cs, lr, args = first_supernet_step(dev, train[0])
+    delta, stats, loss = supernet_step(cs, lr, args)
+    cmp, bad = compare_step("learn supernet step", delta, stats, plain_step)
+    failures += bad
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        supernet_step(cs, lr, args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[learn] supernet train step (batch {LEARN_CFG.cell.batch}): "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)} ms (host clock, "
+        f"synchronized), loss {loss:.4f}")
+    del cs, delta, stats
+
+    writer = Scalars()
+    with tempfile.TemporaryDirectory() as ckpt:
+        drv = StagedDriver(LEARN_CFG, writer=writer, log=log,
+                           checkpoint_dir=ckpt, device=dev, counts=counts)
+        t0 = time.perf_counter()
+        matrix = drv.run(train, valid, test)
+        run_s = time.perf_counter() - t0
+        for rec in drv.stages:
+            failures += stage_failures(rec)
+        net = drv.net
+
+        # gate 3: search state and growth
+        for t, search in enumerate(drv.cell_searches):
+            for k, p in search.p.items():
+                if not np.all(np.abs(p.sum(axis=1) - 1.0) <= 1e-12):
+                    failures.append(f"cell search t{t}: p[{k}] rows sum to "
+                                    f"{p.sum(axis=1)}")
+            geno = parse_genotype(search.p["normal"], search.p["reduce"])
+            if geno != net.genotypes[t]:
+                failures.append(f"task {t}: genotype {net.genotypes[t]} is "
+                                f"not parse_genotype(p) = {geno}")
+        for i, s in enumerate(SITE_NAMES):
+            p = drv.op_p[1][i]
+            idx = int(np.argmax(p))
+            new = idx == len(p) - 1
+            if abs(p.sum() - 1.0) > 1e-12:
+                failures.append(f"op search: p[{s}] sums to {p.sum()}")
+            if (net.archis[1][s] != idx or idx >= net.length(s)
+                    or net.length(s) != len(p) - (0 if new else 1)
+                    or net.units[s][idx].born_task != (1 if new else 0)
+                    or net.model_to_train[s] != ([idx] if new else [])):
+                failures.append(f"select: {s} p {p.tolist()} -> archis "
+                                f"{net.archis[1][s]}, {net.length(s)} units,"
+                                f" model_to_train {net.model_to_train[s]}")
+        bad_vals = [(tag, k, v) for tag, k, v in writer.values
+                    if not np.isfinite(v)]
+        if bad_vals:
+            failures.append(f"non-finite logged values {bad_vals[:5]}")
+
+        # gate 4: zero forgetting
+        forget = {}
+        for k in matrix.metric_names:
+            a, b = matrix.m[k][1, 0], matrix.m[k][0, 0]
+            forget[k] = {"after_0": b, "after_1": a, "bit_equal": bool(a == b)}
+            if not abs(a - b) <= ZERO_FORGET_RTOL * abs(b):
+                failures.append(f"forgetting: {k} {b!r} -> {a!r}")
+        log(f"[learn] zero forgetting, matrix[1, 0] vs matrix[0, 0]: "
+            f"{json.dumps(forget)}")
+        for k in ("D1", "EPE"):
+            log(f"[learn] forgetting matrix {k}:\n{matrix.format(k, fmt='{:10.6f}')}")
+
+        # gate 5: the checkpoint round trip on the card
+        back, manifest = load_checkpoint(ckpt, LEARN_TASKS - 1, device=dev)
+        roundtrip = {}
+        ri = RoutedInference(back, maxdisp=MAXDISP, device=dev)
+        for u in range(LEARN_TASKS):
+            got = ri.evaluate(test[u], task=u)
+            err = max(abs(got[k] - matrix.m[k][LEARN_TASKS - 1, u])
+                      / max(abs(matrix.m[k][LEARN_TASKS - 1, u]), 1e-30)
+                      for k in matrix.metric_names)
+            roundtrip[u] = err
+            if not err <= ROUNDTRIP_RTOL:
+                failures.append(f"checkpoint round trip: task {u} differs "
+                                f"by {err:.3g} relative")
+        router = load_router(ckpt, device=dev)
+        routed = RoutedInference(back, router=router, maxdisp=MAXDISP,
+                                 device=dev)
+        routed_d1 = [routed.evaluate(test[u])["D1"]
+                     for u in range(LEARN_TASKS)]
+        acc = router.accuracy([d.ds for d in test])
+        log(f"[learn] checkpoint {manifest['extra']['stage']} of task "
+            f"{manifest['task']} reloaded: worst relative difference per task"
+            f" {roundtrip}; routed D1 {routed_d1}, router accuracy {acc:.4f}")
+    report = {
+        "device": smi, "config": dataclasses.asdict(LEARN_CFG),
+        "cuts": LEARN_CUTS, "run_s": run_s,
+        "wall_s": time.perf_counter() - t_phase,
+        "supernet_step_ms": step_ms, "supernet_step_vs_plain": cmp,
+        "stages": drv.stages,
+        "genotypes": [str(g) for g in net.genotypes], "archis": net.archis,
+        "model_to_train": net.model_to_train, "size_m": net.size_m(),
+        "matrix": {k: matrix.m[k].tolist() for k in ("D1", "EPE")},
+        "zero_forgetting": forget, "roundtrip_rel": roundtrip,
+        "routed_D1": routed_d1, "router_accuracy": acc}
+    log(f"[learn] phase wall time {report['wall_s']:.1f} s (driver run "
+        f"{run_s:.1f} s)")
+    if failures:
+        raise SystemExit("chip_smoke: learn failed:\n  " + "\n  ".join(failures))
+    launches = dict.fromkeys(KERNELS, 0)
+    for rec in drv.stages:
+        for k, c in rec["launches"].items():
+            launches[k] += c
+    return launches, report
+
+
 def per_key(results, calls, name, field):
     """Sum of a per-call number over one request (or step), averaged over
     the task paths (or configurations) that call the kernel."""
@@ -1800,7 +2204,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one request and one train step per "
-                         "path; write tables and traces here")
+                         "path and one supernet train step; write tables "
+                         "and traces here")
     ap.add_argument("--small-only", action="store_true",
                     help="build and check every kernel at the small shapes "
                          "only; no report")
@@ -1831,10 +2236,13 @@ def main() -> int:
     for p in PATHS:
         plain[p], calls[p] = phase_record(ris[p], requests, args_of, p)
         plain_train[p], train_calls[p] = phase_record_train(dev, args_of, p)
+    learn_args = {}
+    plain_learn = phase_record_learn(dev, learn_args)
     log(f"[record] {len(args_of)} distinct kernel signatures on the main "
-        f"paths ({time.perf_counter() - t_start:.0f} s)")
-    results = phase_kernels(args_of, dev)
-    del args_of
+        f"paths, {len(learn_args)} in the supernet step "
+        f"({time.perf_counter() - t_start:.0f} s)")
+    results = phase_kernels(args_of, dev, learn_args)
+    del args_of, learn_args
     torch.cuda.empty_cache()
     log(f"[kernels] done ({time.perf_counter() - t_start:.0f} s)")
     # launches summed over a kernel's runs; times kept per turn
@@ -1868,6 +2276,10 @@ def main() -> int:
         n, cfgs = phase_train(dev, plain_train[p], p)
         per_cfg[p].append(cfgs)
         launches = {k: launches[k] + n[k] for k in KERNELS}
+    n, learn = phase_learn(dev, plain_learn, smi)
+    launches = {k: launches[k] + n[k] for k in KERNELS}
+    del plain_learn
+    torch.cuda.empty_cache()
     if opts.profile is not None:
         phase_profile(ris, requests, dev, opts.profile)
 
@@ -1893,7 +2305,8 @@ def main() -> int:
     log("[report] serving kernels: times per request summed over its calls "
         "and averaged over the task paths of their path; every kernel's "
         "\"train_step\" or own numbers: per step of task 0's stage; "
-        "launches: every serve and train run of both paths")
+        "launches: every serve, route and train run of both paths and the "
+        "learn run")
     log("[report] ms/request (default turns 1, 4 / variants turns 2, 3): "
         + side_by_side(per_task, "ms_per_request"))
     log("[report] peak GB per request (default / variants): "
@@ -1910,6 +2323,7 @@ def main() -> int:
     log(f"[report] total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"route": {"device": smi, **route,
                                 "turns": {p: per_route[p] for p in PATHS}}}))
+    print(json.dumps({"learn": learn}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

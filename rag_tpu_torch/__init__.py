@@ -1,6 +1,8 @@
 """rag_tpu_torch: the PyTorch/CUDA port of rag_tpu for one NVIDIA H100.
 
-A committed checkpoint's task paths are served through
+``continual.driver.ContinualDriver`` learns a sequence of scenes (cell
+search on the supernet, growth, op search, fine-tune, the forgetting
+matrix, checkpoints); a grown network's task paths are served through
 ``continual.inference.RoutedInference`` and trained through
 ``train.trainer.make_train_step`` on the card, with the seven TPU kernels
 of that path (three forward, four backward) rewritten by hand in CUDA C++

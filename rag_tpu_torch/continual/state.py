@@ -1,21 +1,25 @@
-"""Checkpoint restore for the growable stereo network (read side), and the
-Scene Router's file (both sides).
+"""Checkpoints of the growable stereo network (both sides) and the Scene
+Router's file.
 
-Counterpart of rag_tpu/continual/state.py::load_checkpoint, save_router and
-load_router. A checkpoint is a JSON manifest (genotypes, per-site
-candidate counts and birth tasks, per-task arch maps, the units the latest
-task trains) plus an .npz of every parameter/stat leaf; the router is one
-``router.npz`` beside it (``num_tasks``, ``input_key``, ``trained_task``
-and the ``router_leaf_{i}`` of ``SceneRouter.state_arrays``). Both packages
-read each other's files. Arrays go straight to tensors on the requested
-device.
+Counterpart of rag_tpu/continual/state.py::save_checkpoint,
+load_checkpoint, save_router and load_router (stereo). A checkpoint after
+task t is ``manifest_task{t}.json`` (genotypes, per-site candidate counts
+and birth tasks, per-task arch maps, the search probabilities ``p``, the
+units the latest task trains, and the caller's ``extra``) plus
+``arrays_task{t}.npz``, every parameter/stat leaf under
+``units/{site}/{i}/{params|stats}/...`` and ``heads/{head}/{i}/...``; the
+router is one ``router.npz`` beside it (``num_tasks``, ``input_key``,
+``trained_task`` and the ``router_leaf_{i}`` of
+``SceneRouter.state_arrays``). Both packages read each other's files:
+the same keys, dtypes and shapes. Arrays go straight to tensors on the
+requested device.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -30,6 +34,20 @@ from rag_tpu_torch.models.stereo import (
 )
 from rag_tpu_torch.ops.cell import canonicalize_gene
 from rag_tpu_torch.search.genotype import Genotype
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
+    """Leaves of a nested dict as host arrays under 'prefix/key/...'."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], f"{prefix}/{k}", out)
+    else:
+        out[prefix] = tree.detach().cpu().numpy()
+
+
+def _geno_json(g: Genotype):
+    return {"normal": [list(p) for p in g.normal],
+            "reduce": [list(p) for p in g.reduce]}
 
 
 def _geno_from(d) -> Genotype:
@@ -63,6 +81,47 @@ def load_router(directory: str, name: str = "router.npz",
     router.load_arrays(data)
     router.trained_task = int(data.get("trained_task", -1))
     return router
+
+
+def save_checkpoint(directory: str, net: GrowableStereoNet, task: int,
+                    extra: Optional[Dict] = None,
+                    manifest_only: bool = False) -> None:
+    """Write the checkpoint after ``task``. ``manifest_only`` rewrites just
+    the manifest (stage, matrix and eval progress in ``extra``) where the
+    arrays on disk are already current."""
+    os.makedirs(directory, exist_ok=True)
+    manifest = {
+        "task": task,
+        "variant": "stereo",
+        "genotypes": [_geno_json(g) for g in net.genotypes],
+        "archis": net.archis,
+        "lengths": {s: len(net.units[s]) for s in SITE_NAMES},
+        "num_heads": {h: len(net.heads[h]) for h in HEAD_NAMES},
+        "born": {s: [u.born_task for u in net.units[s]] for s in SITE_NAMES},
+        "p": [p.tolist() for p in net.p] if net.p is not None else None,
+        "model_to_train": net.model_to_train,
+        "extra": extra or {},
+    }
+    path = os.path.join(directory, f"manifest_task{task}.json")
+    if manifest_only:
+        if not os.path.exists(os.path.join(directory,
+                                           f"arrays_task{task}.npz")):
+            raise FileNotFoundError(
+                "a manifest_only save needs the arrays file on disk")
+        with open(path + ".tmp", "w") as f:
+            json.dump(manifest, f)
+        os.replace(path + ".tmp", path)
+        return
+    arrays: Dict[str, np.ndarray] = {}
+    for kind, store, names in (("units", net.units, SITE_NAMES),
+                               ("heads", net.heads, HEAD_NAMES)):
+        for name in names:
+            for i, u in enumerate(store[name]):
+                _flatten(u.params, f"{kind}/{name}/{i}/params", arrays)
+                _flatten(u.stats, f"{kind}/{name}/{i}/stats", arrays)
+    with open(path, "w") as f:
+        json.dump(manifest, f)
+    np.savez(os.path.join(directory, f"arrays_task{task}.npz"), **arrays)
 
 
 def latest_task(directory: str) -> Optional[int]:
@@ -116,4 +175,7 @@ def load_checkpoint(directory: str, task: Optional[int] = None,
     mtt = manifest.get("model_to_train")
     if mtt is not None:
         mtt = {k: [int(i) for i in v] for k, v in mtt.items()}
-    return GrowableStereoNet(genotypes, units, heads, archis, mtt), manifest
+    p = manifest.get("p")
+    if p is not None:
+        p = [np.asarray(q, np.float64) for q in p]
+    return GrowableStereoNet(genotypes, units, heads, archis, mtt, p), manifest

@@ -22,27 +22,27 @@ def _image_weights(d_gt, mask):
     """1.0 for kept images: 10 * |mask| >= |gt > 0| and |gt > 0| > 0 (sum
     form, exact at the 10% boundary)."""
     dims = tuple(range(1, d_gt.ndim))
-    mask_sum = mask.float().sum(dim=dims)
-    gt_sum = (d_gt > 0).float().sum(dim=dims)
-    return ((10.0 * mask_sum >= gt_sum) & (gt_sum > 0)).float()
+    mask_sum = mask.to(d_gt.dtype).sum(dim=dims)
+    gt_sum = (d_gt > 0).to(d_gt.dtype).sum(dim=dims)
+    return ((10.0 * mask_sum >= gt_sum) & (gt_sum > 0)).to(d_gt.dtype)
 
 
 def _masked_image_mean(x, mask):
     dims = tuple(range(1, x.ndim))
-    m = mask.float()
+    m = mask.to(x.dtype)
     return (x * m).sum(dim=dims) / m.sum(dim=dims).clamp(min=1.0)
 
 
 def d1_metric(d_est, d_gt, mask):
     err = (d_gt - d_est).abs()
     bad = (err > 3.0) & (err / d_gt.abs().clamp(min=1e-12) > 0.05)
-    return _per_image(_masked_image_mean(bad.float(), mask),
+    return _per_image(_masked_image_mean(bad.to(d_est.dtype), mask),
                       _image_weights(d_gt, mask))
 
 
 def thres_metric(d_est, d_gt, mask, tau):
     err = (d_gt - d_est).abs()
-    return _per_image(_masked_image_mean((err > tau).float(), mask),
+    return _per_image(_masked_image_mean((err > tau).to(d_est.dtype), mask),
                       _image_weights(d_gt, mask))
 
 

@@ -1,12 +1,17 @@
-"""Growable multi-path network: the per-site candidate registry.
+"""Growable multi-path network: the per-site candidate registry and its
+growth.
 
-Counterpart of rag_tpu/models/growable.py. A restored checkpoint holds, per
-searchable site and head, the list of candidate Units, per task an arch
-map site -> candidate index, and ``model_to_train``: per site, the
-candidates the latest task may train. ``path(arch)`` assembles one task's
-(specs, params, stats), ``trainable_sites(t)`` names the sites task t
-trains, and ``write_back`` commits trained tensors. Growth (expand/select)
-and op search are not ported yet.
+Counterpart of rag_tpu/models/growable.py (stereo). Per searchable site
+and head the registry holds a list of candidate Units; per task an arch
+map site -> candidate index. ``initial`` builds task 0's one candidate per
+site and head from a genotype. ``expand(t, genotype)`` appends one fresh
+candidate per site and fresh heads and sets each site's reuse-vs-new
+categorical ``p`` to the K_MULTIPLIER = 2 reuse prior
+[2/(2L+1), ..., 1/(2L+1)]. ``select(t)`` argmaxes each ``p``, deletes a
+losing new unit, and records ``archis[t]`` and ``model_to_train``.
+``path(arch)`` assembles one task's (specs, params, stats),
+``trainable_sites(t)`` names the sites task t trains, and ``write_back``
+commits trained tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +19,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
+
+from rag_tpu_torch.models.stereo import (
+    HEAD_NAMES,
+    SITE_NAMES,
+    build_head_specs,
+    build_site_specs,
+    init_sites,
+)
+
+K_MULTIPLIER = 2
 
 
 @dataclasses.dataclass
@@ -36,12 +52,104 @@ class GrowableStereoNet:
 
     def __init__(self, genotypes, units: Dict[str, List[Unit]],
                  heads: Dict[str, List[Unit]], archis: List[Dict[str, int]],
-                 model_to_train: Optional[Dict[str, List[int]]] = None):
+                 model_to_train: Optional[Dict[str, List[int]]] = None,
+                 p: Optional[List[np.ndarray]] = None):
+        """A registry as a checkpoint records it (``initial`` builds a new
+        one)."""
         self.genotypes = genotypes
         self.units = units
         self.heads = heads
         self.archis = archis
         self.model_to_train = model_to_train
+        self.p = p
+        self.new_models: Optional[Dict[str, List[int]]] = None
+
+    @staticmethod
+    def _fresh(genotype, seed: int, device, weights):
+        """(site specs, site params, site stats, head specs, head params,
+        head stats): from ``weights`` = (site params, site stats, head
+        params, head stats) when given, else drawn from
+        ``torch.Generator().manual_seed(seed)``, sites first."""
+        site_specs, head_specs = build_site_specs(genotype), build_head_specs()
+        if weights is None:
+            gen = torch.Generator().manual_seed(seed)
+            weights = (*init_sites(gen, site_specs, device),
+                       *init_sites(gen, head_specs, device))
+        return (site_specs, weights[0], weights[1],
+                head_specs, weights[2], weights[3])
+
+    @classmethod
+    def initial(cls, genotype, seed: int = 0, device="cuda",
+                weights=None) -> "GrowableStereoNet":
+        """Task 0's network: one candidate per site and head, every site
+        and head at index 0 in archis[0]."""
+        ss, sp, sst, hs, hp, hst = cls._fresh(genotype, seed, device, weights)
+        units = {s: [Unit(ss[s], sp[s], sst[s], 0)] for s in SITE_NAMES}
+        heads = {h: [Unit(hs[h], hp[h], hst[h], 0)] for h in HEAD_NAMES}
+        archis = [{**{s: 0 for s in SITE_NAMES}, **{h: 0 for h in HEAD_NAMES}}]
+        return cls([genotype], units, heads, archis)
+
+    # -- growth ------------------------------------------------------------
+
+    def length(self, site: str) -> int:
+        return len(self.units[site])
+
+    def expand(self, t: int, genotype, seed: int = 0, weights=None):
+        """Append one candidate per searchable site and fresh heads, on the
+        device of the existing units; build p and new_models."""
+        if t != len(self.genotypes):
+            raise ValueError(f"task {t} expands after {len(self.genotypes)}")
+        device = self.units[SITE_NAMES[0]][0].params["w"].device
+        ss, sp, sst, hs, hp, hst = self._fresh(genotype, seed, device, weights)
+        self.genotypes.append(genotype)
+        self.p = []
+        for s in SITE_NAMES:
+            n = self.length(s)
+            self.units[s].append(Unit(ss[s], sp[s], sst[s], t))
+            prob = np.full(n + 1, 1.0 / (K_MULTIPLIER * n + 1), np.float64)
+            prob[:n] *= K_MULTIPLIER
+            self.p.append(prob)
+        for h in HEAD_NAMES:
+            self.heads[h].append(Unit(hs[h], hp[h], hst[h], t))
+            assert len(self.heads[h]) == t + 1
+        self.new_models = {
+            **{s: [self.length(s) - 1] for s in SITE_NAMES},
+            **{h: [t] for h in HEAD_NAMES},
+        }
+
+    def select(self, t: int) -> Dict[str, int]:
+        """Argmax the reuse-vs-new probabilities, prune losing new units,
+        record archis[t] and model_to_train."""
+        if self.p is None:
+            raise ValueError("select before expand")
+        best: Dict[str, int] = {}
+        to_train: Dict[str, List[int]] = {}
+        for i, s in enumerate(SITE_NAMES):
+            idx = int(np.argmax(self.p[i]))
+            c = self.length(s) - 1  # index of the freshly added candidate
+            if idx == c:
+                best[s] = c
+                to_train[s] = [c]
+            else:
+                best[s] = idx
+                to_train[s] = []
+                del self.units[s][c]
+        for h in HEAD_NAMES:
+            best[h] = t
+            to_train[h] = [t]
+        self.model_to_train = to_train
+        self.archis.append(best)
+        self.p = None
+        self.new_models = None
+        return best
+
+    def search_arch(self, selected: List[int], t: int) -> Dict[str, int]:
+        """Arch map of an op-search sample: selected[i] indexes site i's
+        candidates (0..L-1 reuse, L the new unit); heads pinned to t."""
+        arch = {s: int(selected[i]) for i, s in enumerate(SITE_NAMES)}
+        for h in HEAD_NAMES:
+            arch[h] = t
+        return arch
 
     def _unit(self, name: str, idx: int) -> Unit:
         return (self.heads[name] if name in self.heads else self.units[name])[idx]
@@ -84,3 +192,15 @@ class GrowableStereoNet:
                     u.params = _tree_to(u.params, device)
                     u.stats = _tree_to(u.stats, device)
         return self
+
+    def num_params(self) -> int:
+        def count(tree):
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            return tree.numel()
+        return sum(count(u.params) for store in (self.units, self.heads)
+                   for units in store.values() for u in units)
+
+    def size_m(self) -> float:
+        """Model size in M params."""
+        return self.num_params() / 1e6

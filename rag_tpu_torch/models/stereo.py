@@ -22,12 +22,12 @@ plus kernels J and K, for B, E and F (``shear_stem``).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import torch
 
-from rag_tpu_torch.ops.cell import CellSpec, apply_cell, apply_cell_cf
-from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, bn_fold
+from rag_tpu_torch.ops.cell import CellSpec, apply_cell, apply_cell_cf, init_cell
+from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, bn_fold, init_convbr
 from rag_tpu_torch.ops.conv3d import needs_grad
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf, batch_norm_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
@@ -99,6 +99,22 @@ def build_head_specs() -> Dict[str, ConvBRSpec]:
         "last_6_3d": ConvBRSpec(3, INITIAL_FM * 2, INITIAL_FM, 1, 1),
         "last_12_3d": ConvBRSpec(3, INITIAL_FM * 4, INITIAL_FM * 2, 1, 1),
     }
+
+
+def _init_one(generator: torch.Generator, spec: Spec, device):
+    if isinstance(spec, CellSpec):
+        return init_cell(generator, spec, device)
+    return init_convbr(generator, spec, device)
+
+
+def init_sites(generator: torch.Generator, specs: Mapping[str, Spec],
+               device="cuda") -> Tuple[Dict, Dict]:
+    """Fresh (params, stats) for every site in ``specs``, drawn from
+    ``generator`` in sorted site order."""
+    params, stats = {}, {}
+    for name in sorted(specs):
+        params[name], stats[name] = _init_one(generator, specs[name], device)
+    return params, stats
 
 
 def _apply2d(specs, params, stats, name, x, train_sites, new_stats, *extra,

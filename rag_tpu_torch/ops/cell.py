@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr
+from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, init_convbr
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf
 from rag_tpu_torch.ops.resize import resize_cf, resize_linear, scale_dimension
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
@@ -65,6 +65,25 @@ class CellSpec:
     @property
     def out_channels(self) -> int:
         return BLOCK_MULTIPLIER * self.c_out
+
+
+def init_cell(generator: torch.Generator, spec: CellSpec, device="cuda"):
+    """Fresh (params, stats) of a cell, keyed like its gene: 'pre' (where
+    c_pp != c_out), 'prep' and one 'ops' entry per conv edge, drawn in
+    that order."""
+    params, stats = {}, {}
+    if spec.c_pp != spec.c_out:
+        params["pre"], stats["pre"] = init_convbr(
+            generator, ConvBRSpec(spec.ndim, spec.c_pp, spec.c_out, 1), device)
+    params["prep"], stats["prep"] = init_convbr(
+        generator, ConvBRSpec(spec.ndim, spec.c_p, spec.c_out, 1), device)
+    params["ops"], stats["ops"] = {}, {}
+    conv = ConvBRSpec(spec.ndim, spec.c_out, spec.c_out, 3)
+    for edge, op in spec.gene:
+        if op == OP_CONV:
+            params["ops"][str(edge)], stats["ops"][str(edge)] = init_convbr(
+                generator, conv, device)
+    return params, stats
 
 
 def _edge_groups(gene: Gene) -> Dict[int, list]:

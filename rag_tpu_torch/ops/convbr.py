@@ -17,6 +17,7 @@ the stacked left+right batch are not what ``torch.nn.BatchNorm`` does).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +42,31 @@ class ConvBRSpec:
     def padding(self) -> int:
         # kernel//2: 1 for the 3x3 convs (the stride-3 stem included), 0 for 1x1
         return self.kernel // 2
+
+
+def _kaiming_fan_out(generator: torch.Generator, shape, fan_out: int,
+                     device) -> torch.Tensor:
+    """Kaiming-normal (fan-out) float32 weights: normal * sqrt(2/fan_out),
+    drawn on the CPU from ``generator`` and moved to ``device``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32)
+    return (w * math.sqrt(2.0 / fan_out)).to(device)
+
+
+def init_convbr(generator: torch.Generator, spec: ConvBRSpec, device="cuda"):
+    """Fresh (params, stats) of a block (rag_tpu/ops/convbr.py::init_convbr's
+    distributions; the port's own random stream): BN scale 1, bias 0,
+    running mean 0, running var 1."""
+    k = (spec.kernel,) * spec.ndim
+    fan_out = spec.cout * math.prod(k)
+    params = {"w": _kaiming_fan_out(generator, k + (spec.cin, spec.cout),
+                                    fan_out, device)}
+    stats = {}
+    if spec.bn:
+        params["scale"] = torch.ones(spec.cout, device=device)
+        params["bias"] = torch.zeros(spec.cout, device=device)
+        stats = {"mean": torch.zeros(spec.cout, device=device),
+                 "var": torch.ones(spec.cout, device=device)}
+    return params, stats
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, spec: ConvBRSpec) -> torch.Tensor:

@@ -51,6 +51,14 @@ def _get(tree, path: str):
     return tree
 
 
+def clone_tree(tree):
+    """A copy of a nested dict of tensors: a snapshot that in-place
+    updates of the original do not reach."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
 MOMENTUM = 0.9
 
 
@@ -95,14 +103,39 @@ def make_optimizer(weight_decay: float, clip: float = 5.0) -> SGDMomentum:
 
 
 @torch.no_grad()
-def _sgd_apply(optimizer: SGDMomentum, params, grads, opt_state,
-               lr: float) -> None:
+def sgd_apply(optimizer: SGDMomentum, params, grads, opt_state,
+              lr: float) -> None:
     """The masked SGD tail, in place. ``grads`` holds the trainable leaves
     only: the freeze mask's zeros are never formed, so neither the clip
     norm, nor weight decay, nor the momentum trace sees a frozen leaf, and
     a frozen leaf gets no update."""
     for path, u in optimizer.update(grads, opt_state, params).items():
         _get(params, path).sub_(lr * u)
+
+
+def differentiable(params, sites):
+    """({'site/...': handle}, params tree with the handles in place) for
+    the leaves of ``sites``: each enters the forward as a detached copy
+    that requires grad, so the params themselves never do."""
+    handles = {f"{site}/{path}": t.detach().requires_grad_(True)
+               for site in sorted(params) if site in sites
+               for path, t in _leaves(params[site])}
+
+    def swap(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: swap(v, f"{prefix}{k}/") for k, v in tree.items()}
+        return handles.get(prefix[:-1], tree)
+
+    return handles, swap(params, "")
+
+
+def grads_of(loss, handles) -> Dict[str, torch.Tensor]:
+    """d loss / d handle for every handle; zeros where the loss does not
+    depend on it (an unsampled edge), as jax.grad gives them."""
+    grads = torch.autograd.grad(loss, list(handles.values()),
+                                allow_unused=True)
+    return {path: torch.zeros_like(handles[path]) if g is None else g
+            for path, g in zip(handles, grads)}
 
 
 def supervised_loss(disp, disp_gt, maxdisp: int = MAXDISP):
@@ -138,29 +171,15 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
         trainable_sites = bn_sites
 
     def step(params, stats, opt_state, lr: float, left, right, disp_gt):
-        # trainable leaves enter the forward as detached copies that
-        # require grad; the params themselves never do
-        handles = {f"{site}/{path}": t.detach().requires_grad_(True)
-                   for site in sorted(params) if site in trainable_sites
-                   for path, t in _leaves(params[site])}
-
-        def swap(tree, prefix):
-            if isinstance(tree, dict):
-                return {k: swap(v, f"{prefix}{k}/") for k, v in tree.items()}
-            return handles.get(prefix[:-1], tree)
-
-        p_diff = swap(params, "")
+        handles, p_diff = differentiable(params, trainable_sites)
         with torch.enable_grad():
             disp, new_stats = stereo_forward(specs, p_diff, stats, left, right,
                                              train_sites=bn_sites,
                                              maxdisp=maxdisp,
                                              variants=variants)
             loss, mask = supervised_loss(disp, disp_gt, maxdisp)
-            grads = torch.autograd.grad(loss, list(handles.values()),
-                                        allow_unused=True)
-        grads = {path: torch.zeros_like(handles[path]) if g is None else g
-                 for path, g in zip(handles, grads)}
-        _sgd_apply(optimizer, params, grads, opt_state, lr)
+            grads = grads_of(loss, handles)
+        sgd_apply(optimizer, params, grads, opt_state, lr)
         with torch.no_grad():
             scalars = {"loss": loss.detach(),
                        **stereo_metrics(disp.detach(), disp_gt, mask)}
