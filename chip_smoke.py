@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--small-only]
 
-Two paths run through every phase but learn: the default path (kernels
+Two paths run through every phase but learn and cli: the default path (kernels
 A-G) and the variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
 on, where kernel H (kernel A's engine with four output planes a block)
 takes kernel A's place, kernel I the matrix resizes, and the shear stem
@@ -104,11 +104,36 @@ exception:
                    not bit-equal); the final checkpoint reloaded on the card
                    reproducing matrix[1, u] through RoutedInference
                    (ROUNDTRIP_RTOL), routed accuracy printed;
- 10. report        one JSON line of the route phase ("route": its figures
+ 10. cli           python -m rag_tpu_torch.cli's path on files, default path:
+                   a fake DrivingStereo tree (cloudy and foggy, 24 + 8
+                   frames of 400x881 PNG each, a seeded smooth texture seen
+                   through a disparity plane of at most 64 px; rainy and
+                   sunny link to them) and its lists from
+                   python -m rag_tpu_torch.data.manifests; the host
+                   pipeline alone (batch 4 of 192x384 crops to the card,
+                   native loader vs Python readers, pairs/s); a full
+                   2-task cli.main run (run_rag_tpu.sh's hyperparameters,
+                   epochs cut to 2, router 1, stage files every epoch,
+                   maxdisp 192, 480x960 eval pad) with the learn phase's
+                   stage gates, both train sets streamed natively,
+                   result.json finite and zero forgetting; the same run
+                   killed in task 1's fine-tune after epoch 0's stage
+                   file, then --resume: no search again, the fine-tune
+                   re-entering at epoch 1, row 0 read from the checkpoint
+                   bit for bit, zero forgetting; --eval-only of the
+                   committed checkpoint, routed, on 4 KITTI-size
+                   (375x1242) and 2 wide (1024x2048, resized to 512x1024)
+                   frames padded to 576x1248, at maxdisp 192 and 190 (C's
+                   general instance): A, B and C only, one frame of each
+                   list through the kernels within SERVE_ATOL of the plain
+                   path, and every kernel call of those frames against its
+                   plain version;
+ 11. report        one JSON line of the route phase ("route": its figures
                    and the card's name and power limit), one of the learn
-                   phase ("learn"), one of kernels (launches: the serve,
-                   route, train and learn runs), the card's name and power
-                   limit, and as the last line {"ok": true, "device": {...}}.
+                   phase ("learn"), one of the cli phase ("cli"), one of
+                   kernels (launches: the serve, route, train, learn and
+                   cli runs), the card's name and power limit, and as the
+                   last line {"ok": true, "device": {...}}.
 
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
 build-and-check) and prints no report.
@@ -136,6 +161,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -164,7 +190,17 @@ from rag_tpu_torch.data.synthetic import (  # noqa: E402
     DeviceCache,
     SyntheticStereoDataset,
 )
-from rag_tpu_torch.data.stereo_dataset import split_half  # noqa: E402
+from rag_tpu_torch import cli  # noqa: E402
+from rag_tpu_torch.data.manifests import (  # noqa: E402
+    DISP_DIR,
+    LEFT_DIR,
+    RIGHT_DIR,
+    SCENES,
+)
+from rag_tpu_torch.data.stereo_dataset import (  # noqa: E402
+    StereoDataset,
+    split_half,
+)
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
 from rag_tpu_torch.models.stereo import SITE_NAMES  # noqa: E402
 from rag_tpu_torch.models.supernet import NUM_EDGES  # noqa: E402
@@ -243,6 +279,27 @@ KA, KB, KC, KD, KE, KF, KG = (
 FEATURE_SITES = frozenset(s for s in SITE_NAMES if "2d" in s)
 ZERO_FORGET_RTOL = 1e-6   # matrix[1, 0] vs matrix[0, 0] where not bit-equal
 ROUNDTRIP_RTOL = 1e-6     # the reloaded checkpoint's evaluation vs the matrix
+
+# the cli phase: python -m rag_tpu_torch.cli on files it writes, a fake
+# DrivingStereo "different weathers" tree at the half-size geometry, with
+# run_rag_tpu.sh's hyperparameters and the epochs cut as in the learn phase
+CLI_SCENES = ("cloudy", "foggy")   # learned; rainy and sunny link to them
+CLI_FRAMES = (24, 8)               # train, test frames a scene
+CLI_HW = (400, 881)                # DrivingStereo half-size frames
+CLI_MAX_DISP = 64.0                # the frames' disparity planes, at most
+CLI_HYPER = ["--c_epochs", "2", "--c_batch", "8", "--c_lr", "0.002",
+             "--c_lr_a", "0.01", "--o_epochs", "2", "--o_batch", "6",
+             "--o_lr", "0.001", "--o_lr_a", "0.01", "--o_size", "10",
+             "--epochs", "2", "--batch", "4", "--lr", "0.001",
+             "--lamb", "0.003", "--router-epochs", "1"]
+CLI_CUTS = ("scenes 4 -> 2 (cloudy, foggy)", "frames a scene 400 + 100 -> 24 + 8",
+            "cell-search epochs 100 -> 2", "op-search epochs 100 -> 2",
+            "fine-tune epochs 400 -> 2", "router epochs 3 -> 1")
+CLI_KILL_AT = "[train t1] epoch 1 "   # task 1's fine-tune, after epoch 0's file
+# --eval-only lists: (frames, height, width, largest disparity)
+CLI_EVAL = {"kitti": (4, 375, 1242, 64.0), "wide": (2, 1024, 2048, 128.0)}
+CLI_EVAL_PAD = (576, 1248)
+PIPE_EPOCHS = 3                    # host-pipeline rate: epochs of 24 pairs
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -1956,9 +2013,9 @@ class StagedDriver(ContinualDriver):
             self._trainable.append(trainable)
             return steps_for(arch, trainable)
 
-        def staged_search(t, data, writer=None):
+        def staged_search(t, data, writer=None, **kw):
             with self._stage("op", t):
-                run(t, data, writer=writer)
+                run(t, data, writer=writer, **kw)
             self.op_p[t] = [p.copy() for p in self.net.p]
 
         search._steps_for, search.search = staged_steps_for, staged_search
@@ -2141,6 +2198,367 @@ def phase_learn(dev, plain_step, smi):
     return launches, report
 
 
+# -- the cli phase -----------------------------------------------------------
+
+def synth_frame(rng, h, w, max_disp):
+    """A smooth random texture seen by two cameras through a disparity
+    plane d(y) = d0 + (d1 - d0) y / (h - 1), d0, d1 in [4, max_disp]:
+    right(x) = left(x + d). Returns left and right as uint8 RGB and the
+    disparity (0 where the left pixel has no match)."""
+    d0, d1 = rng.uniform(4.0, max_disp, 2)
+    d = d0 + (d1 - d0) * np.arange(h) / max(h - 1, 1)
+    wide = w + int(np.ceil(max_disp)) + 2
+    coarse = rng.standard_normal((h // 4 + 1, wide // 4 + 1, 3))
+    tex = np.repeat(np.repeat(coarse, 4, 0), 4, 1)[:h, :wide]
+    tex = tex + 0.3 * rng.standard_normal(tex.shape)
+    x = np.arange(w)[None, :] + d[:, None]
+    i = np.floor(x).astype(np.int64)
+    f = (x - i)[..., None]
+    rows = np.arange(h)[:, None]
+    right = (1 - f) * tex[rows, i] + f * tex[rows, i + 1]
+    to8 = lambda a: np.clip(128 + 40 * a, 0, 255).astype(np.uint8)
+    disp = np.where(np.arange(w)[None, :] >= d[:, None], d[:, None], 0.0)
+    return to8(tex[:, :w]), to8(right), disp
+
+
+def write_frame(paths, rng, h, w, max_disp):
+    """Left, right (RGB PNG) and disparity (16-bit PNG x 256) to paths."""
+    from PIL import Image
+
+    left, right, disp = synth_frame(rng, h, w, max_disp)
+    for p, a in zip(paths, (left, right,
+                            np.round(disp * 256).astype(np.uint16))):
+        Image.fromarray(a).save(p, compress_level=1)
+
+
+def write_drivingstereo(root: Path, rng):
+    """CLI_SCENES with CLI_FRAMES frames each in the DrivingStereo layout
+    (root/{scene}/{left,right,disparity}-...-half-size/<stem>.png); the
+    other two scenes of SCENES link to them, so that the manifest builder
+    finds all four."""
+    n = sum(CLI_FRAMES)
+    for scene in CLI_SCENES:
+        dirs = [root / scene / d for d in (LEFT_DIR, RIGHT_DIR, DISP_DIR)]
+        for d in dirs:
+            d.mkdir(parents=True)
+        for i in range(n):
+            write_frame([d / f"{i:06d}.png" for d in dirs], rng, *CLI_HW,
+                        CLI_MAX_DISP)
+    for scene, twin in zip(SCENES[len(CLI_SCENES):], CLI_SCENES):
+        os.symlink(root / twin, root / scene, target_is_directory=True)
+
+
+def write_eval_list(root: Path, name, rng):
+    """A 3-column list of CLI_EVAL[name]'s frames."""
+    n, h, w, md = CLI_EVAL[name]
+    root.mkdir(parents=True)
+    lines = []
+    for i in range(n):
+        paths = [root / f"{k}{i}.png" for k in ("left", "right", "disp")]
+        write_frame(paths, rng, h, w, md)
+        lines.append(" ".join(map(str, paths)))
+    lst = root.parent / f"{name}.txt"
+    lst.write_text("\n".join(lines) + "\n")
+    return str(lst)
+
+
+class CliDriver(StagedDriver):
+    """The StagedDriver that cli.main builds (driver_cls): it counts the
+    pairs of the datasets main gives it and keeps them; the last one built
+    is CliDriver.last."""
+
+    last = None
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, counts={"trained": 0, "evaluated": 0}, **kw)
+        self.datasets = None
+        CliDriver.last = self
+
+    def run(self, train, valid, test, resume=False):
+        self.datasets = (train, valid, test)
+        wrap = lambda group: [Counted(d, self.counts) for d in group]
+        return super().run(wrap(train), wrap(valid), wrap(test), resume=resume)
+
+
+class Killed(Exception):
+    pass
+
+
+def cli_argv(lists, out, ckpt, run_id):
+    return ["--filenames-dir", lists, "--num-tasks", str(len(CLI_SCENES)),
+            *CLI_HYPER, "--train-router", "--checkpoint-dir", ckpt,
+            "--stage-checkpoint-every", "1", "--maxdisp", str(MAXDISP),
+            "--eval-pad", str(H), str(W), "--train-crop", str(TRAIN_H),
+            str(TRAIN_W), "--output", out, "--id", run_id]
+
+
+def pipeline_rate(lst, native, dev):
+    """Training pairs/s of one scene's host pipeline alone (decode, crop,
+    normalize, batch of TRAIN_B, copy to the card), after one epoch of
+    warm-up."""
+    ds = StereoDataset(lst, True, crop=(TRAIN_W, TRAIN_H), native=native,
+                       device=dev)
+    n, t0 = 0, None
+    for epoch in range(PIPE_EPOCHS + 1):
+        if epoch == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        for b in ds.batches(TRAIN_B, True, seed=epoch):
+            n += int(b["left"].shape[0]) if epoch else 0
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0), ds.used_native
+
+
+def result_failures(path, what):
+    with open(path) as f:
+        result = json.load(f)
+    bad = []
+    for k, v in result.items():
+        vals = np.asarray(v, np.float64) if k != "router" else np.asarray(
+            v["routed_D1"] + v["oracle_D1"])
+        if k in ("D1", "EPE", "loss", "Thres1", "Thres2", "Thres3"):
+            vals = vals[np.tril_indices(len(vals))]
+        if not np.isfinite(vals).all():
+            bad.append(f"{what}: result.json {k} not finite: {v}")
+    return result, bad
+
+
+def forgetting_failures(matrix, what):
+    out = {}
+    bad = []
+    for k in matrix.metric_names:
+        a, b = matrix.m[k][1, 0], matrix.m[k][0, 0]
+        out[k] = {"after_0": b, "after_1": a, "bit_equal": bool(a == b)}
+        if not abs(a - b) <= ZERO_FORGET_RTOL * abs(b):
+            bad.append(f"{what}: forgetting {k} {b!r} -> {a!r}")
+    return out, bad
+
+
+def eval_only_check(dev, lists, maxdisp, failures):
+    """cli --eval-only of the committed checkpoint, routed, over the kitti
+    and wide lists at maxdisp; every launch count set to 0 first. Then one
+    frame of each list through the kernels and through the plain versions
+    (the router picks the path), and every kernel call of those frames
+    against its plain version. Returns (launches, figures)."""
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(["--eval-only", "--checkpoint-dir", str(CKPT),
+                    "--use-router", "--eval-lists", *lists.values(),
+                    "--maxdisp", str(maxdisp)], device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    what = f"cli eval-only maxdisp {maxdisp}"
+    failures += [f"{what}: {k} never launched" for k in (KA, KB, KC)
+                 if launches[k] <= 0]
+    failures += [f"{what}: {k} launched {c} times"
+                 for k, c in launches.items() if c and k not in (KA, KB, KC)]
+    by_list = {}
+    for name, lst in lists.items():
+        r = res[lst]
+        by_list[name] = {"D1": r["D1"], "EPE": r["EPE"], "loss": r["loss"]}
+        if not all(np.isfinite(v) for v in by_list[name].values()):
+            failures.append(f"{what}: {name} metrics not finite {r}")
+    net, _ = load_checkpoint(str(CKPT), device=dev)
+    ri = RoutedInference(net, router=load_router(str(CKPT), device=dev),
+                         maxdisp=maxdisp, device=dev)
+    frames, args_of = {}, {}
+    for name, lst in lists.items():
+        ds = StereoDataset(lst, False, pad=(CLI_EVAL_PAD[1], CLI_EVAL_PAD[0]),
+                           resize_wide=True, device=dev)
+        b = next(ds.batches(1, False, drop_last=False))
+        got = ri.predict(b["left"], b["right"])
+        calls = []
+        with recording(calls, args_of):
+            ref = ri.predict(b["left"], b["right"])
+        diff = float(np.abs(got - ref).max())
+        frames[name] = {"shape": list(got.shape), "vs_plain_max_px": diff,
+                        "task": int(ri.route(b["left"])[0]),
+                        "kernel_calls": {k: c for k, c in
+                                         count_calls(calls).items() if c}}
+        if got.shape != (1, *CLI_EVAL_PAD) or not np.isfinite(got).all() \
+                or not diff <= SERVE_ATOL:
+            failures.append(f"{what}: {name} frame {got.shape}, kernels vs "
+                            f"plain {diff:.3g} px (tolerance {SERVE_ATOL})")
+    kernels = []
+    for (name, sig), (args, kw) in args_of.items():
+        r = check_kernel(name, args, kw, 3, False)
+        line = {"kernel": name, "at": f"cli maxdisp {maxdisp}",
+                "sig": str(sig), "max_abs_err": r["err"], "tol": r["tol"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["lib_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], **r["plan"]}
+        if KERNELS[name].get("bitwise"):
+            line["repeat_bit_identical"] = r["same"]
+        log(f"[kernels] {json.dumps(line)}")
+        kernels.append(line)
+        KERNELS[name]["max_err"] = max(KERNELS[name].get("max_err", 0.0),
+                                       r["err"])
+        if not r["ok"]:
+            failures.append(f"{what}: {name} {sig} max_abs_err {r['err']:.3g}"
+                            f" (tolerance {r['tol']:.3g}), bit-identical "
+                            f"twice: {r['same']}")
+    out = {"s": sec, "lists": by_list, "frames": frames, "kernels": kernels,
+           "launches": {k: c for k, c in launches.items() if c}}
+    log(f"[cli] eval-only maxdisp {maxdisp}: {json.dumps(out)}")
+    return launches, out
+
+
+def phase_cli(dev, smi):
+    """python -m rag_tpu_torch.cli's path on files: a DrivingStereo tree
+    and its lists, a full 2-task run, the same run killed in task 1's
+    fine-tune and resumed, and --eval-only of the committed checkpoint on
+    KITTI-size and wide frames at maxdisp 192 and 190."""
+    t_phase = time.perf_counter()
+    failures, report = [], {"device": smi, "cuts": CLI_CUTS,
+                            "hyperparameters": " ".join(CLI_HYPER)}
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k, c in counts.items():
+            launches[k] += c
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(11)
+        t0 = time.perf_counter()
+        write_drivingstereo(tmp / "ds", rng)
+        lists = tmp / "lists"
+        subprocess.run([sys.executable, "-m", "rag_tpu_torch.data.manifests",
+                        str(tmp / "ds"), str(lists), "--train",
+                        str(CLI_FRAMES[0]), "--test", str(CLI_FRAMES[1]),
+                        "--seed", "0"], check=True, cwd=ROOT, timeout=120)
+        report["data_s"] = time.perf_counter() - t0
+        log(f"[cli] DrivingStereo tree of {len(CLI_SCENES)} scenes x "
+            f"{sum(CLI_FRAMES)} frames of {CLI_HW[0]}x{CLI_HW[1]} and its "
+            f"lists in {report['data_s']:.1f} s; cut from the canonical run: "
+            f"{'; '.join(CLI_CUTS)}")
+
+        # the host pipeline alone, native loader against the Python readers
+        train0 = str(lists / f"drivingstereo_{CLI_SCENES[0]}_train.txt")
+        pipe = {}
+        for native in (True, False):
+            rate, used = pipeline_rate(train0, native, dev)
+            pipe["native" if native else "python"] = rate
+            if used != native:
+                failures.append(f"cli pipeline: native={native} streamed "
+                                f"natively: {used}")
+        report["pipeline_pairs_per_s"] = pipe
+        log(f"[cli] host pipeline, batch {TRAIN_B} of {TRAIN_H}x{TRAIN_W} "
+            f"crops to the card: {json.dumps(pipe)} pairs/s")
+
+        # the full run
+        t0 = time.perf_counter()
+        matrix = cli.main(cli_argv(str(lists), str(tmp / "out"),
+                                   str(tmp / "ckpt"), "full"),
+                          device=dev, driver_cls=CliDriver, log=log)
+        drv = CliDriver.last
+        full = {"s": time.perf_counter() - t0, "stages": drv.stages}
+        for rec in drv.stages:
+            failures += stage_failures(rec)
+            add(rec["launches"])
+        full["used_native"] = [ds.used_native for ds in drv.datasets[0]]
+        if not all(full["used_native"]):
+            failures.append(f"cli full run: train sets streamed natively "
+                            f"{full['used_native']}")
+        full["result"], bad = result_failures(
+            tmp / "out" / "drivingstereo_rag_0_full" / "result.json", "full")
+        failures += bad
+        full["zero_forgetting"], bad = forgetting_failures(matrix, "cli full")
+        failures += bad
+        report["full"] = full
+        log(f"[cli] full run {full['s']:.1f} s; forgetting "
+            f"{json.dumps(full['zero_forgetting'])}")
+
+        # killed in task 1's fine-tune, then --resume
+        argv = cli_argv(str(lists), str(tmp / "out"), str(tmp / "ckpt2"),
+                        "resumed")
+
+        def killer(msg):
+            log(msg)
+            if str(msg).startswith(CLI_KILL_AT):
+                raise Killed(msg)
+
+        t0 = time.perf_counter()
+        try:
+            cli.main(argv, device=dev, driver_cls=CliDriver, log=killer)
+            failures.append("cli kill: the run was never killed")
+        except Killed:
+            pass
+        killed = {"s": time.perf_counter() - t0}
+        for rec in CliDriver.last.stages:
+            add(rec["launches"])
+        ck = tmp / "ckpt2"
+        with np.load(ck / "finetune_t1.npz") as f:
+            killed["stage_file_epoch"] = int(f["epoch"])
+        with open(ck / "manifest_task1.json") as f:
+            extra = json.load(f)["extra"]
+        killed["stage"] = extra["stage"]
+        row0 = {k: v[0][0] for k, v in extra["matrix"].items()}
+        if (killed["stage_file_epoch"], killed["stage"]) != (0, "selected"):
+            failures.append(f"cli kill: stage file / checkpoint {killed}")
+        lines = []
+
+        def keep(msg):
+            log(msg)
+            lines.append(str(msg))
+
+        t0 = time.perf_counter()
+        matrix = cli.main(argv + ["--resume"], device=dev,
+                          driver_cls=CliDriver, log=keep)
+        drv = CliDriver.last
+        resumed = {"s": time.perf_counter() - t0, "stages": drv.stages}
+        for rec in drv.stages:
+            failures += stage_failures(rec)
+            add(rec["launches"])
+        names = [(r["stage"], r["task"]) for r in drv.stages]
+        if drv.cell_searches or any(n in ("cell", "op") for n, _ in names):
+            failures.append(f"cli resume: a search ran again: {names}")
+        if any(t == 0 for n, t in names if n.startswith("eval")):
+            failures.append(f"cli resume: row 0 evaluated again: {names}")
+        reentry = [ln for ln in lines if "[train t1] resumed at epoch" in ln]
+        trained = [r["trained_pairs"] for r in drv.stages
+                   if r["stage"] == "train"]
+        resumed["reentry"] = reentry
+        if reentry != ["[train t1] resumed at epoch 1"] or \
+                trained != [CLI_FRAMES[0]]:
+            failures.append(f"cli resume: fine-tune re-entry {reentry}, "
+                            f"pairs trained {trained}")
+        resumed["row0_bit_equal"] = {
+            k: bool(matrix.m[k][0, 0] == row0[k]) for k in matrix.metric_names}
+        if not all(resumed["row0_bit_equal"].values()):
+            failures.append(f"cli resume: row 0 {resumed['row0_bit_equal']}")
+        resumed["zero_forgetting"], bad = forgetting_failures(matrix,
+                                                              "cli resumed")
+        failures += bad
+        _, bad = result_failures(
+            tmp / "out" / "drivingstereo_rag_0_resumed" / "result.json",
+            "resumed")
+        failures += bad
+        report["kill"], report["resumed"] = killed, resumed
+        log(f"[cli] killed at '{CLI_KILL_AT.strip()}' after {killed['s']:.1f}"
+            f" s ({killed}); resumed run {resumed['s']:.1f} s, stages "
+            f"{names}, row 0 restored bit for bit "
+            f"{resumed['row0_bit_equal']}, forgetting "
+            f"{json.dumps(resumed['zero_forgetting'])}")
+
+        # --eval-only of the committed checkpoint, maxdisp 192 and 190
+        eval_lists = {name: write_eval_list(tmp / name, name, rng)
+                      for name in CLI_EVAL}
+        report["eval_only"] = {}
+        for maxdisp in (MAXDISP, 190):
+            n, report["eval_only"][maxdisp] = eval_only_check(
+                dev, eval_lists, maxdisp, failures)
+            add(n)
+    report["launches"] = {k: c for k, c in launches.items() if c}
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[cli] phase wall time {report['wall_s']:.1f} s")
+    if failures:
+        raise SystemExit("chip_smoke: cli failed:\n  " + "\n  ".join(failures))
+    return launches, report
+
+
 def per_key(results, calls, name, field):
     """Sum of a per-call number over one request (or step), averaged over
     the task paths (or configurations) that call the kernel."""
@@ -2280,6 +2698,9 @@ def main() -> int:
     launches = {k: launches[k] + n[k] for k in KERNELS}
     del plain_learn
     torch.cuda.empty_cache()
+    n, cli_report = phase_cli(dev, smi)
+    launches = {k: launches[k] + n[k] for k in KERNELS}
+    torch.cuda.empty_cache()
     if opts.profile is not None:
         phase_profile(ris, requests, dev, opts.profile)
 
@@ -2305,8 +2726,8 @@ def main() -> int:
     log("[report] serving kernels: times per request summed over its calls "
         "and averaged over the task paths of their path; every kernel's "
         "\"train_step\" or own numbers: per step of task 0's stage; "
-        "launches: every serve, route and train run of both paths and the "
-        "learn run")
+        "launches: every serve, route and train run of both paths, the "
+        "learn run and the cli runs")
     log("[report] ms/request (default turns 1, 4 / variants turns 2, 3): "
         + side_by_side(per_task, "ms_per_request"))
     log("[report] peak GB per request (default / variants): "
@@ -2324,6 +2745,7 @@ def main() -> int:
     print(json.dumps({"route": {"device": smi, **route,
                                 "turns": {p: per_route[p] for p in PATHS}}}))
     print(json.dumps({"learn": learn}))
+    print(json.dumps({"cli": cli_report}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ matrix, checkpoints); a grown network's task paths are served through
 ``train.trainer.make_train_step`` on the card, with the seven TPU kernels
 of that path (three forward, four backward) rewritten by hand in CUDA C++
 (``csrc/``). The Scene Router (``models.router``) picks each frame's task
-path, and ``data.synthetic`` makes the styled synthetic scenes it learns
-from. The package imports torch and numpy only, never jax or rag_tpu.
+path. ``python -m rag_tpu_torch.cli`` runs an experiment from filename
+lists (``data.stereo_dataset``, ``data.manifests``; the native loader of
+``runtime.native``) or styled synthetic scenes (``data.synthetic``), with
+stage files and resume. The package imports torch, numpy and PIL, never
+jax or rag_tpu.
 """

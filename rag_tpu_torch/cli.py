@@ -1,0 +1,349 @@
+"""The experiment CLI (stereo): ``python -m rag_tpu_torch.cli``.
+
+Counterpart of rag_tpu/cli.py, with every flag and default of its parser.
+One run: filename lists (``--train-lists`` / ``--test-lists``, or a
+``--filenames-dir`` of per-scene DrivingStereo lists as
+``python -m rag_tpu_torch.data.manifests`` writes them) or styled
+synthetic scenes -> datasets -> ``ContinualDriver.run`` with stage
+checkpoints and ``--resume`` -> ``{output}/{experiment}_rag_{seed}_{id}/
+result.json``, as rag_tpu writes it. ``--eval-only`` evaluates a
+checkpoint over ``--eval-lists`` (or a synthetic scene) instead.
+
+The run is on the card: ``main`` raises where CUDA is not available and
+never carries on on the CPU; ``main(argv, device="cpu")`` runs it on the
+CPU (the tests do). The kernels are the default path's
+(``KernelVariants()``): rag_tpu picks its variants through environment
+switches, which the port does not read. The flags of parts not ported
+yet raise NotImplementedError before any work: ``--variant selfsup`` and
+``depth``, ``--mesh`` over more than one device, ``--scene-parallel-search``,
+``--bf16``, and ``--eval-only`` of a depth checkpoint.
+
+The styled synthetic scenes take WEATHER_STYLES[t % 4], as in rag_tpu, so
+scenes t and t + 4 share a style.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+UNPORTED = "not ported yet (ROADMAP.md Queue 1 item {})"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Continual stereo on the H100 (the RAG capability "
+                    "surface of rag_tpu, ported to PyTorch and CUDA)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--experiment", default="drivingstereo")
+    p.add_argument("--id", default="0")
+    p.add_argument("--output", default="logs")
+    p.add_argument("--variant", choices=["stereo", "selfsup", "depth"],
+                   default="stereo",
+                   help="only stereo is ported; the others raise")
+
+    # data
+    p.add_argument("--data-root", default="", help="prefix for filename lists")
+    p.add_argument("--train-lists", nargs="*", default=[],
+                   help="per-scene train filename lists (left right disp)")
+    p.add_argument("--test-lists", nargs="*", default=[])
+    p.add_argument("--filenames-dir", default="",
+                   help="directory of drivingstereo_{scene}_{split}.txt "
+                        "lists (reference layout, or generated by "
+                        "python -m rag_tpu_torch.data.manifests); sets "
+                        "--train/--test-lists in canonical task order")
+    p.add_argument("--synthetic", action="store_true",
+                   help="run on synthetic stereograms (no real data needed)")
+    p.add_argument("--synthetic-size", type=int, default=64)
+    p.add_argument("--synthetic-hw", type=int, nargs=2, default=[96, 192])
+    p.add_argument("--synthetic-eval-hw", type=int, nargs=2, default=None,
+                   help="test-set geometry (e.g. 480 960 for the canonical "
+                        "eval protocol); defaults to --synthetic-hw")
+    p.add_argument("--synthetic-eval-size", type=int, default=None,
+                   help="test pairs per scene (default: --synthetic-size)")
+
+    # cell search stage (c_*)
+    p.add_argument("--c_epochs", type=int, default=100)
+    p.add_argument("--c_batch", type=int, default=8)
+    p.add_argument("--c_lr", type=float, default=0.002)
+    p.add_argument("--c_lr_a", type=float, default=0.01)
+    p.add_argument("--c_lamb", type=float, default=3e-4)
+    p.add_argument("--skip-cell-search", action="store_true")
+
+    # op search stage (o_*)
+    p.add_argument("--o_epochs", type=int, default=100)
+    p.add_argument("--o_batch", type=int, default=6)
+    p.add_argument("--o_lr", type=float, default=0.001)
+    p.add_argument("--o_lr_a", type=float, default=0.01)
+    p.add_argument("--o_lamb", type=float, default=3e-4)
+    p.add_argument("--o_size", type=int, default=10)
+
+    # fine-tune stage
+    p.add_argument("--epochs", type=int, default=400)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--lamb", type=float, default=0.003)
+
+    # self-supervised variant (not ported yet; parsed as rag_tpu parses them)
+    p.add_argument("--pretrain-epochs", type=int, default=9)
+    p.add_argument("--pretrain-batch", type=int, default=8)
+    p.add_argument("--pretrain-lr", type=float, default=0.001)
+    p.add_argument("--pretrain-list", default="")
+    p.add_argument("--proxy-list", default="")
+
+    p.add_argument("--num-tasks", type=int, default=4)
+    p.add_argument("--maxdisp", type=int, default=192,
+                   help="max disparity; cost volume depth = maxdisp // 3")
+
+    # router
+    p.add_argument("--train-router", action="store_true",
+                   help="train the Scene Router after each task")
+    p.add_argument("--router-epochs", type=int, default=3)
+
+    # device mesh and parallel search (not ported yet)
+    p.add_argument("--mesh", type=int, nargs="+", default=None,
+                   metavar=("DP", "SP"),
+                   help="data-parallel (and spatial) mesh; only 1 device "
+                        "is ported")
+    p.add_argument("--scene-parallel-search", action="store_true",
+                   help="not ported yet")
+
+    # checkpointing
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--stage-checkpoint-every", type=int, default=10,
+                   help="mid-stage checkpoint cadence in epochs for the "
+                        "three long stages (cell search, op search, "
+                        "fine-tune); 0 disables")
+
+    # cross-domain / checkpoint-only evaluation
+    p.add_argument("--eval-only", action="store_true",
+                   help="load --checkpoint-dir and evaluate --eval-lists "
+                        "instead of training")
+    p.add_argument("--eval-lists", nargs="*", default=[],
+                   help="filename lists to evaluate in --eval-only mode")
+    p.add_argument("--eval-pad", type=int, nargs=2, default=None,
+                   metavar=("H", "W"),
+                   help="eval pad geometry. Default: 480x960 for "
+                        "training-run test sets; 576x1248 (fits KITTI and "
+                        "wide-resized Cityscapes frames) in --eval-only mode")
+    p.add_argument("--train-crop", type=int, nargs=2, default=[192, 384],
+                   metavar=("H", "W"),
+                   help="training random-crop geometry (reference: 192x384)")
+    p.add_argument("--eval-task", type=int, default=None,
+                   help="fixed task path for --eval-only (default: task 0; "
+                        "with --use-router: per-frame routed)")
+    p.add_argument("--use-router", action="store_true")
+    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    return p
+
+
+def check_ported(args) -> None:
+    """NotImplementedError for a flag whose part is not ported yet."""
+    if args.variant != "stereo":
+        raise NotImplementedError(f"--variant {args.variant}: "
+                                  + UNPORTED.format(6))
+    if args.mesh and int(np.prod(args.mesh)) > 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: " + UNPORTED.format(7))
+    if args.scene_parallel_search:
+        raise NotImplementedError("--scene-parallel-search: "
+                                  + UNPORTED.format(7))
+    if args.bf16:
+        raise NotImplementedError("--bf16: " + UNPORTED.format(11))
+
+
+def eval_only(args, device="cuda"):
+    """Evaluate the checkpoint in --checkpoint-dir over each eval list
+    (padded to --eval-pad, default 576x1248, wide frames resized) or a
+    synthetic scene: routed per frame with --use-router and a saved
+    router, else on --eval-task's path (default 0). Returns {name:
+    scalars}."""
+    from rag_tpu_torch.continual.inference import RoutedInference
+    from rag_tpu_torch.continual.state import (
+        latest_task,
+        load_checkpoint,
+        load_router,
+    )
+
+    if not args.checkpoint_dir:
+        raise ValueError("--eval-only requires --checkpoint-dir")
+    last = latest_task(args.checkpoint_dir)
+    if last is None:
+        raise FileNotFoundError(f"no checkpoints in {args.checkpoint_dir}")
+    with open(os.path.join(args.checkpoint_dir,
+                           f"manifest_task{last}.json")) as f:
+        variant = json.load(f).get("variant", "stereo")
+    if variant != "stereo":
+        raise NotImplementedError(f"--eval-only of a {variant} checkpoint: "
+                                  + UNPORTED.format(6))
+    net, manifest = load_checkpoint(args.checkpoint_dir, last, device=device)
+    print(f"loaded checkpoint after task {manifest['task']}; "
+          f"{len(net.archis)} task paths, {net.size_m():.3f} M params")
+
+    router = None
+    if args.use_router:
+        router = load_router(args.checkpoint_dir, device=device)
+        if router is None:
+            print("WARNING: no router.npz in the checkpoint dir; routed "
+                  "eval needs a driver run with --train-router first. "
+                  "Falling back to task-0 paths.")
+        else:
+            print(f"loaded Scene Router ({router.num_tasks} tasks)")
+    engine = RoutedInference(net, router, maxdisp=args.maxdisp, device=device)
+
+    if args.eval_lists:
+        from rag_tpu_torch.data.stereo_dataset import StereoDataset
+
+        ph, pw = args.eval_pad or (576, 1248)
+        datasets = [(f, StereoDataset(f, False, root=args.data_root,
+                                      pad=(pw, ph), resize_wide=True,
+                                      device=device))
+                    for f in args.eval_lists]
+    else:
+        from rag_tpu_torch.data.synthetic import SyntheticStereoDataset
+
+        h, w = args.synthetic_hw
+        datasets = [("synthetic", SyntheticStereoDataset(
+            args.synthetic_size, h, w, seed=123, device=device))]
+
+    task = None if (args.use_router and router is not None) \
+        else (args.eval_task or 0)
+    results = {}
+    for name, ds in datasets:
+        scalars = engine.evaluate(ds, task=task)
+        print(f"{name}: D1 {100*scalars.get('D1', 0):.2f}% "
+              f"EPE {scalars.get('EPE', 0):.3f} "
+              f"loss {scalars.get('loss', 0):.3f}")
+        results[name] = scalars
+    return results
+
+
+def make_datasets(args, device="cuda"):
+    """(train, valid, test) datasets per scene: the filename lists (from
+    --filenames-dir when no --train-lists), or styled synthetic scenes
+    with --synthetic or without lists."""
+    if args.filenames_dir and not args.train_lists:
+        from rag_tpu_torch.data.manifests import scene_lists
+
+        tr, te = scene_lists(args.filenames_dir)
+        args.train_lists = tr[:args.num_tasks]
+        args.test_lists = te[:args.num_tasks]
+    if args.synthetic or not args.train_lists:
+        from rag_tpu_torch.data.synthetic import (
+            WEATHER_STYLES,
+            SyntheticStereoDataset,
+        )
+
+        h, w = args.synthetic_hw
+        eh, ew = args.synthetic_eval_hw or (h, w)
+        n = args.synthetic_size
+        en = args.synthetic_eval_size or n
+        # the weather scenes share geometry and differ in appearance; the
+        # disparity bound is DrivingStereo's half-size range
+        md = min(64.0, args.maxdisp / 3)
+        style = lambda t: WEATHER_STYLES[t % len(WEATHER_STYLES)]
+        mk = lambda s, t, hh, ww, nn: SyntheticStereoDataset(
+            nn, hh, ww, seed=s, max_disp=md, style=style(t), device=device)
+        train = [mk(10 + t, t, h, w, n) for t in range(args.num_tasks)]
+        valid = [mk(20 + t, t, h, w, n) for t in range(args.num_tasks)]
+        test = [mk(30 + t, t, eh, ew, en) for t in range(args.num_tasks)]
+        return train, valid, test
+
+    from rag_tpu_torch.data.stereo_dataset import StereoDataset
+
+    ch, cw = args.train_crop
+    ph, pw = args.eval_pad or (480, 960)
+    train = [StereoDataset(f, True, root=args.data_root, crop=(cw, ch),
+                           device=device) for f in args.train_lists]
+    valid = [StereoDataset(f, False, root=args.data_root, pad=(pw, ph),
+                           device=device) for f in args.train_lists]
+    test = [StereoDataset(f, False, root=args.data_root, pad=(pw, ph),
+                          device=device)
+            for f in args.test_lists or args.train_lists]
+    return train, valid, test
+
+
+def make_config(args):
+    """The ExperimentConfig of a run, as rag_tpu's main builds it."""
+    from rag_tpu_torch.continual.driver import ExperimentConfig, TrainConfig
+    from rag_tpu_torch.search.growth import OpSearchConfig
+    from rag_tpu_torch.search.mdenas import CellSearchConfig
+
+    return ExperimentConfig(
+        cell=CellSearchConfig(epochs=args.c_epochs, batch=args.c_batch,
+                              lr=args.c_lr, lr_a=args.c_lr_a,
+                              weight_decay=args.c_lamb, seed=args.seed),
+        op=OpSearchConfig(epochs=args.o_epochs, batch=args.o_batch,
+                          lr=args.o_lr, lr_a=args.o_lr_a,
+                          weight_decay=args.o_lamb, o_size=args.o_size,
+                          seed=args.seed),
+        train=TrainConfig(epochs=args.epochs, batch=args.batch, lr=args.lr,
+                          weight_decay=args.lamb),
+        num_tasks=args.num_tasks,
+        seed=args.seed,
+        skip_cell_search=args.skip_cell_search,
+        maxdisp=args.maxdisp,
+        use_router=args.train_router,
+        router_epochs=args.router_epochs,
+    )
+
+
+def main(argv=None, device="cuda", driver_cls=None, log=print):
+    """Run the CLI on ``device``. Returns the ForgettingMatrix of a
+    training run, or --eval-only's {name: scalars}. ``driver_cls``
+    (default ContinualDriver) and ``log`` let a caller observe the run."""
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("rag_tpu_torch.cli runs on a CUDA device and none "
+                           "is available; main(argv, device='cpu') runs it "
+                           "on the CPU")
+    if args.eval_only:
+        return eval_only(args, device)
+    from rag_tpu_torch.continual.driver import ContinualDriver
+    from rag_tpu_torch.utils.logging import MetricWriter
+
+    exp_name = f"{args.experiment}_rag_{args.seed}_{args.id}"
+    log_dir = os.path.join(args.output, exp_name)
+    writer = MetricWriter(log_dir, echo=False)
+    driver = (driver_cls or ContinualDriver)(
+        make_config(args), writer=writer, log=log,
+        checkpoint_dir=args.checkpoint_dir or None, device=device)
+    train, valid, test = make_datasets(args, device)
+
+    driver.stage_checkpoint_every = args.stage_checkpoint_every
+    tstart = time.time()
+    matrix = driver.run(train, valid, test, resume=args.resume)
+
+    # every tracked forgetting matrix lands in result.json
+    result = {k: matrix.m[k].tolist() for k in matrix.metric_names}
+    print("D1 matrix (%):\n" + matrix.format("D1", scale=100, fmt="{:6.2f}"))
+    print("EPE matrix:\n" + matrix.format("EPE"))
+    print(f"Mean D1 after {args.num_tasks} tasks: "
+          f"{100 * matrix.mean_final('D1'):.2f}%")
+    print(f"Forgetting (D1): {100 * matrix.forgetting('D1'):.2f}%")
+    result["mean_D1"] = matrix.mean_final("D1")
+    print(f"Model size: {driver.net.size_m():.3f} M params")
+    print(f"Elapsed: {(time.time() - tstart) / 3600:.2f} h")
+
+    if driver.router is not None:
+        acc = driver.router.accuracy(test)
+        print(f"Scene Router accuracy: {100 * acc:.1f}%")
+
+    result.update(model_size_m=driver.net.size_m(),
+                  elapsed_h=(time.time() - tstart) / 3600)
+    if driver.router_eval is not None:
+        result["router"] = driver.router_eval
+    with open(os.path.join(log_dir, "result.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    writer.close()
+    return matrix
+
+
+if __name__ == "__main__":
+    main()

@@ -11,17 +11,26 @@ task t:
      ``fine_tune``);
 then every past task u <= t is evaluated into the forgetting matrix, the
 checkpoint is written, and the router (``use_router``) trains on the
-scenes seen so far. With a ``checkpoint_dir`` the saves are rag_tpu's:
-"selected" after select, "trained" after the fine-tune, a manifest-only
-"trained" after each row evaluation, "task_done" after the row, and
-``router.npz`` after the router; the searched genotype of task t lands in
-``genotype_t{t}.json`` and a later run loads it instead of searching.
+scenes seen so far.
 
-Not ported: resume, mid-stage state files and fault injection, meshes
-and scene-parallel search, and the depth and self-supervised variants;
-``ExperimentConfig`` has no fields for them. The driver runs on
-``device`` with the kernels ``variants`` picks; the datasets' batches
-must be tensors on that device.
+With a ``checkpoint_dir`` the files are rag_tpu's, and each package
+resumes the other's. Task checkpoints: "selected" after select, "trained"
+after the fine-tune, a manifest-only "trained" after each row evaluation
+(the rows done so far ride in every manifest), "task_done" after the row,
+and ``router.npz`` after the router. Stage files, every
+``stage_checkpoint_every`` epochs (0: none): ``cellsearch_t{t}.npz``,
+``opsearch_t{t}.npz`` and ``finetune_t{t}.npz``, each deleted once its
+stage is done; the searched genotype stays as ``genotype_t{t}.json``, and
+a later run loads it instead of searching. ``run(resume=True)`` restores
+the latest task checkpoint and re-enters where it stopped: a "selected"
+task at its fine-tune (from its stage file), a "trained" task at the
+evaluations it has not done, a "task_done" one at the next task, and a
+router trained before the last finished task is trained again.
+
+Not ported: meshes and scene-parallel search, and the depth and
+self-supervised variants; ``ExperimentConfig`` has no fields for them.
+The driver runs on ``device`` with the kernels ``variants`` picks; the
+datasets' batches must be tensors on that device.
 """
 
 from __future__ import annotations
@@ -38,8 +47,14 @@ import torch
 from rag_tpu_torch.continual.state import (
     _geno_from,
     _geno_json,
+    from_leaves,
+    latest_task,
+    leaf_arrays,
+    load_checkpoint,
+    load_router,
     save_checkpoint,
     save_router,
+    savez_atomic,
 )
 from rag_tpu_torch.metrics.meters import AverageMeterDict, ForgettingMatrix
 from rag_tpu_torch.models.growable import GrowableStereoNet
@@ -87,6 +102,28 @@ def _arch_key(specs):
     return tuple(sorted((k, s) for k, s in specs.items()))
 
 
+def _save_finetune_state(path, params, stats, opt_state, best, best_loss,
+                         epoch):
+    """The fine-tune's state after ``epoch``: ``leaf_{i}`` of (params,
+    stats, momentum, best params, best stats), host copies, with
+    ``epoch`` and ``best_loss``."""
+    savez_atomic(path, epoch=epoch, best_loss=best_loss,
+                 **leaf_arrays([params, stats, opt_state, *best]))
+
+
+def _load_finetune_state(path, template, device):
+    """template: (params, stats, opt_state) of the stage. Returns (params,
+    stats, opt_state, (best params, best stats), best_loss, start_epoch),
+    every tree new tensors on ``device``."""
+    with np.load(path) as npz:
+        data = dict(npz)
+    params, stats, opt_state = template
+    params, stats, opt_state, bp, bs = from_leaves(
+        data, [params, stats, opt_state, params, stats], device)
+    return (params, stats, opt_state, (bp, bs), float(data["best_loss"]),
+            int(data["epoch"]) + 1)
+
+
 class ContinualDriver:
     def __init__(self, config: ExperimentConfig,
                  writer: Optional[MetricWriter] = None,
@@ -108,16 +145,26 @@ class ContinualDriver:
             ("D1", "EPE", "loss", "Thres1", "Thres2", "Thres3"))
         self._eval_cache = {}
         # completed forgetting-row evals, {t: {u: {metric: float}}}, kept in
-        # every checkpoint's extra
+        # every checkpoint's extra so that a resumed run skips them
         self._eval_rows = {}
+        # stage-file cadence in epochs for the three long stages (0: none)
+        self.stage_checkpoint_every = 10
+        # stop the fine-tune after this many epochs, right after its stage
+        # file's write (fault injection; run() carries on)
+        self._finetune_stop_after: Optional[int] = None
+        # the restored checkpoint's stage and task (resume)
+        self._resume_stage: Optional[str] = None
+        self._resume_task: Optional[int] = None
 
     # -- stages ------------------------------------------------------------
 
-    def _geno_file(self, t: int) -> Optional[str]:
-        if not self.checkpoint_dir:
+    def _stage_ckpt(self, name: str) -> Optional[str]:
+        """Path of a stage file (None without a checkpoint_dir or with
+        stage_checkpoint_every 0)."""
+        if not self.checkpoint_dir or not self.stage_checkpoint_every:
             return None
         os.makedirs(self.checkpoint_dir, exist_ok=True)
-        return os.path.join(self.checkpoint_dir, f"genotype_t{t}.json")
+        return os.path.join(self.checkpoint_dir, name)
 
     def _cell_search(self, t: int) -> CellSearch:
         """Task t's cell search on a fresh supernet seeded cell.seed + t."""
@@ -143,17 +190,22 @@ class ContinualDriver:
     def search_cell(self, t: int, train_data) -> Genotype:
         if self.cfg.skip_cell_search:
             return default_genotype()
-        geno_file = self._geno_file(t)
+        geno_file = self._stage_ckpt(f"genotype_t{t}.json")
         if geno_file and os.path.exists(geno_file):
             with open(geno_file) as f:
                 geno = _geno_from(json.load(f))
             self.log(f"[task {t}] loaded searched genotype from {geno_file}")
             return geno
-        geno = self._cell_search(t).search(train_data, writer=self.writer,
-                                           task=t)
+        ckpt = self._stage_ckpt(f"cellsearch_t{t}.npz")
+        geno = self._cell_search(t).search(
+            train_data, writer=self.writer, task=t, checkpoint_path=ckpt,
+            checkpoint_every=self.stage_checkpoint_every,
+            resume=bool(ckpt and os.path.exists(ckpt)))
         if geno_file:
             with open(geno_file, "w") as f:
                 json.dump(_geno_json(geno), f)
+        if ckpt and os.path.exists(ckpt):
+            os.remove(ckpt)
         return geno
 
     def _save(self, t: int, stage: str, manifest_only: bool = False):
@@ -164,11 +216,30 @@ class ContinualDriver:
 
     def train_task(self, t: int, train_data, valid_data):
         """The task's pipeline: cell search, t = 0 a new net, t > 0 expand,
-        op search and select; then the fine-tune."""
+        op search and select; then the fine-tune. A task restored after
+        its select ("selected") goes straight to its fine-tune; one
+        restored after its fine-tune ("trained") to its evaluations."""
+        if self.net is not None and len(self.net.archis) > t:
+            if self._resume_stage == "trained" and self._resume_task == t:
+                self._resume_stage = None
+                self.log(f"[task {t}] resumed post-fine-tune; "
+                         f"evaluation only")
+                return
+            self.log(f"[task {t}] resumed post-select; fine-tune only")
+            self.writer.scalars("model_size_m",
+                                {"params_m": self.net.size_m()}, step=t)
+            self.fine_tune(t, train_data, valid_data)
+            return
         genotype = self.search_cell(t, train_data)
         self._grow(t, genotype)
         if t > 0:
-            self._op_search().search(t, train_data, writer=self.writer)
+            ckpt = self._stage_ckpt(f"opsearch_t{t}.npz")
+            self._op_search().search(
+                t, train_data, writer=self.writer, checkpoint_path=ckpt,
+                checkpoint_every=self.stage_checkpoint_every,
+                resume=bool(ckpt and os.path.exists(ckpt)))
+            if ckpt and os.path.exists(ckpt):
+                os.remove(ckpt)
             best = self.net.select(t)
             self.log(f"[task {t}] best_archi = {best}")
             self.writer.text(f"archi/task{t}", str(best))
@@ -180,7 +251,8 @@ class ContinualDriver:
     def fine_tune(self, t: int, train_data, valid_data):
         """Train archis[t]: BatchNorm trains and params update on the
         task's trainable sites only; the best-by-valid-loss epoch's tensors
-        are written back."""
+        are written back, and the "trained" checkpoint is saved before the
+        stage file goes. A stage file on disk is resumed from."""
         cfg = self.cfg.train
         net = self.net
         arch = net.archis[t]
@@ -194,14 +266,22 @@ class ContinualDriver:
                                    variants=self.variants)
         opt_state = optimizer.init(params)
 
-        def batches(data, **kw):
-            return [eval_step(params, stats, *self._batch_args(b))
-                    for b in data.batches(cfg.batch, False, seed=0, **kw)]
-
         best_loss = np.inf
         # copies: the train step updates params in place
         best = (clone_tree(params), stats)
-        for epoch in range(cfg.epochs):
+        start_epoch = 0
+        ckpt = self._stage_ckpt(f"finetune_t{t}.npz")
+        if ckpt and os.path.exists(ckpt):
+            params, stats, opt_state, best, best_loss, start_epoch = \
+                _load_finetune_state(ckpt, (params, stats, opt_state),
+                                     self.device)
+            self.log(f"[train t{t}] resumed at epoch {start_epoch}")
+
+        def batches(data):
+            return [eval_step(params, stats, *self._batch_args(b))
+                    for b in data.batches(cfg.batch, False, seed=0)]
+
+        for epoch in range(start_epoch, cfg.epochs):
             lr = cosine_lr(cfg.lr, cfg.epochs, epoch)
             for b in train_data.batches(cfg.batch, True, seed=epoch):
                 params, stats, opt_state, _ = train_step(
@@ -217,8 +297,16 @@ class ContinualDriver:
             if v.get("loss", np.inf) < best_loss:
                 best_loss = v.get("loss", np.inf)
                 best = (clone_tree(params), stats)
+            if ckpt and (epoch + 1) % self.stage_checkpoint_every == 0:
+                _save_finetune_state(ckpt, params, stats, opt_state, best,
+                                     best_loss, epoch)
+            if (self._finetune_stop_after is not None
+                    and epoch + 1 >= self._finetune_stop_after):
+                return
         net.write_back(arch, *best)
         self._save(t, "trained")
+        if ckpt and os.path.exists(ckpt):
+            os.remove(ckpt)
 
     @staticmethod
     def _batch_args(b):
@@ -314,14 +402,61 @@ class ContinualDriver:
                                        for u, s in row.items()}
                               for t, row in self._eval_rows.items()}}
 
+    def resume(self) -> int:
+        """Restore the net, the forgetting matrix, the finished row
+        evaluations and (use_router) the router from the latest task
+        checkpoint; return the first task still to run (0 without one). A
+        "selected" or "trained" checkpoint re-enters its own task."""
+        if not self.checkpoint_dir:
+            return 0
+        t = latest_task(self.checkpoint_dir)
+        if t is None:
+            return 0
+        self.net, manifest = load_checkpoint(self.checkpoint_dir, t,
+                                             device=self.device)
+        extra = manifest.get("extra", {})
+        for k, vals in (extra.get("matrix") or {}).items():
+            if k in self.matrix.m:
+                arr = np.asarray(vals)
+                n = min(arr.shape[0], self.matrix.num_tasks)
+                self.matrix.m[k][:n, :n] = arr[:n, :n]
+        stage = extra.get("stage", "task_done")
+        self._eval_rows = {int(tk): {int(uk): dict(s)
+                                     for uk, s in row.items()}
+                           for tk, row in (extra.get("eval_rows") or {}).items()}
+        if self.cfg.use_router:
+            self.router = load_router(self.checkpoint_dir, device=self.device)
+        self.log(f"[resume] restored task {t} ({stage}) "
+                 f"from {self.checkpoint_dir}")
+        self._resume_stage, self._resume_task = stage, t
+        return t if stage in ("selected", "trained") else t + 1
+
     def run(self, train_datasets: Sequence, valid_datasets: Sequence,
-            test_datasets: Sequence) -> ForgettingMatrix:
+            test_datasets: Sequence, resume: bool = False) -> ForgettingMatrix:
         tstart = time.time()
-        for t in range(self.cfg.num_tasks):
+        start = self.resume() if resume else 0
+        if resume and self.cfg.use_router and start > 1:
+            # a router saved before the last finished task (a kill in that
+            # task's router stage) is trained again
+            done = self.router.trained_task if self.router is not None else -1
+            if done < start - 1:
+                self.log(f"[router] router.npz trained through task {done} "
+                         f"< completed task {start - 1}; re-training")
+                self.train_router(start - 1, train_datasets, test_datasets)
+                if self.checkpoint_dir and self.router is not None:
+                    save_router(self.checkpoint_dir, self.router)
+        for t in range(start, self.cfg.num_tasks):
             self.log("*" * 60 + f"\nTask {t}\n" + "*" * 60)
             self.train_task(t, train_datasets[t], valid_datasets[t])
             row = self._eval_rows.setdefault(t, {})
             for u in range(t + 1):
+                if u in row:
+                    # evaluated before the resume: its result is in the
+                    # restored checkpoint
+                    self.matrix.record(t, u, row[u])
+                    self.log(f">>> after task {t}: test task {u} "
+                             f"(cached from resumed checkpoint)")
+                    continue
                 scalars = {k: float(v) for k, v in
                            self.evaluate(u, test_datasets[u]).items()}
                 row[u] = scalars

@@ -13,17 +13,28 @@ router is one ``router.npz`` beside it (``num_tasks``, ``input_key``,
 ``SceneRouter.state_arrays``). Both packages read each other's files:
 the same keys, dtypes and shapes. Arrays go straight to tensors on the
 requested device.
+
+The mid-stage state files of the searches and the fine-tune use two
+layouts, each as rag_tpu writes it: ``leaf_{i}`` arrays in
+``jax.tree_util.tree_flatten`` order of a tuple of trees (every dict's
+keys sorted, depth first; optax's SGD state flattens to its momentum
+trace, a tree shaped like the params), written and read by
+``leaf_arrays`` / ``from_leaves``; and ``_flatten``'s named keys, read
+back by ``_unflatten``. Every array written is a host copy taken at the
+write, and every tree read is new tensors.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from rag_tpu_torch.convert import to_torch, unflatten
+from rag_tpu_torch.convert import to_torch
+from rag_tpu_torch.convert import unflatten as _unflatten  # _flatten's reader
 from rag_tpu_torch.models.growable import GrowableStereoNet, Unit
 from rag_tpu_torch.models.router import SceneRouter
 from rag_tpu_torch.models.stereo import (
@@ -34,6 +45,7 @@ from rag_tpu_torch.models.stereo import (
 )
 from rag_tpu_torch.ops.cell import canonicalize_gene
 from rag_tpu_torch.search.genotype import Genotype
+from rag_tpu_torch.train.trainer import _leaves
 
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
@@ -43,6 +55,51 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
             _flatten(tree[k], f"{prefix}/{k}", out)
     else:
         out[prefix] = tree.detach().cpu().numpy()
+
+
+def tree_device(tree) -> torch.device:
+    """The device of a nested dict's first leaf."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
+
+
+def leaf_arrays(trees: Sequence, prefix: str = "leaf_") -> Dict[str, np.ndarray]:
+    """{prefix}{i}: host copies of the leaves of ``trees`` in jax's
+    tree_flatten order."""
+    leaves = [x for t in trees for _, x in _leaves(t)]
+    return {f"{prefix}{i}": x.detach().cpu().numpy().copy()
+            for i, x in enumerate(leaves)}
+
+
+def from_leaves(data, templates: Sequence, device,
+                prefix: str = "leaf_") -> List:
+    """Trees shaped like ``templates``, filled in jax's tree_flatten order
+    from ``data[f"{prefix}{i}"]`` as new tensors on ``device``."""
+    n = len([k for k in data if k.startswith(prefix)])
+    need = sum(len(list(_leaves(t))) for t in templates)
+    if n != need:
+        raise ValueError(f"{n} {prefix}* arrays for {need} leaves")
+    it = iter(range(n))
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(tree[k]) for k in sorted(tree)}
+        return torch.from_numpy(np.array(data[f"{prefix}{next(it)}"],
+                                          copy=True)).to(device)
+
+    return [fill(t) for t in templates]
+
+
+def savez_atomic(path: str, **arrays) -> None:
+    """np.savez to ``path`` through a temporary file and a rename, so a
+    kill mid-write leaves the previous file whole."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
 
 
 def _geno_json(g: Genotype):
@@ -156,7 +213,7 @@ def load_checkpoint(directory: str, task: Optional[int] = None,
         return spec_cache[born][s]
 
     def leaves(prefix):
-        return to_torch(unflatten(data, prefix), device)
+        return to_torch(_unflatten(data, prefix), device)
 
     units = {
         s: [Unit(site_spec(born, s), leaves(f"units/{s}/{i}/params"),

@@ -7,12 +7,39 @@ Counterpart of rag_tpu/ops/cost_volume.py::cost_volume_cf:
 
 On the card the volume is never built: kernel B (ops.cvstem) reads it
 straight from the feature maps, and kernels E and F do so in the backward.
-This is the plain half of those kernels' plain versions.
+This is the plain half of those kernels' plain versions, and the search
+supernet's cost volume.
+
+The y half is a gather; its backward (``_ShiftedPlanes``) sums each plane's
+shifted gradient into dy plane by plane, in d order, as kernel E's plain
+version does. Autograd's own backward of the gather, an accumulating
+``index_put_``, adds in the order threads (CPU) or atomics (CUDA) reach
+the values, so two backward passes on equal inputs could differ in their
+last bits.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+class _ShiftedPlanes(torch.autograd.Function):
+    """y_cf (B, C, H, W) -> (B, D, C, H, W), plane d = y_cf[..., j - d]
+    (index clamped at 0; the caller masks j < d). Backward: plane d's
+    gradient at j >= d added into dy[..., j - d], d ascending."""
+
+    @staticmethod
+    def forward(ctx, y_cf, src):
+        ctx.num_disp = src.shape[0]
+        return y_cf[..., src.clamp(0, y_cf.shape[-1] - 1)].movedim(3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = g.shape[-1]
+        dy = g.new_zeros(g.shape[:1] + g.shape[2:])
+        for d in range(min(ctx.num_disp, w)):
+            dy[..., :w - d] += g[:, d, ..., d:]
+        return dy, None
 
 
 def cost_volume_cf(x: torch.Tensor, y: torch.Tensor, num_disp: int) -> torch.Tensor:
@@ -24,8 +51,7 @@ def cost_volume_cf(x: torch.Tensor, y: torch.Tensor, num_disp: int) -> torch.Ten
     disp = torch.arange(num_disp, device=x.device)[:, None]
     src = j - disp                                     # (D, W)
     valid = (src >= 0).to(x.dtype)
-    y_shift = y_cf[..., src.clamp(0, w - 1)]           # (B, C, H, D, W)
-    y_shift = y_shift.movedim(3, 1)                    # (B, D, C, H, W)
+    y_shift = _ShiftedPlanes.apply(y_cf, src)          # (B, D, C, H, W)
     mask = valid[None, :, None, None, :]
     x_part = x_cf[:, None] * mask
     return torch.cat([x_part, y_shift * mask], dim=2)

@@ -25,6 +25,7 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build"
+CUDA_HOME = Path("/usr/local/cuda")  # where nvcc is looked for off the PATH
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "librag_tpu_torch_kernels.so"
@@ -68,7 +69,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = CUDA_HOME / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the port's CUDA kernels are built "

@@ -1,8 +1,10 @@
 """Op-level growth search: reuse-vs-new selection over the expanded
 network.
 
-Counterpart of rag_tpu/search/growth.py (stereo; without the mid-search
-state files, fault injection, mesh and depth variant). After ``expand``
+Counterpart of rag_tpu/search/growth.py (stereo, with its mid-search state
+file and fault injection; without the mesh, the depth variant and the
+self-supervised search's ``split_frac`` and ``eval_max_batches``). After
+``expand``
 every searchable site holds L reuse candidates + 1 new unit; per epoch a
 full path is sampled from the per-site categoricals, trained for an epoch
 (only the new units and task t's heads are trainable; every BatchNorm is
@@ -18,15 +20,31 @@ One SGD momentum store persists over the whole search: a site's momentum
 carries from the last epoch that trained it. The best-by-valid-loss epoch's
 new units and heads are copied and restored into the registry after the
 search (copies: the train step updates the registry's tensors in place).
+
+The state file (``save_state`` / ``load_state``) is rag_tpu's, under
+``_flatten``'s named keys: the new units' and heads' live and best trees
+(``live/{name}/...``, ``best/{name}/...``), the momentum store
+(``mom/{name}/...``), per site p, h_e and h_a (``prob/{i}``, ``he/{i}``,
+``ha/{i}``), the numpy Generator's bit state as JSON, the epoch and the
+best loss, so that each package resumes the other's file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from rag_tpu_torch.continual.state import (
+    _flatten,
+    _unflatten,
+    savez_atomic,
+    tree_device,
+)
+from rag_tpu_torch.convert import to_torch
 from rag_tpu_torch.data.stereo_dataset import split_half
 from rag_tpu_torch.metrics.meters import AverageMeterDict
 from rag_tpu_torch.models.growable import GrowableStereoNet
@@ -122,8 +140,69 @@ class OpSearch:
         for name, u in self._new_unit_refs(t):
             u.params, u.stats = snap[name]
 
-    def search(self, t: int, train_data, writer=None):
-        """Updates net.p in place; the caller then runs net.select(t)."""
+    # -- the mid-search state file ------------------------------------------
+
+    def save_state(self, path: str, t: int, epoch: int, h_e, h_a,
+                   momentum: Dict, best: Optional[Dict], best_loss: float,
+                   rng=None) -> None:
+        """Write the search's state after ``epoch`` (rag_tpu's keys)."""
+        arrays: Dict[str, np.ndarray] = {}
+        if rng is not None:
+            arrays["rng_state"] = np.asarray(json.dumps(rng.bit_generator.state))
+        for name, u in self._new_unit_refs(t):
+            _flatten(u.params, f"live/{name}/params", arrays)
+            _flatten(u.stats, f"live/{name}/stats", arrays)
+        for name, m in momentum.items():
+            _flatten(m, f"mom/{name}", arrays)
+        if best is not None:
+            for name, (p, s) in best.items():
+                _flatten(p, f"best/{name}/params", arrays)
+                _flatten(s, f"best/{name}/stats", arrays)
+        for i, p in enumerate(self.net.p):
+            arrays[f"prob/{i}"] = np.asarray(p)
+            arrays[f"he/{i}"] = np.asarray(h_e[i])
+            arrays[f"ha/{i}"] = np.asarray(h_a[i])
+        savez_atomic(path, epoch=epoch, best_loss=best_loss,
+                     has_best=int(best is not None), **arrays)
+
+    def load_state(self, path: str, t: int, rng=None):
+        """Restore the new units' and heads' tensors (new tensors on their
+        device), p and ``rng``'s bit state; returns (start_epoch, h_e,
+        h_a, momentum, best, best_loss)."""
+        with np.load(path) as npz:
+            data = dict(npz)
+        if rng is not None and "rng_state" in data:
+            rng.bit_generator.state = json.loads(str(data.pop("rng_state")))
+        refs = self._new_unit_refs(t)
+        device = tree_device(refs[-1][1].params)
+        tree = lambda prefix: to_torch(_unflatten(data, prefix), device)
+        for name, u in refs:
+            u.params = tree(f"live/{name}/params")
+            u.stats = tree(f"live/{name}/stats")
+        momentum = {name: tree(f"mom/{name}") for name, _ in refs
+                    if _unflatten(data, f"mom/{name}")}
+        best = None
+        if int(data["has_best"]):
+            best = {name: (tree(f"best/{name}/params"),
+                           tree(f"best/{name}/stats")) for name, _ in refs}
+        n = len(self.net.p)
+        for i in range(n):
+            self.net.p[i] = data[f"prob/{i}"]
+        h_e = [data[f"he/{i}"] for i in range(n)]
+        h_a = [data[f"ha/{i}"] for i in range(n)]
+        return (int(data["epoch"]) + 1, h_e, h_a, momentum, best,
+                float(data["best_loss"]))
+
+    def search(self, t: int, train_data, writer=None,
+               checkpoint_path: Optional[str] = None,
+               checkpoint_every: int = 10, resume: bool = False,
+               stop_after: Optional[int] = None):
+        """Updates net.p in place; the caller then runs net.select(t).
+
+        checkpoint_path: the state file, written every ``checkpoint_every``
+        epochs; resume=True continues from it where it exists. stop_after:
+        return after that many epochs, right after the state file's write
+        and without the best-epoch restore (a simulated kill)."""
         net, cfg = self.net, self.cfg
         if net.p is None or net.new_models is None:
             raise ValueError("op search before expand")
@@ -139,7 +218,12 @@ class OpSearch:
         momentum: Dict = {}
         best: Optional[Dict] = None
         best_loss = np.inf
-        for epoch in range(cfg.epochs):
+        start_epoch = 0
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            (start_epoch, h_e, h_a, momentum, best, best_loss) = \
+                self.load_state(checkpoint_path, t, rng=rng)
+            self.log(f"[op-search t{t}] resumed at epoch {start_epoch}")
+        for epoch in range(start_epoch, cfg.epochs):
             lr = cosine_lr(cfg.lr, cfg.epochs, epoch, cfg.lr_min)
             selected = [int(rng.choice(len(p), p=p)) for p in net.p]
             arch = net.search_arch(selected, t)
@@ -189,6 +273,12 @@ class OpSearch:
             if valid_loss < best_loss:
                 best_loss = valid_loss
                 best = self._snapshot(t)
+
+            if checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+                self.save_state(checkpoint_path, t, epoch, h_e, h_a,
+                                momentum, best, best_loss, rng=rng)
+            if stop_after is not None and epoch + 1 >= stop_after:
+                return
 
         if best is not None:
             self._restore(t, best)

@@ -1,8 +1,9 @@
 """MdeNAS cell search: multinomial op sampling with the pairwise
 epoch/accuracy probability update.
 
-Counterpart of rag_tpu/search/mdenas.py (CellSearch without its mid-search
-state files, fault injection and mesh; DepthCellSearch is not ported). Per
+Counterpart of rag_tpu/search/mdenas.py (CellSearch, with its mid-search
+state file and fault injection; the mesh and DepthCellSearch are not
+ported). Per
 epoch: sample one op per edge from the categorical p, train that single
 path of the supernet for an epoch, score it on the held-out half, then
 update p with the pairwise rule
@@ -13,16 +14,30 @@ update p with the pairwise rule
 
 The update and the sampling are host numpy in float64, seeded as rag_tpu
 seeds them, so both packages sample the same ops from the same p.
+
+The state file (``save_state`` / ``load_state``) holds everything the loop
+depends on, in rag_tpu's layout, so that each package resumes the other's
+file and an interrupted and resumed search equals an uninterrupted one:
+the epoch, p, h_e and h_a, the numpy Generator's bit state as JSON, the
+best loss, p and params, and the live params, statistics and momentum.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from rag_tpu_torch.continual.state import (
+    from_leaves,
+    leaf_arrays,
+    savez_atomic,
+    tree_device,
+)
 from rag_tpu_torch.data.stereo_dataset import split_half
 from rag_tpu_torch.metrics.meters import AverageMeterDict
 from rag_tpu_torch.metrics.stereo import stereo_metrics
@@ -146,12 +161,66 @@ class CellSearch:
     def genotype(self) -> Genotype:
         return parse_genotype(self.p["normal"], self.p["reduce"])
 
-    def search(self, train_data, writer=None, task: int = 0) -> Genotype:
+    def save_state(self, path: str, epoch: int, h_e, h_a, rng,
+                   best_loss, best_p, best_params) -> None:
+        """Write the search's state after ``epoch`` (rag_tpu's keys:
+        ``leaf_{i}`` of (params, stats, momentum), ``bleaf_{i}`` of the
+        best params, ``p_*``, ``he_*``, ``ha_*``, ``bestp_*``, ``epoch``,
+        ``best_loss``, ``rng_state``)."""
+        extras = {}
+        if best_p is not None:
+            extras["bestp_normal"] = best_p["normal"]
+            extras["bestp_reduce"] = best_p["reduce"]
+        if best_params is not None:
+            extras.update(leaf_arrays([best_params], "bleaf_"))
+        savez_atomic(path, epoch=epoch,
+                     rng_state=json.dumps(rng.bit_generator.state),
+                     best_loss=best_loss,
+                     p_normal=self.p["normal"], p_reduce=self.p["reduce"],
+                     he_normal=h_e["normal"], he_reduce=h_e["reduce"],
+                     ha_normal=h_a["normal"], ha_reduce=h_a["reduce"],
+                     **extras, **leaf_arrays([self.params, self.stats,
+                                              self.opt_state]))
+
+    def load_state(self, path: str, rng):
+        """Restore p, params, statistics, momentum and ``rng``'s bit state
+        (new tensors on the params' device); returns (start_epoch, h_e,
+        h_a, best_loss, best_p, best_params)."""
+        with np.load(path) as npz:
+            data = dict(npz)
+        device = tree_device(self.params)
+        self.p = {"normal": data["p_normal"], "reduce": data["p_reduce"]}
+        h_e = {"normal": data["he_normal"], "reduce": data["he_reduce"]}
+        h_a = {"normal": data["ha_normal"], "reduce": data["ha_reduce"]}
+        self.params, self.stats, self.opt_state = from_leaves(
+            data, [self.params, self.stats, self.opt_state], device)
+        if "rng_state" in data:
+            rng.bit_generator.state = json.loads(str(data["rng_state"]))
+        best_loss = float(data["best_loss"]) if "best_loss" in data else np.inf
+        best_p = None
+        if "bestp_normal" in data:
+            best_p = {"normal": data["bestp_normal"],
+                      "reduce": data["bestp_reduce"]}
+        best_params = None
+        if any(k.startswith("bleaf_") for k in data):
+            best_params, = from_leaves(data, [self.params], device, "bleaf_")
+        return (int(data["epoch"]) + 1, h_e, h_a, best_loss, best_p,
+                best_params)
+
+    def search(self, train_data, writer=None, task: int = 0,
+               checkpoint_path: Optional[str] = None,
+               checkpoint_every: int = 10, resume: bool = False,
+               stop_after: Optional[int] = None) -> Genotype:
         """The MdeNAS loop; returns the genotype of the best-by-valid-loss
         epoch's p, with that epoch's params restored (the statistics and
         the optimizer state stay the last epoch's, as in rag_tpu).
 
-        train_data: a dataset with .batches(batch, shuffle, seed, indices)."""
+        train_data: a dataset with .batches(batch, shuffle, seed, indices).
+        checkpoint_path: the state file, written every ``checkpoint_every``
+        epochs; resume=True continues from it where it exists.
+        stop_after: return after that many epochs, right after the state
+        file's write and without the best-epoch restore (a simulated
+        kill)."""
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed + 1000 * task)
         train_idx, valid_idx = split_half(len(train_data),
@@ -160,7 +229,12 @@ class CellSearch:
         h_e = {k: np.zeros((NUM_EDGES, cfg.num_ops), np.int64) for k in self.p}
         h_a = {k: np.zeros((NUM_EDGES, cfg.num_ops), np.float64) for k in self.p}
         best_loss, best_p, best_params = np.inf, None, None
-        for epoch in range(cfg.epochs):
+        start_epoch = 0
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            (start_epoch, h_e, h_a, best_loss, best_p, best_params) = \
+                self.load_state(checkpoint_path, rng)
+            self.log(f"[cell-search t{task}] resumed at epoch {start_epoch}")
+        for epoch in range(start_epoch, cfg.epochs):
             lr = cosine_lr(cfg.lr, cfg.epochs, epoch, cfg.lr_min)
             ops = {
                 k: np.array([rng.choice(cfg.num_ops, p=self.p[k][e])
@@ -206,6 +280,12 @@ class CellSearch:
                 best_p = {k: v.copy() for k, v in self.p.items()}
                 # a copy: the train step updates self.params in place
                 best_params = clone_tree(self.params)
+
+            if checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+                self.save_state(checkpoint_path, epoch, h_e, h_a, rng,
+                                best_loss, best_p, best_params)
+            if stop_after is not None and epoch + 1 >= stop_after:
+                return self.genotype()
 
         if best_p is not None:
             self.p = best_p

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from learn_parity import (
     ArrayScene,
     Inits,

@@ -29,6 +29,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops.pallas_conv3d import conv3d_dw_pallas
 from rag_tpu_torch.ops.conv3d import (
     CONV_MIN_BLOCKS,

@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from learn_parity import Inits, assert_trees_equal, np_tree
 from rag_tpu.continual import state as jstate
 from rag_tpu.models import growable as jgrowable

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from head_emulation import emulate_head, emulate_head_bwd, general_walk_ok
 from rag_tpu.ops.pallas_kernels import (
     _disp_bwd_pallas,

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from head_emulation import emulate_head
 from rag_tpu.ops.pallas_conv3d import (
     _conv3d_pallas_cf,

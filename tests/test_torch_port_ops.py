@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.metrics.stereo import stereo_metrics as jax_stereo_metrics
 from rag_tpu.ops import cell as jcell
 from rag_tpu.ops import convbr as jconvbr

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops.pallas_conv3d import _conv3d_pallas_cf
 from rag_tpu.ops.pallas_conv3d import pack_weights as jax_pack_weights
 from rag_tpu.ops.pallas_cvstem import cvstem_dxy_pallas

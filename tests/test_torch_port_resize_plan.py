@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops.pallas_resize import _resize_cf_pallas
 from rag_tpu_torch.ops.conv3d import (
     CONV_INSTANCES,

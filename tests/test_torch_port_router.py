@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.continual.inference import RoutedInference as JaxRoutedInference
 from rag_tpu.continual.state import load_checkpoint as jax_load_checkpoint
 from rag_tpu.continual.state import load_router as jax_load_router

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops import pallas_shear as jshear
 from rag_tpu_torch.ops.cvstem import cvstem_brc_plain
 from rag_tpu_torch.ops.shear import (

@@ -36,6 +36,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops.pallas_conv3d import pack_weights as jax_pack_weights
 from rag_tpu.ops.pallas_cvstem import cvstem_dw_pallas, cvstem_forward_cf
 from rag_tpu_torch.ops.conv3d import (

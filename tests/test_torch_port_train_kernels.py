@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from head_emulation import emulate_head_bwd
 from rag_tpu.ops.pallas_conv3d import _xla_conv3d_cf, conv3d_dw_pallas
 from rag_tpu.ops.pallas_cvstem import (

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops import cell as jcell
 from rag_tpu.ops import convbr as jconvbr
 from rag_tpu.ops.convbr_cf import apply_convbr_cf as jax_apply_convbr_cf

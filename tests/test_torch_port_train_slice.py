@@ -54,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.continual.state import load_checkpoint as jax_load_checkpoint
 from rag_tpu.models import stereo as jstereo
 from rag_tpu.search.genotype import default_genotype as jax_default_genotype

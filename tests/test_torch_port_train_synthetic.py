@@ -20,6 +20,7 @@ from pathlib import Path
 import jax
 import numpy as np
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.continual.state import load_checkpoint as jax_load_checkpoint
 from rag_tpu.data.synthetic import SyntheticStereoDataset as JaxSynthetic
 from rag_tpu.train import trainer as jtrainer

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_threads import one_torch_thread  # noqa: F401 (autouse)
 from rag_tpu.ops import pallas_conv3d as jconv
 from rag_tpu.ops import pallas_resize as jresize
 from rag_tpu.ops import pallas_shear as jshear
