@@ -27,7 +27,8 @@ exception:
                    keeping the plain step's updates and statistics; and
                    the first train step of the learn phase's supernet
                    (batch 8, 192x384), recording its calls of kernels A and
-                   D (no other kernel may run there);
+                   D (no other kernel may run there), and the selfsup
+                   phase's photometric step, recording its calls;
   5. kernels       hold all eleven kernels (A-C, H-J forward, D-G, K
                    backward) against their plain versions on the card, at
                    every recorded shape and at small shapes, and time kernel,
@@ -128,12 +129,46 @@ exception:
                    list through the kernels within SERVE_ATOL of the plain
                    path, and every kernel call of those frames against its
                    plain version;
- 11. report        one JSON line of the route phase ("route": its figures
+ 11. selfsup       the self-supervised variant, default path: (a) the
+                   committed logs/canonical_selfsup_r5 restored, one
+                   photometric step of task 2's fine-tune stage (batch 3,
+                   192x384, maxdisp 192) through the kernels against the
+                   same step with the plain versions (recorded in phase 4;
+                   its kernel calls are checked in phase 5 as "at":
+                   "selfsup"), its launches (A, B, C, D and G, E and F by
+                   the trainable sites), ms/step, pairs/s and peak memory;
+                   (b) SelfSupContinualDriver.run over the learn phase's
+                   two scenes with a synthetic pretrain set and colour-
+                   transfer proxy pairs (32 of 192x384 each), the canonical
+                   hyperparameters with epochs cut to 2 (router 1): each
+                   stage (cell search, pretrain, op search, photometric
+                   fine-tune, evaluations, router) timed and gated as in
+                   the learn phase (pretrain as a fine-tune), every logged
+                   value finite, matrix[1, 0] vs matrix[0, 0]
+                   (ZERO_FORGET_RTOL), the reloaded checkpoint reproducing
+                   row 1;
+ 12. depth         the monocular-depth variant, which runs no hand-written
+                   kernel (every launch count must stay 0): (a) the
+                   committed logs/canonical_depth_r3b and its router on the
+                   card, each task path on 4 styled SyntheticDepthDataset
+                   frames of 480x960 (depth metrics, ms/frame), one frame a
+                   path against the CPU (DEPTH_ATOL), the 16 frames routed
+                   on the card and the CPU (ids equal); (b)
+                   DepthContinualDriver.run over two styled depth scenes
+                   (384x768 crops; batches 16 / 12 / 8 for cell search, op
+                   search and fine-tune; epochs cut to 2, router 1), staged
+                   and gated as in (b) of selfsup, zero forgetting in all
+                   ten metrics, the reloaded checkpoint reproducing row 1;
+                   (c) cli --variant depth --eval-only of the committed
+                   checkpoint;
+ 13. report        one JSON line of the route phase ("route": its figures
                    and the card's name and power limit), one of the learn
                    phase ("learn"), one of the cli phase ("cli"), one of
-                   kernels (launches: the serve, route, train, learn and
-                   cli runs), the card's name and power limit, and as the
-                   last line {"ok": true, "device": {...}}.
+                   the selfsup phase ("selfsup"), one of the depth phase
+                   ("depth"), one of kernels (launches: the serve, route,
+                   train, learn, cli and selfsup runs), the card's name and
+                   power limit, and as the last line {"ok": true,
+                   "device": {...}}.
 
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
 build-and-check) and prints no report.
@@ -180,7 +215,15 @@ from rag_tpu_torch.continual.driver import (  # noqa: E402
     ExperimentConfig,
     TrainConfig,
 )
+from rag_tpu_torch.continual.depth_driver import (  # noqa: E402
+    DepthContinualDriver,
+    SyntheticDepthDataset,
+)
 from rag_tpu_torch.continual.inference import RoutedInference  # noqa: E402
+from rag_tpu_torch.continual.self_supervised import (  # noqa: E402
+    SelfSupConfig,
+    SelfSupContinualDriver,
+)
 from rag_tpu_torch.continual.state import (  # noqa: E402
     load_checkpoint,
     load_router,
@@ -201,7 +244,10 @@ from rag_tpu_torch.data.stereo_dataset import (  # noqa: E402
     StereoDataset,
     split_half,
 )
+from rag_tpu_torch.metrics.depth import DEPTH_METRIC_NAMES  # noqa: E402
+from rag_tpu_torch.metrics.meters import AverageMeterDict  # noqa: E402
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
+from rag_tpu_torch.models.depth import depth_forward  # noqa: E402
 from rag_tpu_torch.models.stereo import SITE_NAMES  # noqa: E402
 from rag_tpu_torch.models.supernet import NUM_EDGES  # noqa: E402
 from rag_tpu_torch.models.router import (  # noqa: E402
@@ -227,7 +273,9 @@ from rag_tpu_torch.search.mdenas import (  # noqa: E402
 from rag_tpu_torch.train.trainer import (  # noqa: E402
     clone_tree,
     cosine_lr,
+    make_depth_eval_step,
     make_optimizer,
+    make_selfsup_train_step,
     make_train_step,
 )
 
@@ -300,6 +348,47 @@ CLI_KILL_AT = "[train t1] epoch 1 "   # task 1's fine-tune, after epoch 0's file
 CLI_EVAL = {"kitti": (4, 375, 1242, 64.0), "wide": (2, 1024, 2048, 128.0)}
 CLI_EVAL_PAD = (576, 1248)
 PIPE_EPOCHS = 3                    # host-pipeline rate: epochs of 24 pairs
+
+# the selfsup phase: task 2's fine-tune stage of the committed
+# self-supervised run (run_rag_tpu_self.sh: batch 3, 192x384, maxdisp 192),
+# then the self-supervised driver on the learn phase's scenes with the
+# synthetic pretrain set (seed 777) and proxy pairs (seed 888, colour-
+# matched per scene), disparity up to 0.6 maxdisp, run_rag_tpu_self.sh's
+# hyperparameters with epochs cut to 2 (router 1)
+SELF_CKPT = ROOT / "logs" / "canonical_selfsup_r5"
+SELF_B = 3
+SELF_PRETRAIN_PAIRS, SELF_PROXY_PAIRS = 32, 32
+SELF_CFG = SelfSupConfig(
+    cell=CellSearchConfig(epochs=2, batch=8, lr=0.002, lr_a=0.01),
+    op=OpSearchConfig(epochs=2, batch=6, lr=0.001, lr_a=0.01, o_size=10),
+    train=TrainConfig(epochs=2, batch=SELF_B, lr=0.001, weight_decay=0.003),
+    num_tasks=LEARN_TASKS, seed=0, maxdisp=MAXDISP, use_router=True,
+    router_epochs=1, router_batch=8, pretrain_epochs=2, pretrain_batch=8)
+SELF_CUTS = ("scenes 4 -> 2", "cell-search epochs 100 -> 2",
+             "op-search epochs 100 -> 2", "fine-tune epochs 300 -> 2",
+             "pretrain epochs 9 -> 2", "router epochs 3 -> 1",
+             "pairs a scene: 32 train, 8 valid, 8 test",
+             "pretrain and proxy sets 64 -> 32 pairs")
+# the depth phase: the committed 4-task depth run and its router, then the
+# depth driver on two styled depth scenes at the depth variant's 384x768
+# crops (run_rag_tpu_depth.sh: batches 16 / 12 / 8), epochs cut to 2
+DEPTH_CKPT = ROOT / "logs" / "canonical_depth_r3b"
+DEPTH_FRAMES = 4                 # test frames a scene, 480x960
+DEPTH_TRAIN_HW = (384, 768)
+DEPTH_PAIRS = (32, 8, 8)         # train, valid, test (480x960) a scene
+DEPTH_CFG = ExperimentConfig(
+    cell=CellSearchConfig(epochs=2, batch=16, lr=0.002, lr_a=0.01),
+    op=OpSearchConfig(epochs=2, batch=12, lr=0.001, lr_a=0.01, o_size=10),
+    train=TrainConfig(epochs=2, batch=8, lr=0.001, weight_decay=0.003),
+    num_tasks=LEARN_TASKS, seed=0, use_router=True, router_epochs=1,
+    router_batch=8)
+DEPTH_CUTS = ("scenes 4 -> 2", "cell-search epochs 100 -> 2",
+              "op-search epochs 100 -> 2", "fine-tune epochs 400 -> 2",
+              "router epochs 3 -> 1",
+              "pairs a scene: 32 train, 8 valid, 8 test")
+DEPTH_ATOL = 1e-2  # m, a restored path's 480x960 frame, card vs CPU float32:
+                   # ~25 2D conv layers summed in another order, then the
+                   # sigmoid's x80
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -1355,27 +1444,33 @@ def check_weight_pass(dev, rng):
         f"bit at {len(plans)} plans (kernel B's at the eval geometry)")
 
 
-def phase_kernels(args_of, dev, learn_args=None):
+def phase_kernels(args_of, dev, extra_args=None):
     """Every kernel against its plain version: at the recorded main-path
-    calls (timed, with the calls beside them), at the supernet step's calls
-    of the learn phase that the main path does not make (fewer timings,
-    nothing beside), and at the small and exact cases."""
+    calls (timed, with the calls beside them), at the calls of the later
+    phases' paths that the main path does not make (extra_args, {tag:
+    recorded calls}: the learn phase's supernet step, the selfsup phase's
+    photometric step; fewer timings, nothing beside), and at the small and
+    exact cases."""
     results, failures = {}, []
     rng = np.random.default_rng(7)
     check_weight_pass(dev, rng)
     todo = [("main", name, sig, args, kw)
             for (name, sig), (args, kw) in args_of.items()]
-    todo += [("learn", name, sig, args, kw)
-             for (name, sig), (args, kw) in (learn_args or {}).items()
-             if (name, sig) not in args_of]
+    seen = set(args_of)
+    for tag, extra in (extra_args or {}).items():
+        for key, (args, kw) in extra.items():
+            if key not in seen:
+                seen.add(key)
+                todo.append((tag, *key, args, kw))
     todo += [(where, name, KERNELS[name]["sig"](*args), args, {})
              for where, cases in (("small", small_cases(dev, rng)),
                                   ("exact", exact_cases(dev, rng)))
              for name, args in cases]
     for where, name, sig, args, kw in todo:
         main = where == "main"
-        r = check_kernel(name, args, kw, REPS if main else 3 if where ==
-                         "learn" else 5, main, exact=where == "exact")
+        r = check_kernel(name, args, kw, REPS if main else 5 if where in
+                         ("small", "exact") else 3, main,
+                         exact=where == "exact")
         if main:
             results[(name, sig)] = r
         line = {"kernel": name, "at": where, "sig": str(sig),
@@ -1884,10 +1979,11 @@ class Counted:
     def __len__(self):
         return len(self.ds)
 
-    def batches(self, batch_size, shuffle=True, seed=0, **kw):
+    def batches(self, batch_size, shuffle=True, seed=0, *a, **kw):
         key = "trained" if shuffle else "evaluated"
-        for b in self.ds.batches(batch_size, shuffle, seed, **kw):
-            self.counts[key] += int(b["left"].shape[0])
+        for b in self.ds.batches(batch_size, shuffle, seed, *a, **kw):
+            self.counts[key] += int(b["left" if "left" in b
+                                      else "image"].shape[0])
             yield b
 
 
@@ -1954,21 +2050,50 @@ def phase_record_learn(dev, args_of):
     return delta, stats
 
 
+def zero_launches():
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+
+
+def read_launches():
+    return {n: k["wrapper"].launches for n, k in KERNELS.items()}
+
+
+def launch_failures(what, n, must):
+    """The launch gate of one run: each kernel in must launched, no other."""
+    bad = [f"{what}: {k} never launched" for k in must if n[k] <= 0]
+    return bad + [f"{what}: {k} launched {c} times" for k, c in n.items()
+                  if c and k not in must]
+
+
 class StagedDriver(ContinualDriver):
     """The port's ContinualDriver with each stage timed on synchronized
     host clocks, its peak memory and launches read, and the trainable
-    sites of every step it builds kept."""
+    sites of every step it builds kept. Mixed before a variant's driver
+    (class X(StagedDriver, SelfSupContinualDriver)) it stages that one;
+    ``tag`` prefixes its lines. Launches between stages add up in
+    ``outside`` (set every count to 0 before run, then call
+    read_outside)."""
+
+    tag = "learn"
 
     def __init__(self, *a, counts, **kw):
         super().__init__(*a, **kw)
         self.counts = counts
         self.stages, self.cell_searches, self.op_p = [], [], {}
         self._trainable = None
+        self.outside = dict.fromkeys(KERNELS, 0)
+
+    def read_outside(self):
+        """The launches of the last run outside its stages."""
+        for n, c in read_launches().items():
+            self.outside[n] += c
+        zero_launches()
+        return dict(self.outside)
 
     @contextlib.contextmanager
     def _stage(self, name, t, trainable=None):
-        for k in KERNELS.values():
-            k["wrapper"].launches = 0
+        self.read_outside()
         self.counts.update(trained=0, evaluated=0)
         self._trainable = [] if trainable is None else [trainable]
         torch.cuda.synchronize()
@@ -1983,13 +2108,13 @@ class StagedDriver(ContinualDriver):
                "pairs_per_s": (self.counts["trained"]
                                or self.counts["evaluated"]) / sec,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": {n: k["wrapper"].launches
-                            for n, k in KERNELS.items()},
+               "launches": read_launches(),
                "stem_trains": any("stem_3d0" in s for s in self._trainable),
                "features_train": any(s & FEATURE_SITES
                                      for s in self._trainable)}
         self.stages.append(rec)
-        log(f"[learn] t{t} {name}: {sec:.2f} s, {rec['trained_pairs']} "
+        zero_launches()
+        log(f"[{self.tag}] t{t} {name}: {sec:.2f} s, {rec['trained_pairs']} "
             f"pairs trained, {rec['evaluated_pairs']} evaluated, "
             f"{rec['pairs_per_s']:.2f} pairs/s, peak {rec['peak_gb']:.2f} "
             f"GB, launches {json.dumps({n: c for n, c in rec['launches'].items() if c})}"
@@ -2024,7 +2149,7 @@ class StagedDriver(ContinualDriver):
     def fine_tune(self, t, train_data, valid_data):
         with self._stage("train", t, self.net.trainable_sites(t)):
             super().fine_tune(t, train_data, valid_data)
-        log(f"[learn] after task {t}: genotype {self.net.genotypes[t]}, "
+        log(f"[{self.tag}] after task {t}: genotype {self.net.genotypes[t]}, "
             f"archis[{t}] {self.net.archis[t]}, size "
             f"{self.net.size_m():.6f} M params")
 
@@ -2054,25 +2179,22 @@ class Scalars:
         pass
 
 
-def stage_failures(rec):
+def stage_failures(rec, depth=False):
     """The launch gate of one stage: which kernels it must run (E only
-    where a feature-net site trains, F only where stem_3d0 does) and that
-    no other kernel ran."""
+    where a feature-net site trains, F only where stem_3d0 does; the
+    selfsup pretrain as a fine-tune; the depth path none) and that no
+    other kernel ran."""
     name, n = rec["stage"], rec["launches"]
-    if name == "cell":
+    if depth or name == "router":
+        must = ()
+    elif name == "cell":
         must = (KA, KD)
-    elif name in ("op", "train"):
+    elif name in ("op", "train", "pretrain"):
         must = (KA, KB, KC, KD, KG) + ((KE,) if rec["features_train"] else ()) \
             + ((KF,) if rec["stem_trains"] else ())
-    elif name == "router":
-        must = ()
     else:
         must = (KA, KB, KC)
-    what = f"learn t{rec['task']} {name}"
-    bad = [f"{what}: {k} never launched" for k in must if n[k] <= 0]
-    bad += [f"{what}: {k} launched {c} times" for k, c in n.items()
-            if c and k not in must]
-    return bad
+    return launch_failures(f"learn t{rec['task']} {name}", n, must)
 
 
 def phase_learn(dev, plain_step, smi):
@@ -2559,6 +2681,370 @@ def phase_cli(dev, smi):
     return launches, report
 
 
+# -- the selfsup phase -------------------------------------------------------
+
+def self_batch(dev):
+    """Batch 3 of styled synthetic 192x384 pairs of task 2's scene
+    (WEATHER_STYLES[2], train seed 12, disparity up to 64 px), on the card."""
+    ds = SyntheticStereoDataset(SELF_B, TRAIN_H, TRAIN_W, seed=12,
+                                max_disp=LEARN_SCENE_DISP,
+                                style=WEATHER_STYLES[2], device=dev,
+                                cache=DeviceCache())
+    b = next(ds.batches(SELF_B, True, seed=0))
+    return b["left"], b["right"], b["disparity"]
+
+
+def self_config(dev):
+    """Task 2's fine-tune stage of the committed selfsup checkpoint, on a
+    fresh copy: (specs, params, stats, trainable sites)."""
+    net, _ = load_checkpoint(str(SELF_CKPT), 2, device=dev)
+    specs, params, stats = net.path(net.archis[2])
+    return specs, params, stats, net.trainable_sites(2)
+
+
+def self_step(cfg, batch, lr):
+    """One photometric step from a copy of cfg's params: (dp/lr by
+    trainable leaf, new stats by leaf, loss, the updated params)."""
+    specs, params, stats, sites = cfg
+    before = dict(leaves(params))
+    params = clone_tree(params)
+    step = make_selfsup_train_step(specs, sites, make_optimizer(WD),
+                                   maxdisp=MAXDISP)
+    params, new_stats, _, sc = step(params, stats,
+                                    make_optimizer(WD).init(params), lr,
+                                    *batch)
+    return ({k: (v - before[k]) / lr for k, v in leaves(params)
+             if k.split("/")[0] in sites},
+            dict(leaves(new_stats)), float(sc["loss"]), params)
+
+
+def self_expected(sites):
+    return (KA, KB, KC, KD, KG) + ((KE,) if sites & FEATURE_SITES else ()) \
+        + ((KF,) if "stem_3d0" in sites else ())
+
+
+def phase_record_selfsup(dev, args_of):
+    """The photometric step of task 2's stage with the plain versions in
+    the wrappers' places. Returns its dp/lr and statistics."""
+    cfg = self_config(dev)
+    calls = []
+    t0 = time.perf_counter()
+    with recording(calls, args_of):
+        delta, stats, loss, _ = self_step(cfg, self_batch(dev),
+                                          cosine_lr(LR, TRAIN_EPOCHS, 0))
+    torch.cuda.synchronize()
+    n_calls = count_calls(calls)
+    log(f"[record-selfsup] photometric step of task 2's stage ({len(cfg[3])}"
+        f" trainable sites, batch {SELF_B}, {TRAIN_H}x{TRAIN_W}): plain "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms, loss {loss:.4f}, kernel"
+        f" calls {n_calls}")
+    expected = self_expected(cfg[3])
+    check_called("selfsup step", n_calls, expected)
+    return delta, stats
+
+
+class StagedSelfSup(StagedDriver, SelfSupContinualDriver):
+    tag = "selfsup"
+
+    def pretrain(self, t):
+        with self._stage("pretrain", t, self.net.trainable_sites(t)):
+            super().pretrain(t)
+
+
+class StagedDepth(StagedDriver, DepthContinualDriver):
+    tag = "depth"
+
+
+def run_checks(drv, matrix, writer, what, depth=False):
+    """The gates shared by the variant runs: stage launches and none
+    between stages, every logged value finite, zero forgetting in every
+    tracked metric. Returns (failures, forgetting, the stages' launches
+    summed, the launches outside them)."""
+    failures = []
+    stages = dict.fromkeys(KERNELS, 0)
+    for rec in drv.stages:
+        failures += stage_failures(rec, depth)
+        for n, c in rec["launches"].items():
+            stages[n] += c
+    outside = drv.read_outside()
+    failures += launch_failures(f"{what} outside its stages", outside, ())
+    bad_vals = [(tag, k, v) for tag, k, v in writer.values
+                if not np.isfinite(v)]
+    if bad_vals:
+        failures.append(f"{what}: non-finite logged values {bad_vals[:5]}")
+    forget, bad = forgetting_failures(matrix, what)
+    log(f"[{what}] zero forgetting, matrix[1, 0] vs matrix[0, 0]: "
+        f"{json.dumps(forget)}")
+    return failures + bad, forget, stages, outside
+
+
+def phase_selfsup(dev, plain_step, smi):
+    """(a) the photometric step of the committed selfsup checkpoint's task
+    2 through the kernels against the plain step, and its rate; (b)
+    SelfSupContinualDriver.run over two styled scenes with the synthetic
+    pretrain set and the colour-transfer proxy, each stage gated as the
+    learn phase gates it, zero forgetting and the checkpoint round trip."""
+    t_phase = time.perf_counter()
+    failures = []
+    cfg = self_config(dev)
+    batch = self_batch(dev)
+    lr = cosine_lr(LR, TRAIN_EPOCHS, 0)
+    # launches by segment: each set to 0 just before it, read just after
+    segments = {}
+    zero_launches()
+    delta, stats, loss, params = self_step(cfg, batch, lr)
+    cmp, bad = compare_step("selfsup step", delta, stats, plain_step)
+    failures += bad
+    segments["step"] = read_launches()
+    expected = self_expected(cfg[3])
+    failures += launch_failures("selfsup step", segments["step"], expected)
+    specs, _, st, sites = cfg
+    step = make_selfsup_train_step(specs, sites, make_optimizer(WD),
+                                   maxdisp=MAXDISP)
+    opt_state = make_optimizer(WD).init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    zero_launches()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, st, opt_state, sc = step(params, st, opt_state, lr, *batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    segments["timed_steps"] = read_launches()
+    failures += launch_failures("selfsup timed steps",
+                                segments["timed_steps"], expected)
+    ms = float(np.mean(times))
+    step_report = dict(sites=len(sites), loss=loss, ms=times,
+                       ms_per_step=ms, pairs_per_s=SELF_B / (ms / 1e3),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches={n: c for n, c in segments["step"].items()
+                                 if c}, **cmp)
+    if not np.isfinite(float(sc["loss"])):
+        failures.append("selfsup step: non-finite loss")
+    log(f"[selfsup] photometric step, task 2's stage of "
+        f"{SELF_CKPT.relative_to(ROOT)} (batch {SELF_B}, {TRAIN_H}x{TRAIN_W},"
+        f" maxdisp {MAXDISP}): {json.dumps(step_report)}")
+
+    counts = {"trained": 0, "evaluated": 0}
+    train, valid, test = learn_scenes(dev, counts)
+    (hh, ww), cache = LEARN_TRAIN_HW, DeviceCache()
+    aux = [Counted(SyntheticStereoDataset(
+        n, hh, ww, seed=seed, max_disp=MAXDISP * 0.6, device=dev,
+        cache=cache), counts) for n, seed in ((SELF_PRETRAIN_PAIRS, 777),
+                                             (SELF_PROXY_PAIRS, 888))]
+    writer = Scalars()
+    log(f"[selfsup] configuration: {json.dumps(dataclasses.asdict(SELF_CFG))};"
+        f" cut from the canonical run: {'; '.join(SELF_CUTS)}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        drv = StagedSelfSup(SELF_CFG, pretrain_data=aux[0],
+                            proxy_search_data=aux[1], writer=writer, log=log,
+                            checkpoint_dir=ckpt, device=dev, counts=counts)
+        zero_launches()
+        t0 = time.perf_counter()
+        matrix = drv.run(train, valid, test)
+        run_s = time.perf_counter() - t0
+        bad, forget, segments["stages"], segments["outside_stages"] = \
+            run_checks(drv, matrix, writer, "selfsup")
+        failures += bad
+        names = [r["stage"] for r in drv.stages]
+        for stage in ("cell", "pretrain", "op", "train", "router"):
+            if stage not in names:
+                failures.append(f"selfsup: no {stage} stage ran: {names}")
+        zero_launches()
+        back, manifest = load_checkpoint(ckpt, LEARN_TASKS - 1, device=dev)
+        ri = RoutedInference(back, maxdisp=MAXDISP, device=dev)
+        roundtrip = {}
+        for u in range(LEARN_TASKS):
+            got = ri.evaluate(test[u], task=u)
+            err = max(abs(got[k] - matrix.m[k][LEARN_TASKS - 1, u])
+                      / max(abs(matrix.m[k][LEARN_TASKS - 1, u]), 1e-30)
+                      for k in matrix.metric_names)
+            roundtrip[u] = err
+            if not err <= ROUNDTRIP_RTOL:
+                failures.append(f"selfsup checkpoint round trip: task {u} "
+                                f"differs by {err:.3g} relative")
+        torch.cuda.synchronize()
+        segments["roundtrip"] = read_launches()
+        failures += launch_failures("selfsup round trip",
+                                    segments["roundtrip"], (KA, KB, KC))
+        log(f"[selfsup] checkpoint {manifest['extra']['stage']} of task "
+            f"{manifest['task']} reloaded: worst relative difference per task"
+            f" {roundtrip}")
+    launches = {n: sum(seg[n] for seg in segments.values()) for n in KERNELS}
+    log(f"[selfsup] launches by segment: " + json.dumps(
+        {part: {k: c for k, c in n.items() if c} for part, n in segments.items()}))
+    report = {"device": smi, "step": step_report,
+              "config": dataclasses.asdict(SELF_CFG), "cuts": SELF_CUTS,
+              "run_s": run_s, "stages": drv.stages,
+              "genotypes": [str(g) for g in drv.net.genotypes],
+              "archis": drv.net.archis,
+              "matrix": {k: matrix.m[k].tolist() for k in ("D1", "EPE")},
+              "zero_forgetting": forget, "roundtrip_rel": roundtrip,
+              "launches": {k: c for k, c in launches.items() if c},
+              "launches_by_segment": segments,
+              "wall_s": time.perf_counter() - t_phase}
+    log(f"[selfsup] phase wall time {report['wall_s']:.1f} s (driver run "
+        f"{run_s:.1f} s)")
+    if failures:
+        raise SystemExit("chip_smoke: selfsup failed:\n  "
+                         + "\n  ".join(failures))
+    return launches, report
+
+
+# -- the depth phase ---------------------------------------------------------
+
+def depth_scene(dev, t, n, h, w, cache, seed):
+    return SyntheticDepthDataset(n, h, w, seed=seed + t,
+                                 style=WEATHER_STYLES[t % len(WEATHER_STYLES)],
+                                 device=dev, cache=cache)
+
+
+def depth_restored(dev, failures):
+    """(a) The committed depth checkpoint and router on the card: each task
+    path on its scene's frames at 480x960 (depth metrics, ms/frame), one
+    frame a path against the CPU, and the frames routed on the card and
+    on the CPU."""
+    net, manifest = load_checkpoint(str(DEPTH_CKPT), device=dev)
+    cpu_net, _ = load_checkpoint(str(DEPTH_CKPT), device="cpu")
+    router = load_router(str(DEPTH_CKPT), device=dev)
+    cpu_router = load_router(str(DEPTH_CKPT), device="cpu")
+    cache = DeviceCache()
+    paths, frames = {}, []
+    for t in range(len(net.archis)):
+        scene = depth_scene(dev, t, DEPTH_FRAMES, H, W, cache, 30)
+        specs, params, stats = net.path(net.archis[t])
+        step = make_depth_eval_step(specs)
+        batches = list(scene.batches(1, False, drop_last=False))
+        step(params, stats, batches[0]["image"], batches[0]["depth"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [step(params, stats, b["image"], b["depth"]) for b in batches]
+        m = AverageMeterDict().update_batched(outs).mean()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        image = batches[0]["image"]
+        with torch.inference_mode():
+            got, _ = depth_forward(specs, params, stats, image)
+            cspecs, cparams, cstats = cpu_net.path(cpu_net.archis[t])
+            ref, _ = depth_forward(cspecs, cparams, cstats, image.cpu())
+        got = got.cpu()
+        diff = float((got - ref).abs().max())
+        paths[t] = {"metrics": m, "ms_per_frame": ms,
+                    "frames_per_s": 1e3 / ms, "vs_cpu_max_m": diff,
+                    "depth_range": [float(got.min()), float(got.max())]}
+        if not (torch.isfinite(got).all() and diff <= DEPTH_ATOL
+                and all(np.isfinite(v) for v in m.values())):
+            failures.append(f"depth path {t}: vs CPU {diff:.3g} m "
+                            f"(tolerance {DEPTH_ATOL}) or non-finite {m}")
+        frames.append(torch.cat([b["image"] for b in batches]))
+        log(f"[depth] restored task path {t}: {json.dumps(paths[t])}")
+    frames = torch.cat(frames)
+    ids = router.predict(frames)
+    cpu_ids = cpu_router.predict(frames.cpu())
+    truth = np.repeat(np.arange(len(net.archis)), DEPTH_FRAMES)
+    route = {"input_key": router.input_key, "ids_equal_cpu":
+             bool(np.array_equal(ids, cpu_ids)),
+             "accuracy": float((ids == truth).mean())}
+    if router.input_key != "image" or not route["ids_equal_cpu"]:
+        failures.append(f"depth router: {route}, card {ids.tolist()} vs "
+                        f"CPU {cpu_ids.tolist()}")
+    log(f"[depth] committed router on {len(ids)} frames: {json.dumps(route)}")
+    return {"task": manifest["task"], "paths": paths, "router": route}
+
+
+def phase_depth(dev, smi):
+    """(a) the committed depth checkpoint and router on the card; (b)
+    DepthContinualDriver.run over two styled depth scenes, every stage
+    launching no kernel, zero forgetting in all ten metrics and the
+    checkpoint round trip; (c) cli --variant depth --eval-only of the
+    committed checkpoint. Each part sets every launch count to 0 just
+    before it and reads them just after; every count must stay 0."""
+    t_phase = time.perf_counter()
+    failures, segments = [], {}
+    zero_launches()
+    restored = depth_restored(dev, failures)
+    torch.cuda.synchronize()
+    segments["restored"] = read_launches()
+
+    counts = {"trained": 0, "evaluated": 0}
+    cache = DeviceCache()
+    (hh, ww), n_tr, n_va, n_te = DEPTH_TRAIN_HW, *DEPTH_PAIRS
+    mk = lambda n, h, w, seed: [Counted(depth_scene(dev, t, n, h, w, cache,
+                                                    seed), counts)
+                                for t in range(LEARN_TASKS)]
+    train, valid, test = (mk(n_tr, hh, ww, 10), mk(n_va, hh, ww, 20),
+                          mk(n_te, H, W, 30))
+    writer = Scalars()
+    log(f"[depth] configuration: {json.dumps(dataclasses.asdict(DEPTH_CFG))};"
+        f" cut from the canonical run: {'; '.join(DEPTH_CUTS)}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        drv = StagedDepth(DEPTH_CFG, writer=writer, log=log,
+                          checkpoint_dir=ckpt, device=dev, counts=counts)
+        zero_launches()
+        t0 = time.perf_counter()
+        matrix = drv.run(train, valid, test)
+        run_s = time.perf_counter() - t0
+        bad, forget, segments["stages"], segments["outside_stages"] = \
+            run_checks(drv, matrix, writer, "depth", depth=True)
+        failures += bad
+        if set(matrix.metric_names) != {"loss", *DEPTH_METRIC_NAMES}:
+            failures.append(f"depth: matrix tracks {matrix.metric_names}")
+        zero_launches()
+        back, manifest = load_checkpoint(ckpt, LEARN_TASKS - 1, device=dev)
+        roundtrip = {}
+        for u in range(LEARN_TASKS):
+            specs, params, stats = back.path(back.archis[u])
+            step = make_depth_eval_step(specs)
+            got = AverageMeterDict().update_batched(
+                [step(params, stats, b["image"], b["depth"]) for b in
+                 test[u].ds.batches(1, False, drop_last=False)]).mean()
+            err = max(abs(got[k] - matrix.m[k][LEARN_TASKS - 1, u])
+                      / max(abs(matrix.m[k][LEARN_TASKS - 1, u]), 1e-30)
+                      for k in matrix.metric_names)
+            roundtrip[u] = err
+            if manifest["variant"] != "depth" or not err <= ROUNDTRIP_RTOL:
+                failures.append(f"depth checkpoint round trip: task {u} "
+                                f"differs by {err:.3g} relative")
+        log(f"[depth] checkpoint {manifest['extra']['stage']} of task "
+            f"{manifest['task']} reloaded: worst relative difference per task"
+            f" {roundtrip}; router input {drv.router.input_key}")
+        torch.cuda.synchronize()
+        segments["roundtrip"] = read_launches()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["--variant", "depth", "--eval-only", "--checkpoint-dir",
+                    str(DEPTH_CKPT), "--synthetic-size", str(DEPTH_FRAMES),
+                    "--synthetic-hw", str(H), str(W)], device=dev)
+    torch.cuda.synchronize()
+    eval_only = {"s": time.perf_counter() - t0, "metrics": res["synthetic"]}
+    segments["eval_only"] = read_launches()
+    if not all(np.isfinite(v) for v in res["synthetic"].values()):
+        failures.append(f"depth --eval-only: non-finite {res}")
+    log(f"[depth] cli --variant depth --eval-only: {json.dumps(eval_only)}")
+    for part, n in segments.items():
+        failures += launch_failures(f"depth {part}", n, ())
+    launches = {n: sum(seg[n] for seg in segments.values()) for n in KERNELS}
+    log(f"[depth] launches by segment: " + json.dumps(
+        {part: {k: c for k, c in n.items() if c} for part, n in segments.items()}))
+    report = {"device": smi, "restored": restored,
+              "config": dataclasses.asdict(DEPTH_CFG), "cuts": DEPTH_CUTS,
+              "run_s": run_s, "stages": drv.stages,
+              "genotypes": [str(g) for g in drv.net.genotypes],
+              "archis": drv.net.archis,
+              "matrix": {k: matrix.m[k].tolist() for k in ("silog", "d1")},
+              "zero_forgetting": forget, "roundtrip_rel": roundtrip,
+              "eval_only": eval_only, "launches": launches,
+              "launches_by_segment": segments,
+              "wall_s": time.perf_counter() - t_phase}
+    log(f"[depth] phase wall time {report['wall_s']:.1f} s (driver run "
+        f"{run_s:.1f} s)")
+    if failures:
+        raise SystemExit("chip_smoke: depth failed:\n  "
+                         + "\n  ".join(failures))
+    return report
+
+
 def per_key(results, calls, name, field):
     """Sum of a per-call number over one request (or step), averaged over
     the task paths (or configurations) that call the kernel."""
@@ -2654,13 +3140,15 @@ def main() -> int:
     for p in PATHS:
         plain[p], calls[p] = phase_record(ris[p], requests, args_of, p)
         plain_train[p], train_calls[p] = phase_record_train(dev, args_of, p)
-    learn_args = {}
+    learn_args, self_args = {}, {}
     plain_learn = phase_record_learn(dev, learn_args)
+    plain_self = phase_record_selfsup(dev, self_args)
     log(f"[record] {len(args_of)} distinct kernel signatures on the main "
-        f"paths, {len(learn_args)} in the supernet step "
-        f"({time.perf_counter() - t_start:.0f} s)")
-    results = phase_kernels(args_of, dev, learn_args)
-    del args_of, learn_args
+        f"paths, {len(learn_args)} in the supernet step, {len(self_args)} "
+        f"in the photometric step ({time.perf_counter() - t_start:.0f} s)")
+    results = phase_kernels(args_of, dev, {"learn": learn_args,
+                                           "selfsup": self_args})
+    del args_of, learn_args, self_args
     torch.cuda.empty_cache()
     log(f"[kernels] done ({time.perf_counter() - t_start:.0f} s)")
     # launches summed over a kernel's runs; times kept per turn
@@ -2701,6 +3189,12 @@ def main() -> int:
     n, cli_report = phase_cli(dev, smi)
     launches = {k: launches[k] + n[k] for k in KERNELS}
     torch.cuda.empty_cache()
+    n, self_report = phase_selfsup(dev, plain_self, smi)
+    launches = {k: launches[k] + n[k] for k in KERNELS}
+    del plain_self
+    torch.cuda.empty_cache()
+    depth_report = phase_depth(dev, smi)
+    torch.cuda.empty_cache()
     if opts.profile is not None:
         phase_profile(ris, requests, dev, opts.profile)
 
@@ -2727,7 +3221,9 @@ def main() -> int:
         "and averaged over the task paths of their path; every kernel's "
         "\"train_step\" or own numbers: per step of task 0's stage; "
         "launches: every serve, route and train run of both paths, the "
-        "learn run and the cli runs")
+        "learn run, the cli runs and the selfsup phase (its compared step, "
+        "its timed steps, its driver run and its round trip); the depth "
+        "phase launches none")
     log("[report] ms/request (default turns 1, 4 / variants turns 2, 3): "
         + side_by_side(per_task, "ms_per_request"))
     log("[report] peak GB per request (default / variants): "
@@ -2746,6 +3242,8 @@ def main() -> int:
                                 "turns": {p: per_route[p] for p in PATHS}}}))
     print(json.dumps({"learn": learn}))
     print(json.dumps({"cli": cli_report}))
+    print(json.dumps({"selfsup": self_report}))
+    print(json.dumps({"depth": depth_report}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ of that path (three forward, four backward) rewritten by hand in CUDA C++
 path. ``python -m rag_tpu_torch.cli`` runs an experiment from filename
 lists (``data.stereo_dataset``, ``data.manifests``; the native loader of
 ``runtime.native``) or styled synthetic scenes (``data.synthetic``), with
-stage files and resume. The package imports torch, numpy and PIL, never
-jax or rag_tpu.
+stage files and resume. The self-supervised (``continual.
+self_supervised``) and monocular-depth (``continual.depth_driver``)
+variants run through the same driver's hooks. The package imports torch,
+numpy and PIL, never jax or rag_tpu.
 """

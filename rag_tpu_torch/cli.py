@@ -1,22 +1,26 @@
-"""The experiment CLI (stereo): ``python -m rag_tpu_torch.cli``.
+"""The experiment CLI: ``python -m rag_tpu_torch.cli``.
 
 Counterpart of rag_tpu/cli.py, with every flag and default of its parser.
 One run: filename lists (``--train-lists`` / ``--test-lists``, or a
 ``--filenames-dir`` of per-scene DrivingStereo lists as
 ``python -m rag_tpu_torch.data.manifests`` writes them) or styled
-synthetic scenes -> datasets -> ``ContinualDriver.run`` with stage
+synthetic scenes -> datasets -> the variant's driver's ``run`` with stage
 checkpoints and ``--resume`` -> ``{output}/{experiment}_rag_{seed}_{id}/
-result.json``, as rag_tpu writes it. ``--eval-only`` evaluates a
-checkpoint over ``--eval-lists`` (or a synthetic scene) instead.
+result.json``, as rag_tpu writes it. ``--variant`` picks the driver:
+``stereo`` (ContinualDriver), ``selfsup`` (SelfSupContinualDriver, with
+a supervised pretrain set and colour-transfer proxy pairs from
+``--pretrain-list`` / ``--proxy-list`` or synthetic stand-ins) or
+``depth`` (DepthContinualDriver on depth lists or synthetic depth
+scenes). ``--eval-only`` evaluates a checkpoint over ``--eval-lists``
+(or a synthetic scene) instead: stereo or depth, as its manifest says.
 
 The run is on the card: ``main`` raises where CUDA is not available and
 never carries on on the CPU; ``main(argv, device="cpu")`` runs it on the
 CPU (the tests do). The kernels are the default path's
 (``KernelVariants()``): rag_tpu picks its variants through environment
 switches, which the port does not read. The flags of parts not ported
-yet raise NotImplementedError before any work: ``--variant selfsup`` and
-``depth``, ``--mesh`` over more than one device, ``--scene-parallel-search``,
-``--bf16``, and ``--eval-only`` of a depth checkpoint.
+yet raise NotImplementedError before any work: ``--mesh`` over more than
+one device, ``--scene-parallel-search`` and ``--bf16``.
 
 The styled synthetic scenes take WEATHER_STYLES[t % 4], as in rag_tpu, so
 scenes t and t + 4 share a style.
@@ -44,8 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--id", default="0")
     p.add_argument("--output", default="logs")
     p.add_argument("--variant", choices=["stereo", "selfsup", "depth"],
-                   default="stereo",
-                   help="only stereo is ported; the others raise")
+                   default="stereo")
 
     # data
     p.add_argument("--data-root", default="", help="prefix for filename lists")
@@ -89,12 +92,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.001)
     p.add_argument("--lamb", type=float, default=0.003)
 
-    # self-supervised variant (not ported yet; parsed as rag_tpu parses them)
-    p.add_argument("--pretrain-epochs", type=int, default=9)
+    # self-supervised variant: a supervised pretrain before each task's
+    # photometric fine-tune, op search on colour-matched proxy pairs
+    p.add_argument("--pretrain-epochs", type=int, default=9,
+                   help="selfsup: supervised pretrain epochs per task")
     p.add_argument("--pretrain-batch", type=int, default=8)
     p.add_argument("--pretrain-lr", type=float, default=0.001)
-    p.add_argument("--pretrain-list", default="")
-    p.add_argument("--proxy-list", default="")
+    p.add_argument("--pretrain-list", default="",
+                   help="selfsup: filename list of the supervised pretrain "
+                        "set; synthetic stand-in when omitted")
+    p.add_argument("--proxy-list", default="",
+                   help="selfsup: filename list of the op-search proxy "
+                        "pairs, colour-matched to each scene's left frames; "
+                        "synthetic stand-in when omitted")
 
     p.add_argument("--num-tasks", type=int, default=4)
     p.add_argument("--maxdisp", type=int, default=192,
@@ -145,9 +155,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """NotImplementedError for a flag whose part is not ported yet."""
-    if args.variant != "stereo":
-        raise NotImplementedError(f"--variant {args.variant}: "
-                                  + UNPORTED.format(6))
     if args.mesh and int(np.prod(args.mesh)) > 1:
         raise NotImplementedError(f"--mesh {args.mesh}: " + UNPORTED.format(7))
     if args.scene_parallel_search:
@@ -161,8 +168,8 @@ def eval_only(args, device="cuda"):
     """Evaluate the checkpoint in --checkpoint-dir over each eval list
     (padded to --eval-pad, default 576x1248, wide frames resized) or a
     synthetic scene: routed per frame with --use-router and a saved
-    router, else on --eval-task's path (default 0). Returns {name:
-    scalars}."""
+    router, else on --eval-task's path (default 0); a depth checkpoint
+    through depth_eval_only. Returns {name: scalars}."""
     from rag_tpu_torch.continual.inference import RoutedInference
     from rag_tpu_torch.continual.state import (
         latest_task,
@@ -175,15 +182,11 @@ def eval_only(args, device="cuda"):
     last = latest_task(args.checkpoint_dir)
     if last is None:
         raise FileNotFoundError(f"no checkpoints in {args.checkpoint_dir}")
-    with open(os.path.join(args.checkpoint_dir,
-                           f"manifest_task{last}.json")) as f:
-        variant = json.load(f).get("variant", "stereo")
-    if variant != "stereo":
-        raise NotImplementedError(f"--eval-only of a {variant} checkpoint: "
-                                  + UNPORTED.format(6))
     net, manifest = load_checkpoint(args.checkpoint_dir, last, device=device)
     print(f"loaded checkpoint after task {manifest['task']}; "
           f"{len(net.archis)} task paths, {net.size_m():.3f} M params")
+    if manifest.get("variant", "stereo") == "depth":
+        return depth_eval_only(args, net, device)
 
     router = None
     if args.use_router:
@@ -220,6 +223,40 @@ def eval_only(args, device="cuda"):
               f"EPE {scalars.get('EPE', 0):.3f} "
               f"loss {scalars.get('loss', 0):.3f}")
         results[name] = scalars
+    return results
+
+
+def depth_eval_only(args, net, device="cuda"):
+    """Evaluate a depth checkpoint's --eval-task path (default 0) over each
+    eval list (depth lists, padded to 480x960) or a synthetic depth scene.
+    Returns {name: depth metrics}."""
+    from rag_tpu_torch.metrics.meters import AverageMeterDict
+    from rag_tpu_torch.train.trainer import make_depth_eval_step
+
+    if args.eval_lists:
+        from rag_tpu_torch.data.depth_dataset import DepthDataset
+
+        datasets = [(f, DepthDataset(f, False, root=args.data_root,
+                                     device=device))
+                    for f in args.eval_lists]
+    else:
+        from rag_tpu_torch.continual.depth_driver import SyntheticDepthDataset
+
+        h, w = args.synthetic_hw
+        datasets = [("synthetic", SyntheticDepthDataset(
+            args.synthetic_size, h, w, seed=123, device=device))]
+
+    specs, params, stats = net.path(net.archis[args.eval_task or 0])
+    step = make_depth_eval_step(specs)
+    results = {}
+    for name, ds in datasets:
+        v = AverageMeterDict().update_batched(
+            [step(params, stats, b["image"], b["depth"])
+             for b in ds.batches(1, False, seed=0, drop_last=False)]).mean()
+        results[name] = v
+        print(f"{name}: silog {v.get('silog', 0):.3f} "
+              f"abs_rel {v.get('abs_rel', 0):.3f} rms {v.get('rms', 0):.3f} "
+              f"d1 {v.get('d1', 0):.3f}")
     return results
 
 
@@ -268,13 +305,76 @@ def make_datasets(args, device="cuda"):
     return train, valid, test
 
 
+def make_depth_datasets(args, device="cuda"):
+    """(train, valid, test) per scene for the depth variant: depth filename
+    lists (from --filenames-dir when no --train-lists), or styled
+    synthetic depth scenes with --synthetic or without lists."""
+    if args.filenames_dir and not args.train_lists:
+        from rag_tpu_torch.data.manifests import scene_lists
+
+        tr, te = scene_lists(args.filenames_dir)
+        args.train_lists = tr[:args.num_tasks]
+        args.test_lists = te[:args.num_tasks]
+    if args.synthetic or not args.train_lists:
+        from rag_tpu_torch.continual.depth_driver import SyntheticDepthDataset
+        from rag_tpu_torch.data.synthetic import WEATHER_STYLES
+
+        h, w = args.synthetic_hw
+        eh, ew = args.synthetic_eval_hw or (h, w)
+        en = args.synthetic_eval_size or args.synthetic_size
+        sty = lambda t: WEATHER_STYLES[t % len(WEATHER_STYLES)]
+        mk = lambda s, n, hh, ww, t: SyntheticDepthDataset(
+            n, hh, ww, seed=s, style=sty(t), device=device)
+        train = [mk(10 + t, args.synthetic_size, h, w, t)
+                 for t in range(args.num_tasks)]
+        valid = [mk(20 + t, args.synthetic_size, h, w, t)
+                 for t in range(args.num_tasks)]
+        test = [mk(30 + t, en, eh, ew, t) for t in range(args.num_tasks)]
+        return train, valid, test
+
+    from rag_tpu_torch.data.depth_dataset import DepthDataset
+
+    mk = lambda f, training: DepthDataset(f, training, root=args.data_root,
+                                          device=device)
+    return ([mk(f, True) for f in args.train_lists],
+            [mk(f, False) for f in args.train_lists],
+            [mk(f, False) for f in args.test_lists or args.train_lists])
+
+
+def make_selfsup_aux(args, device="cuda"):
+    """(pretrain_data, proxy_search_data) of the selfsup variant: the
+    --pretrain-list and --proxy-list files as training StereoDatasets, or
+    synthetic stand-ins (seeds 777 and 888, disparity up to 0.6 maxdisp)."""
+    from rag_tpu_torch.data.stereo_dataset import StereoDataset
+    from rag_tpu_torch.data.synthetic import SyntheticStereoDataset
+
+    h, w = args.synthetic_hw
+
+    def one(lst, seed):
+        if lst:
+            return StereoDataset(lst, True, root=args.data_root, device=device)
+        return SyntheticStereoDataset(args.synthetic_size, h, w, seed=seed,
+                                      max_disp=args.maxdisp * 0.6,
+                                      device=device)
+
+    return one(args.pretrain_list, 777), one(args.proxy_list, 888)
+
+
 def make_config(args):
-    """The ExperimentConfig of a run, as rag_tpu's main builds it."""
+    """The run's ExperimentConfig (SelfSupConfig for --variant selfsup),
+    as rag_tpu's main builds it."""
     from rag_tpu_torch.continual.driver import ExperimentConfig, TrainConfig
+    from rag_tpu_torch.continual.self_supervised import SelfSupConfig
     from rag_tpu_torch.search.growth import OpSearchConfig
     from rag_tpu_torch.search.mdenas import CellSearchConfig
 
-    return ExperimentConfig(
+    cfg_cls, extra = ExperimentConfig, {}
+    if args.variant == "selfsup":
+        cfg_cls = SelfSupConfig
+        extra = dict(pretrain_epochs=args.pretrain_epochs,
+                     pretrain_batch=args.pretrain_batch,
+                     pretrain_lr=args.pretrain_lr)
+    return cfg_cls(
         cell=CellSearchConfig(epochs=args.c_epochs, batch=args.c_batch,
                               lr=args.c_lr, lr_a=args.c_lr_a,
                               weight_decay=args.c_lamb, seed=args.seed),
@@ -290,13 +390,36 @@ def make_config(args):
         maxdisp=args.maxdisp,
         use_router=args.train_router,
         router_epochs=args.router_epochs,
+        **extra,
     )
+
+
+def make_driver(args, device="cuda", driver_cls=None, **kw):
+    """(driver, (train, valid, test)) of the run's variant. ``driver_cls``
+    replaces the variant's driver class (a subclass of it)."""
+    from rag_tpu_torch.continual.depth_driver import DepthContinualDriver
+    from rag_tpu_torch.continual.driver import ContinualDriver
+    from rag_tpu_torch.continual.self_supervised import SelfSupContinualDriver
+
+    cfg = make_config(args)
+    if args.variant == "depth":
+        data = make_depth_datasets(args, device)
+        return (driver_cls or DepthContinualDriver)(cfg, device=device,
+                                                    **kw), data
+    data = make_datasets(args, device)
+    if args.variant == "selfsup":
+        pretrain, proxy = make_selfsup_aux(args, device)
+        return (driver_cls or SelfSupContinualDriver)(
+            cfg, pretrain_data=pretrain, proxy_search_data=proxy,
+            device=device, **kw), data
+    return (driver_cls or ContinualDriver)(cfg, device=device, **kw), data
 
 
 def main(argv=None, device="cuda", driver_cls=None, log=print):
     """Run the CLI on ``device``. Returns the ForgettingMatrix of a
-    training run, or --eval-only's {name: scalars}. ``driver_cls``
-    (default ContinualDriver) and ``log`` let a caller observe the run."""
+    training run, or --eval-only's {name: scalars}. ``driver_cls`` (a
+    subclass of the variant's driver) and ``log`` let a caller observe the
+    run."""
     args = build_parser().parse_args(argv)
     check_ported(args)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -305,16 +428,14 @@ def main(argv=None, device="cuda", driver_cls=None, log=print):
                            "on the CPU")
     if args.eval_only:
         return eval_only(args, device)
-    from rag_tpu_torch.continual.driver import ContinualDriver
     from rag_tpu_torch.utils.logging import MetricWriter
 
     exp_name = f"{args.experiment}_rag_{args.seed}_{args.id}"
     log_dir = os.path.join(args.output, exp_name)
     writer = MetricWriter(log_dir, echo=False)
-    driver = (driver_cls or ContinualDriver)(
-        make_config(args), writer=writer, log=log,
-        checkpoint_dir=args.checkpoint_dir or None, device=device)
-    train, valid, test = make_datasets(args, device)
+    driver, (train, valid, test) = make_driver(
+        args, device, driver_cls, writer=writer, log=log,
+        checkpoint_dir=args.checkpoint_dir or None)
 
     driver.stage_checkpoint_every = args.stage_checkpoint_every
     tstart = time.time()
@@ -322,12 +443,20 @@ def main(argv=None, device="cuda", driver_cls=None, log=print):
 
     # every tracked forgetting matrix lands in result.json
     result = {k: matrix.m[k].tolist() for k in matrix.metric_names}
-    print("D1 matrix (%):\n" + matrix.format("D1", scale=100, fmt="{:6.2f}"))
-    print("EPE matrix:\n" + matrix.format("EPE"))
-    print(f"Mean D1 after {args.num_tasks} tasks: "
-          f"{100 * matrix.mean_final('D1'):.2f}%")
-    print(f"Forgetting (D1): {100 * matrix.forgetting('D1'):.2f}%")
-    result["mean_D1"] = matrix.mean_final("D1")
+    if args.variant != "depth":
+        print("D1 matrix (%):\n" + matrix.format("D1", scale=100,
+                                                 fmt="{:6.2f}"))
+        print("EPE matrix:\n" + matrix.format("EPE"))
+        print(f"Mean D1 after {args.num_tasks} tasks: "
+              f"{100 * matrix.mean_final('D1'):.2f}%")
+        print(f"Forgetting (D1): {100 * matrix.forgetting('D1'):.2f}%")
+        result["mean_D1"] = matrix.mean_final("D1")
+    else:
+        print("silog matrix:\n" + matrix.format("silog"))
+        print("delta1 matrix:\n" + matrix.format("d1"))
+        print(f"Mean silog after {args.num_tasks} tasks: "
+              f"{matrix.mean_final('silog'):.3f}")
+        result["mean_silog"] = matrix.mean_final("silog")
     print(f"Model size: {driver.net.size_m():.3f} M params")
     print(f"Elapsed: {(time.time() - tstart) / 3600:.2f} h")
 

@@ -27,10 +27,20 @@ task at its fine-tune (from its stage file), a "trained" task at the
 evaluations it has not done, a "task_done" one at the next task, and a
 router trained before the last finished task is trained again.
 
-Not ported: meshes and scene-parallel search, and the depth and
-self-supervised variants; ``ExperimentConfig`` has no fields for them.
-The driver runs on ``device`` with the kernels ``variants`` picks; the
-datasets' batches must be tensors on that device.
+The variants differ from this driver in hooks only, so the pipeline, the
+stage files and resume exist once: ``_new_net`` (the registry's class),
+``_cell_search_cls``, ``_op_search_cfg``, ``_search_data_for`` and
+``_op_search_variant`` (the op search's config, data and steps),
+``_pre_finetune``, ``_ft_steps`` and ``_ft_tag`` (the fine-tune's steps
+and log), ``_eval_step_for`` and ``_batch_args``, ``router_input``, and
+``headline`` with ``_head_text`` (the metric the logs and the router
+report lead with). The self-supervised driver
+(continual.self_supervised) and the depth driver (continual.depth_driver)
+override them.
+
+Not ported: meshes and scene-parallel search; ``ExperimentConfig`` has no
+fields for them. The driver runs on ``device`` with the kernels
+``variants`` picks; the datasets' batches must be tensors on that device.
 """
 
 from __future__ import annotations
@@ -125,6 +135,8 @@ def _load_finetune_state(path, template, device):
 
 
 class ContinualDriver:
+    router_input = "left"   # the batch key the Scene Router routes on
+
     def __init__(self, config: ExperimentConfig,
                  writer: Optional[MetricWriter] = None,
                  log: Optional[Callable] = print,
@@ -156,6 +168,56 @@ class ContinualDriver:
         self._resume_stage: Optional[str] = None
         self._resume_task: Optional[int] = None
 
+    # -- variant hooks -----------------------------------------------------
+
+    def _new_net(self, genotype, seed: int):
+        return GrowableStereoNet.initial(genotype, seed, self.device)
+
+    def _cell_search_cls(self):
+        return CellSearch
+
+    def _op_search_cfg(self) -> OpSearchConfig:
+        return dataclasses.replace(self.cfg.op, maxdisp=self.cfg.maxdisp)
+
+    def _search_data_for(self, t: int, train_data):
+        """The data the op search trains and scores on."""
+        return train_data
+
+    def _op_search_variant(self) -> str:
+        """The key of search.growth.VARIANTS the op search steps with."""
+        return "stereo"
+
+    def _pre_finetune(self, t: int) -> None:
+        """Runs before task t's fine-tune."""
+
+    def _ft_steps(self, specs, trainable, optimizer):
+        """(train step, eval step) of the fine-tune: BatchNorm trains and
+        params update on the task's trainable sites."""
+        return (make_train_step(specs, trainable, optimizer,
+                                maxdisp=self.cfg.maxdisp,
+                                variants=self.variants),
+                make_eval_step(specs, maxdisp=self.cfg.maxdisp,
+                               variants=self.variants))
+
+    def _eval_step_for(self, specs):
+        return make_eval_step(specs, maxdisp=self.cfg.maxdisp,
+                              variants=self.variants)
+
+    @staticmethod
+    def _batch_args(b):
+        return (b["left"], b["right"], b["disparity"])
+
+    def _ft_tag(self) -> str:
+        return "train"
+
+    # the metric the router report and the final mean lead with
+    headline = "D1"
+
+    @staticmethod
+    def _head_text(v) -> str:
+        """The log text of the headline metrics of scalars v."""
+        return f"D1 {100*v.get('D1', 0):.2f}% EPE {v.get('EPE', 0):.3f}"
+
     # -- stages ------------------------------------------------------------
 
     def _stage_ckpt(self, name: str) -> Optional[str]:
@@ -168,22 +230,21 @@ class ContinualDriver:
 
     def _cell_search(self, t: int) -> CellSearch:
         """Task t's cell search on a fresh supernet seeded cell.seed + t."""
-        return CellSearch(dataclasses.replace(self.cfg.cell,
-                                              seed=self.cfg.cell.seed + t,
-                                              maxdisp=self.cfg.maxdisp),
-                          log=self.log, device=self.device,
-                          variants=self.variants)
+        cfg = dataclasses.replace(self.cfg.cell, seed=self.cfg.cell.seed + t,
+                                  maxdisp=self.cfg.maxdisp)
+        return self._cell_search_cls()(cfg, log=self.log, device=self.device,
+                                       variants=self.variants)
 
     def _op_search(self) -> OpSearch:
-        return OpSearch(self.net, dataclasses.replace(
-            self.cfg.op, maxdisp=self.cfg.maxdisp), log=self.log,
-            variants=self.variants)
+        return OpSearch(self.net, self._op_search_cfg(), log=self.log,
+                        variants=self.variants,
+                        variant=self._op_search_variant())
 
     def _grow(self, t: int, genotype) -> None:
         """Task 0: a new net; t > 0: expand it. Drawn from seed + 31 t."""
         seed = self.cfg.seed + 31 * t
         if t == 0:
-            self.net = GrowableStereoNet.initial(genotype, seed, self.device)
+            self.net = self._new_net(genotype, seed)
         else:
             self.net.expand(t, genotype, seed)
 
@@ -228,6 +289,7 @@ class ContinualDriver:
             self.log(f"[task {t}] resumed post-select; fine-tune only")
             self.writer.scalars("model_size_m",
                                 {"params_m": self.net.size_m()}, step=t)
+            self._pre_finetune(t)
             self.fine_tune(t, train_data, valid_data)
             return
         genotype = self.search_cell(t, train_data)
@@ -235,7 +297,8 @@ class ContinualDriver:
         if t > 0:
             ckpt = self._stage_ckpt(f"opsearch_t{t}.npz")
             self._op_search().search(
-                t, train_data, writer=self.writer, checkpoint_path=ckpt,
+                t, self._search_data_for(t, train_data), writer=self.writer,
+                checkpoint_path=ckpt,
                 checkpoint_every=self.stage_checkpoint_every,
                 resume=bool(ckpt and os.path.exists(ckpt)))
             if ckpt and os.path.exists(ckpt):
@@ -246,6 +309,7 @@ class ContinualDriver:
         self._save(t, "selected")
         self.writer.scalars("model_size_m", {"params_m": self.net.size_m()},
                             step=t)
+        self._pre_finetune(t)
         self.fine_tune(t, train_data, valid_data)
 
     def fine_tune(self, t: int, train_data, valid_data):
@@ -259,12 +323,9 @@ class ContinualDriver:
         trainable = net.trainable_sites(t)
         specs, params, stats = net.path(arch)
         optimizer = make_optimizer(cfg.weight_decay, cfg.grad_clip)
-        train_step = make_train_step(specs, trainable, optimizer,
-                                     maxdisp=self.cfg.maxdisp,
-                                     variants=self.variants)
-        eval_step = make_eval_step(specs, maxdisp=self.cfg.maxdisp,
-                                   variants=self.variants)
+        train_step, eval_step = self._ft_steps(specs, trainable, optimizer)
         opt_state = optimizer.init(params)
+        tag = self._ft_tag()
 
         best_loss = np.inf
         # copies: the train step updates params in place
@@ -275,7 +336,7 @@ class ContinualDriver:
             params, stats, opt_state, best, best_loss, start_epoch = \
                 _load_finetune_state(ckpt, (params, stats, opt_state),
                                      self.device)
-            self.log(f"[train t{t}] resumed at epoch {start_epoch}")
+            self.log(f"[{tag} t{t}] resumed at epoch {start_epoch}")
 
         def batches(data):
             return [eval_step(params, stats, *self._batch_args(b))
@@ -288,12 +349,12 @@ class ContinualDriver:
                     params, stats, opt_state, lr, *self._batch_args(b))
             tv = AverageMeterDict().update_batched(batches(train_data)).mean()
             v = AverageMeterDict().update_batched(batches(valid_data)).mean()
-            self.log(f"[train t{t}] epoch {epoch} lr {lr:.5f} "
+            self.log(f"[{tag} t{t}] epoch {epoch} lr {lr:.5f} "
                      f"train loss {tv.get('loss', 0):.3f} "
                      f"valid loss {v.get('loss', 0):.3f} "
-                     f"D1 {100*v.get('D1', 0):.1f}% EPE {v.get('EPE', 0):.3f}")
-            self.writer.scalars(f"train/task{t}", v, step=epoch)
-            self.writer.scalars(f"train/task{t}_trainset", tv, step=epoch)
+                     + self._head_text(v))
+            self.writer.scalars(f"{tag}/task{t}", v, step=epoch)
+            self.writer.scalars(f"{tag}/task{t}_trainset", tv, step=epoch)
             if v.get("loss", np.inf) < best_loss:
                 best_loss = v.get("loss", np.inf)
                 best = (clone_tree(params), stats)
@@ -308,21 +369,16 @@ class ContinualDriver:
         if ckpt and os.path.exists(ckpt):
             os.remove(ckpt)
 
-    @staticmethod
-    def _batch_args(b):
-        return (b["left"], b["right"], b["disparity"])
-
-    def _eval_step_for(self, specs):
+    def _cached_eval_step(self, specs):
         key = _arch_key(specs)
         if key not in self._eval_cache:
-            self._eval_cache[key] = make_eval_step(
-                specs, maxdisp=self.cfg.maxdisp, variants=self.variants)
+            self._eval_cache[key] = self._eval_step_for(specs)
         return self._eval_cache[key]
 
     def evaluate(self, u: int, test_data, batch: int = 1):
         """Task u's test metrics on its stored path."""
         specs, params, stats = self.net.path(self.net.archis[u])
-        eval_step = self._eval_step_for(specs)
+        eval_step = self._cached_eval_step(specs)
         m = AverageMeterDict().update_batched(
             [eval_step(params, stats, *self._batch_args(b))
              for b in test_data.batches(batch, False, seed=0,
@@ -336,6 +392,7 @@ class ContinualDriver:
             return
         if self.router is None:
             self.router = SceneRouter(self.cfg.num_tasks, seed=self.cfg.seed,
+                                      input_key=self.router_input,
                                       device=self.device)
         self.router.train(train_datasets[:t + 1],
                           epochs=self.cfg.router_epochs,
@@ -355,8 +412,8 @@ class ContinualDriver:
             t = min(int(pred[0]), n - 1)
             confusion[u, t] += 1
             specs, params, stats = self.net.path(self.net.archis[t])
-            scalars = self._eval_step_for(specs)(params, stats,
-                                                 *self._batch_args(b))
+            scalars = self._cached_eval_step(specs)(params, stats,
+                                                    *self._batch_args(b))
             m.update({k: float(v) for k, v in scalars.items()})
         return m.mean()
 
@@ -379,15 +436,16 @@ class ContinualDriver:
                   "confusion": confusion.tolist(),
                   "router_accuracy": float(np.trace(confusion)
                                            / max(confusion.sum(), 1))}
-        delta = float(np.mean(report["routed"]["D1"])
-                      - np.mean(report["oracle"]["D1"]))
-        report["routed_minus_oracle_D1"] = delta
-        report["routed_D1"] = report["routed"]["D1"]
-        report["oracle_D1"] = report["oracle"]["D1"]
+        head = self.headline
+        delta = float(np.mean(report["routed"][head])
+                      - np.mean(report["oracle"][head]))
+        report[f"routed_minus_oracle_{head}"] = delta
+        report[f"routed_{head}"] = report["routed"][head]
+        report[f"oracle_{head}"] = report["oracle"][head]
         self.log(
-            f"[router] routed-vs-oracle D1 delta {delta:+.4f} "
-            f"(routed {[f'{x:.4f}' for x in report['routed']['D1']]} "
-            f"oracle {[f'{x:.4f}' for x in report['oracle']['D1']]}); "
+            f"[router] routed-vs-oracle {head} delta {delta:+.4f} "
+            f"(routed {[f'{x:.4f}' for x in report['routed'][head]]} "
+            f"oracle {[f'{x:.4f}' for x in report['oracle'][head]]}); "
             f"confusion diag {np.diag(confusion).tolist()} of "
             f"{confusion.sum(axis=1).tolist()}")
         self.router_eval = report
@@ -462,8 +520,7 @@ class ContinualDriver:
                 row[u] = scalars
                 self.matrix.record(t, u, scalars)
                 self.log(f">>> after task {t}: test task {u} "
-                         f"D1 {100*scalars['D1']:.2f}% "
-                         f"EPE {scalars.get('EPE', 0):.3f}")
+                         f"{self._head_text(scalars)}")
                 self.writer.scalars("test", {f"task{u}_{k}": v
                                              for k, v in scalars.items()},
                                     step=t)
@@ -479,7 +536,7 @@ class ContinualDriver:
         if self.cfg.use_router and self.router is not None:
             self.router_report(test_datasets)
         hours = (time.time() - tstart) / 3600
-        self.log(f"mean D1 after {self.cfg.num_tasks} tasks: "
-                 f"{self.matrix.mean_final('D1'):.4f}  "
+        self.log(f"mean {self.headline} after {self.cfg.num_tasks} tasks: "
+                 f"{self.matrix.mean_final(self.headline):.4f}  "
                  f"elapsed {hours:.2f} h")
         return self.matrix

@@ -1,18 +1,22 @@
-"""Checkpoints of the growable stereo network (both sides) and the Scene
+"""Checkpoints of the growable network (both sides) and the Scene
 Router's file.
 
 Counterpart of rag_tpu/continual/state.py::save_checkpoint,
-load_checkpoint, save_router and load_router (stereo). A checkpoint after
+load_checkpoint, save_router and load_router, for the stereo and depth
+registries. A checkpoint after
 task t is ``manifest_task{t}.json`` (genotypes, per-site candidate counts
 and birth tasks, per-task arch maps, the search probabilities ``p``, the
 units the latest task trains, and the caller's ``extra``) plus
 ``arrays_task{t}.npz``, every parameter/stat leaf under
-``units/{site}/{i}/{params|stats}/...`` and ``heads/{head}/{i}/...``; the
+``units/{site}/{i}/{params|stats}/...`` and ``heads/{head}/{i}/...``,
+and for a depth net (manifest ``variant: "depth"``) the shared head's
+``depth_head/params/{bias1,w}`` (it has no statistics); the
 router is one ``router.npz`` beside it (``num_tasks``, ``input_key``,
 ``trained_task`` and the ``router_leaf_{i}`` of
 ``SceneRouter.state_arrays``). Both packages read each other's files:
 the same keys, dtypes and shapes. Arrays go straight to tensors on the
-requested device.
+requested device. A depth checkpoint rebuilds its units with the depth
+spec builders (2D matching stems and cells).
 
 The mid-stage state files of the searches and the fine-tune use two
 layouts, each as rag_tpu writes it: ``leaf_{i}`` arrays in
@@ -33,16 +37,16 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from rag_tpu_torch.convert import to_torch
+from rag_tpu_torch.convert import depth_head_to_torch, to_torch
 from rag_tpu_torch.convert import unflatten as _unflatten  # _flatten's reader
-from rag_tpu_torch.models.growable import GrowableStereoNet, Unit
-from rag_tpu_torch.models.router import SceneRouter
-from rag_tpu_torch.models.stereo import (
-    HEAD_NAMES,
-    SITE_NAMES,
-    build_head_specs,
-    build_site_specs,
+from rag_tpu_torch.models.depth import DEPTH_HEAD_SPEC
+from rag_tpu_torch.models.growable import (
+    GrowableDepthNet,
+    GrowableStereoNet,
+    Unit,
 )
+from rag_tpu_torch.models.router import SceneRouter
+from rag_tpu_torch.models.stereo import HEAD_NAMES, SITE_NAMES
 from rag_tpu_torch.ops.cell import canonicalize_gene
 from rag_tpu_torch.search.genotype import Genotype
 from rag_tpu_torch.train.trainer import _leaves
@@ -149,7 +153,7 @@ def save_checkpoint(directory: str, net: GrowableStereoNet, task: int,
     os.makedirs(directory, exist_ok=True)
     manifest = {
         "task": task,
-        "variant": "stereo",
+        "variant": net.variant,
         "genotypes": [_geno_json(g) for g in net.genotypes],
         "archis": net.archis,
         "lengths": {s: len(net.units[s]) for s in SITE_NAMES},
@@ -176,6 +180,9 @@ def save_checkpoint(directory: str, net: GrowableStereoNet, task: int,
             for i, u in enumerate(store[name]):
                 _flatten(u.params, f"{kind}/{name}/{i}/params", arrays)
                 _flatten(u.stats, f"{kind}/{name}/{i}/stats", arrays)
+    if net.variant == "depth":
+        _flatten(net.depth_head.params, "depth_head/params", arrays)
+        _flatten(net.depth_head.stats, "depth_head/stats", arrays)
     with open(path, "w") as f:
         json.dump(manifest, f)
     np.savez(os.path.join(directory, f"arrays_task{task}.npz"), **arrays)
@@ -190,17 +197,19 @@ def latest_task(directory: str) -> Optional[int]:
 
 def load_checkpoint(directory: str, task: Optional[int] = None,
                     device="cuda"):
-    """Rebuild the stereo net saved after ``task`` (default: the latest)
-    with its tensors on ``device``. Returns (net, manifest)."""
+    """Rebuild the net saved after ``task`` (default: the latest) with its
+    tensors on ``device``: a GrowableStereoNet, or a GrowableDepthNet where
+    the manifest's variant is "depth". Returns (net, manifest)."""
     if task is None:
         task = latest_task(directory)
         if task is None:
             raise FileNotFoundError(f"no checkpoints in {directory}")
     with open(os.path.join(directory, f"manifest_task{task}.json")) as f:
         manifest = json.load(f)
-    variant = manifest.get("variant", "stereo")
-    if variant != "stereo":
-        raise ValueError(f"the port serves the stereo variant, not {variant!r}")
+    cls = {"stereo": GrowableStereoNet,
+           "depth": GrowableDepthNet}.get(manifest.get("variant", "stereo"))
+    if cls is None:
+        raise ValueError(f"unknown variant {manifest['variant']!r}")
     with np.load(os.path.join(directory, f"arrays_task{task}.npz")) as npz:
         data = dict(npz)
 
@@ -209,7 +218,7 @@ def load_checkpoint(directory: str, task: Optional[int] = None,
 
     def site_spec(born, s):
         if born not in spec_cache:
-            spec_cache[born] = build_site_specs(genotypes[born])
+            spec_cache[born] = cls.site_builder(genotypes[born])
         return spec_cache[born][s]
 
     def leaves(prefix):
@@ -221,7 +230,7 @@ def load_checkpoint(directory: str, task: Optional[int] = None,
             for i, born in enumerate(manifest["born"][s][:manifest["lengths"][s]])]
         for s in SITE_NAMES
     }
-    head_specs = build_head_specs()
+    head_specs = cls.head_builder()
     heads = {
         h: [Unit(head_specs[h], leaves(f"heads/{h}/{i}/params"),
                  leaves(f"heads/{h}/{i}/stats"), i)
@@ -235,4 +244,11 @@ def load_checkpoint(directory: str, task: Optional[int] = None,
     p = manifest.get("p")
     if p is not None:
         p = [np.asarray(q, np.float64) for q in p]
-    return GrowableStereoNet(genotypes, units, heads, archis, mtt, p), manifest
+    net = cls(genotypes, units, heads, archis, mtt, p)
+    if cls is GrowableDepthNet:
+        net.depth_head = Unit(
+            DEPTH_HEAD_SPEC,
+            depth_head_to_torch(_unflatten(data, "depth_head/params"), "net",
+                                device),
+            leaves("depth_head/stats"), 0)
+    return net, manifest

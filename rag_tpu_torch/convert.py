@@ -4,7 +4,9 @@ A tree is nested dicts whose leaves are arrays (numpy, or anything
 ``np.asarray`` takes), keyed as rag_tpu/continual/state.py::_flatten keys
 checkpoint leaves. Both packages store conv weights as (*k, Cin, Cout), so
 conversion keeps every shape and dtype; any re-layout a kernel needs happens
-inside that kernel's wrapper.
+inside that kernel's wrapper. A depth head is checked by its leaf names
+on the way: the depth net's has 'bias1', the depth supernet's 'b'
+(``depth_head_to_torch``, ``supernet_to_torch``).
 """
 
 from __future__ import annotations
@@ -35,3 +37,30 @@ def unflatten(keys_vals: Dict[str, np.ndarray], prefix: str):
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return tree
+
+
+# The depth head's leaves: the depth net's (rag_tpu/models/depth.py::
+# init_depth_head) and the depth supernet's (rag_tpu/models/supernet.py::
+# init_depth_supernet) name the bias apart.
+DEPTH_HEAD_LEAVES = {"net": ("bias1", "w"), "supernet": ("b", "w")}
+
+
+def depth_head_to_torch(tree, kind: str, device="cuda"):
+    """A depth head's params -> tensors on ``device``; ``kind`` "net" or
+    "supernet" names the leaves it must have (a head of the other kind
+    raises)."""
+    if tuple(sorted(tree)) != DEPTH_HEAD_LEAVES[kind]:
+        raise ValueError(f"a depth {kind}'s head has leaves "
+                         f"{DEPTH_HEAD_LEAVES[kind]}, not {sorted(tree)}")
+    return to_torch(tree, device)
+
+
+def supernet_to_torch(params, stats, device="cuda"):
+    """(params, stats) of a stereo or depth supernet -> tensors on
+    ``device``; a depth supernet's head is checked by its leaf names."""
+    params = dict(params)
+    head = params.pop("depth_head", None)
+    out = to_torch(params, device)
+    if head is not None:
+        out["depth_head"] = depth_head_to_torch(head, "supernet", device)
+    return out, to_torch(stats, device)

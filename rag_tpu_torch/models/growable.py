@@ -12,6 +12,12 @@ losing new unit, and records ``archis[t]`` and ``model_to_train``.
 ``path(arch)`` assembles one task's (specs, params, stats),
 ``trainable_sites(t)`` names the sites task t trains, and ``write_back``
 commits trained tensors.
+
+``GrowableDepthNet`` is the depth variant's registry: the same 18-site
+grid built by the depth spec builders (a 2D matching half), plus one
+``depth_head`` unit shared by every task, created once and never
+expanded. It trains at task 0 only, so that no later task moves an
+earlier task's output through it.
 """
 
 from __future__ import annotations
@@ -22,6 +28,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from rag_tpu_torch.models.depth import (
+    DEPTH_HEAD_SPEC,
+    build_depth_head_specs,
+    build_depth_site_specs,
+    init_depth_head,
+)
 from rag_tpu_torch.models.stereo import (
     HEAD_NAMES,
     SITE_NAMES,
@@ -50,6 +62,10 @@ def _tree_to(tree, device):
 class GrowableStereoNet:
     """Candidate registry + per-task architecture maps."""
 
+    variant = "stereo"
+    site_builder = staticmethod(build_site_specs)
+    head_builder = staticmethod(build_head_specs)
+
     def __init__(self, genotypes, units: Dict[str, List[Unit]],
                  heads: Dict[str, List[Unit]], archis: List[Dict[str, int]],
                  model_to_train: Optional[Dict[str, List[int]]] = None,
@@ -64,15 +80,15 @@ class GrowableStereoNet:
         self.p = p
         self.new_models: Optional[Dict[str, List[int]]] = None
 
-    @staticmethod
-    def _fresh(genotype, seed: int, device, weights):
+    @classmethod
+    def _fresh(cls, genotype, seed: int, device, weights, gen=None):
         """(site specs, site params, site stats, head specs, head params,
         head stats): from ``weights`` = (site params, site stats, head
-        params, head stats) when given, else drawn from
-        ``torch.Generator().manual_seed(seed)``, sites first."""
-        site_specs, head_specs = build_site_specs(genotype), build_head_specs()
+        params, head stats) when given, else drawn from ``gen`` (default
+        ``torch.Generator().manual_seed(seed)``), sites first."""
+        site_specs, head_specs = cls.site_builder(genotype), cls.head_builder()
         if weights is None:
-            gen = torch.Generator().manual_seed(seed)
+            gen = gen or torch.Generator().manual_seed(seed)
             weights = (*init_sites(gen, site_specs, device),
                        *init_sites(gen, head_specs, device))
         return (site_specs, weights[0], weights[1],
@@ -204,3 +220,61 @@ class GrowableStereoNet:
     def size_m(self) -> float:
         """Model size in M params."""
         return self.num_params() / 1e6
+
+
+class GrowableDepthNet(GrowableStereoNet):
+    """The depth variant's registry: depth spec builders and the
+    task-shared ``depth_head`` unit."""
+
+    variant = "depth"
+    site_builder = staticmethod(build_depth_site_specs)
+    head_builder = staticmethod(build_depth_head_specs)
+
+    def __init__(self, *args, depth_head: Optional[Unit] = None, **kw):
+        super().__init__(*args, **kw)
+        self.depth_head = depth_head
+
+    @classmethod
+    def initial(cls, genotype, seed: int = 0, device="cuda",
+                weights=None) -> "GrowableDepthNet":
+        """Task 0's network and the depth head: from ``weights`` = (site
+        params, site stats, head params, head stats, depth-head params,
+        depth-head stats) when given, else drawn from one
+        ``torch.Generator().manual_seed(seed)``: sites, heads, depth head."""
+        if weights is None:
+            gen = torch.Generator().manual_seed(seed)
+            _, sp, sst, _, hp, hst = cls._fresh(genotype, seed, device, None,
+                                                gen)
+            weights = (sp, sst, hp, hst, *init_depth_head(gen, device))
+        net = super().initial(genotype, seed, device, weights[:4])
+        net.depth_head = Unit(DEPTH_HEAD_SPEC, weights[4], weights[5], 0)
+        return net
+
+    def path(self, arch: Dict[str, int]):
+        specs, params, stats = super().path(arch)
+        specs["depth_head"] = self.depth_head.spec
+        params["depth_head"] = self.depth_head.params
+        stats["depth_head"] = self.depth_head.stats
+        return specs, params, stats
+
+    def write_back(self, arch: Dict[str, int], params=None, stats=None):
+        drop = lambda tree: (None if tree is None else
+                             {k: v for k, v in tree.items()
+                              if k != "depth_head"})
+        super().write_back({k: v for k, v in arch.items()
+                            if k != "depth_head"}, drop(params), drop(stats))
+        if params is not None and "depth_head" in params:
+            self.depth_head.params = params["depth_head"]
+        if stats is not None and "depth_head" in stats:
+            self.depth_head.stats = stats["depth_head"]
+
+    def trainable_sites(self, t: int) -> frozenset:
+        """The stereo rule, plus the shared depth head at t = 0 only."""
+        base = super().trainable_sites(t)
+        return base | {"depth_head"} if t == 0 else base
+
+    def to(self, device) -> "GrowableDepthNet":
+        super().to(device)
+        self.depth_head.params = _tree_to(self.depth_head.params, device)
+        self.depth_head.stats = _tree_to(self.depth_head.stats, device)
+        return self

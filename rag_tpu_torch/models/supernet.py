@@ -23,6 +23,13 @@ channels-last one elsewhere; both layouts compute the same function. The
 cost volume (``ops.cost_volume.cost_volume_cf``) and the soft-argmin head
 (``ops.disparity.soft_argmin_disparity``) are plain PyTorch, as they are
 plain XLA in rag_tpu: the supernet runs no kernel B, C, E, F or G.
+
+The depth supernet (``init_depth_supernet``, ``depth_supernet_forward``)
+is the monocular variant's: the feature half on the image alone, the
+matching half rewired to 2D at the same wiring and channels (``DMAT_*``)
+on the features, and the depth head, whose leaves are 'w' and 'b' (the
+depth net's head calls its bias 'bias1'). It is all 2D: it runs no
+hand-written kernel.
 """
 
 from __future__ import annotations
@@ -30,8 +37,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import math
+
 import torch
 
+from rag_tpu_torch.models.depth import DEPTH_HEAD_SPEC, depth_head
 from rag_tpu_torch.models.stereo import MAXDISP, full_fp32
 from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, init_convbr
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf
@@ -281,3 +291,83 @@ def supernet_forward(params, stats, left: torch.Tensor, right: torch.Tensor,
                            new_stats, variants)
         disp = soft_argmin_disparity(mat[:, :, 0], maxdisp, 3)
     return disp, new_stats
+
+
+# The depth supernet's matching half: 2D at the stereo wiring and channels
+DMAT_STEMS = {"stem0": ConvBRSpec(2, INITIAL_FM, INITIAL_FM, 3, 1)}
+DMAT_CELLS = tuple(SuperCellSpec(2, s.c_pp, s.c_p, s.c_out, s.mode)
+                   for s in MAT_CELLS)
+DMAT_LAST = {
+    "last_3": ConvBRSpec(2, INITIAL_FM, 1, 3, 1, bn=False, relu=False),
+    "last_6": ConvBRSpec(2, INITIAL_FM * 2, INITIAL_FM, 1, 1),
+    "last_12": ConvBRSpec(2, INITIAL_FM * 4, INITIAL_FM * 2, 1, 1),
+}
+
+
+def init_depth_supernet(generator: torch.Generator, device="cuda"):
+    """Fresh (params, stats) of the depth supernet, keyed as rag_tpu's
+    ``init_depth_supernet``: {'fea', 'mat', 'depth_head': {'w', 'b'}}
+    (the head has no statistics). The head's 'w' is normal * sqrt(2/9),
+    'b' zero."""
+    params: Dict[str, Any] = {"fea": {}, "mat": {}}
+    stats: Dict[str, Any] = {"fea": {}, "mat": {}}
+    for half, convs, cells in (("fea", {**FEA_STEMS, **FEA_LAST}, FEA_CELLS),
+                               ("mat", {**DMAT_STEMS, **DMAT_LAST},
+                                DMAT_CELLS)):
+        for name, spec in convs.items():
+            params[half][name], stats[half][name] = init_convbr(
+                generator, spec, device)
+        for i, spec in enumerate(cells):
+            params[half][f"cell{i}"], stats[half][f"cell{i}"] = \
+                init_supercell(generator, spec, device)
+    w = torch.randn((3, 3, 1, 1), generator=generator, dtype=torch.float32)
+    params["depth_head"] = {"w": (w * math.sqrt(2.0 / 9)).to(device),
+                            "b": torch.zeros(1, device=device)}
+    return params, stats
+
+
+def _dmat_forward(params, stats, fea, ops, train, new_stats):
+    """features (B,h,w,12) -> the matching output (B,h,w,1)."""
+    ns = new_stats["mat"]
+
+    def conv(name, v):
+        out, ns[name] = apply_convbr(DMAT_STEMS.get(name) or DMAT_LAST[name],
+                                     params["mat"][name], stats["mat"][name],
+                                     v, train)
+        return out
+
+    def cell(i, s0, s1):
+        out, ns[f"cell{i}"] = apply_supercell(
+            DMAT_CELLS[i], params["mat"][f"cell{i}"],
+            stats["mat"][f"cell{i}"], s0, s1, ops, train)
+        return out
+
+    stem = conv("stem0", fea)
+    l3 = cell(0, None, stem)
+    l3_1 = cell(1, stem, l3)
+    l3_2 = cell(2, l3, l3_1)
+    l6 = cell(3, l3_1, l3_2)
+    l12 = cell(4, l3_2, l6)
+    l6b = cell(5, l6, l12)
+    l12_1 = cell(6, l12, l6b)
+    l12_2 = cell(7, l6b, l12_1)
+
+    h, w = fea.shape[1], fea.shape[2]
+    x = conv("last_12", l12_2)
+    x = resize_linear(x, (h // 2, w // 2), (1, 2), align_corners=True)
+    x = conv("last_6", x)
+    x = resize_linear(x, (h, w), (1, 2), align_corners=True)
+    return conv("last_3", x)
+
+
+def depth_supernet_forward(params, stats, image: torch.Tensor, fea_ops,
+                           mat_ops, train: bool):
+    """The depth search supernet: image (B,H,W,3) -> (depth (B,H,W) in
+    [0, MAX_DEPTH], new_stats)."""
+    new_stats: Dict[str, Any] = {"fea": {}, "mat": {}}
+    with full_fp32():
+        fea = _fea_forward(params, stats, image, fea_ops, train, new_stats)
+        mat = _dmat_forward(params, stats, fea, mat_ops, train, new_stats)
+        depth = depth_head(params["depth_head"], mat, fea.shape[1],
+                           fea.shape[2], DEPTH_HEAD_SPEC, "b")
+    return depth, new_stats

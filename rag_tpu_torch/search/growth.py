@@ -1,20 +1,23 @@
 """Op-level growth search: reuse-vs-new selection over the expanded
 network.
 
-Counterpart of rag_tpu/search/growth.py (stereo, with its mid-search state
-file and fault injection; without the mesh, the depth variant and the
-self-supervised search's ``split_frac`` and ``eval_max_batches``). After
-``expand``
-every searchable site holds L reuse candidates + 1 new unit; per epoch a
-full path is sampled from the per-site categoricals, trained for an epoch
-(only the new units and task t's heads are trainable; every BatchNorm is
-frozen), scored on the held-out half, and the per-site probabilities
-updated with the MdeNAS pairwise rule under the reusability reward
+Counterpart of rag_tpu/search/growth.py, with its mid-search state file
+and fault injection, without the mesh. After ``expand`` every searchable
+site holds L reuse candidates + 1 new unit; per epoch a full path is
+sampled from the per-site categoricals, trained for an epoch on the
+search split's first ``split_frac`` (only the new units and task t's
+heads are trainable; every BatchNorm is frozen), scored on the rest (its
+first ``eval_max_batches`` batches where set), and the per-site
+probabilities updated with the MdeNAS pairwise rule under the
+reusability reward
 
-    h_a = sqrt(1 - valid_D1) * log(9 / max(n_new, 1) + 1) / e
+    h_a = sqrt(quality) * log(9 / max(n_new, 1) + 1) / e
 
-(n_new: the sites that picked their new unit), with the reuse head start
-h_e[site][:-1] = o_size.
+(n_new: the sites that picked their new unit; quality 1 - D1 for stereo,
+the delta < 1.25 accuracy d1 for depth, both clipped to [0, 1]), with the
+reuse head start h_e[site][:-1] = o_size. ``VARIANTS`` maps a variant to
+its steps, batch arguments and quality: the stereo ones (the
+self-supervised search uses them too, on proxy pairs) or the depth ones.
 
 One SGD momentum store persists over the whole search: a site's momentum
 carries from the last epoch that trained it. The best-by-valid-loss epoch's
@@ -54,6 +57,8 @@ from rag_tpu_torch.search.mdenas import mdenas_update
 from rag_tpu_torch.train.trainer import (
     clone_tree,
     cosine_lr,
+    make_depth_eval_step,
+    make_depth_train_step,
     make_eval_step,
     make_optimizer,
     make_train_step,
@@ -72,6 +77,12 @@ class OpSearchConfig:
     o_size: int = 10
     seed: int = 0
     maxdisp: int = 192
+    # score on this many batches of the held-out split (the
+    # self-supervised search's 10); None: all of it
+    eval_max_batches: Optional[int] = None
+    # weight-training share of the search split: 0.5, or 0.8 in the
+    # self-supervised search
+    split_frac: float = 0.5
 
 
 def _stereo_steps(specs, trainable, optimizer, maxdisp, variants):
@@ -84,6 +95,32 @@ def _stereo_steps(specs, trainable, optimizer, maxdisp, variants):
 
 def _stereo_args(batch):
     return (batch["left"], batch["right"], batch["disparity"])
+
+
+def _stereo_quality(vm):
+    """(quality, log label) of valid metrics vm: 1 - D1, clipped."""
+    return 1.0 - min(max(vm.get("D1", 1.0), 0.0), 1.0), "D1"
+
+
+def _depth_steps(specs, trainable, optimizer, maxdisp, variants):
+    return (make_depth_train_step(specs, frozenset(), optimizer,
+                                  trainable_sites=trainable),
+            make_depth_eval_step(specs))
+
+
+def _depth_args(batch):
+    return (batch["image"], batch["depth"])
+
+
+def _depth_quality(vm):
+    # the delta < 1.25 accuracy, clipped
+    return min(max(vm.get("d1", 0.0), 0.0), 1.0), "1-delta1"
+
+
+VARIANTS = {
+    "stereo": (_stereo_steps, _stereo_args, _stereo_quality),
+    "depth": (_depth_steps, _depth_args, _depth_quality),
+}
 
 
 def _inject_momentum(opt_state: Dict, store: Dict, names) -> Dict:
@@ -105,12 +142,14 @@ class OpSearch:
 
     def __init__(self, net: GrowableStereoNet, config: OpSearchConfig,
                  log: Optional[Callable] = print,
-                 variants: KernelVariants = DEFAULT):
+                 variants: KernelVariants = DEFAULT, variant: str = "stereo"):
         self.net = net
         self.cfg = config
         self.log = log or (lambda *_: None)
         self.variants = variants
         self._step_cache = {}
+        self._make_steps, self._batch_args, self._quality = \
+            VARIANTS[variant]
 
     def _steps_for(self, arch, trainable):
         specs, _, _ = self.net.path(arch)
@@ -119,7 +158,7 @@ class OpSearch:
         if key not in self._step_cache:
             optimizer = make_optimizer(self.cfg.weight_decay,
                                        self.cfg.grad_clip)
-            train_step, eval_step = _stereo_steps(
+            train_step, eval_step = self._make_steps(
                 specs, trainable, optimizer, self.cfg.maxdisp, self.variants)
             self._step_cache[key] = (train_step, eval_step, optimizer)
         return self._step_cache[key]
@@ -208,7 +247,8 @@ class OpSearch:
             raise ValueError("op search before expand")
         rng = np.random.default_rng(cfg.seed + 9999 * t)
         train_idx, valid_idx = split_half(len(train_data),
-                                          seed=cfg.seed + 9999 * t)
+                                          seed=cfg.seed + 9999 * t,
+                                          frac=cfg.split_frac)
 
         h_e = [np.zeros(len(p), np.int64) for p in net.p]
         h_a = [np.zeros(len(p), np.float64) for p in net.p]
@@ -242,23 +282,27 @@ class OpSearch:
             for b in train_data.batches(cfg.batch, True, seed=epoch,
                                         indices=train_idx):
                 params, stats, opt_state, _ = train_step(
-                    params, stats, opt_state, lr, *_stereo_args(b))
+                    params, stats, opt_state, lr, *self._batch_args(b))
             momentum.update(_extract_momentum(opt_state, trainable))
 
-            valid_m = AverageMeterDict().update_batched(
-                [eval_step(params, stats, *_stereo_args(b))
-                 for b in train_data.batches(cfg.batch, False, seed=0,
-                                             indices=valid_idx)])
+            outs = []
+            for i, b in enumerate(train_data.batches(
+                    cfg.batch, False, seed=0, indices=valid_idx)):
+                if (cfg.eval_max_batches is not None
+                        and i >= cfg.eval_max_batches):
+                    break
+                outs.append(eval_step(params, stats, *self._batch_args(b)))
+            valid_m = AverageMeterDict().update_batched(outs)
             net.write_back(arch, params, stats)
 
             vm = valid_m.mean()
-            quality = 1.0 - min(max(vm.get("D1", 1.0), 0.0), 1.0)
+            quality, qlabel = self._quality(vm)
             valid_d1 = 1.0 - quality
             valid_loss = vm.get("loss", np.inf)
             reward = np.sqrt(quality) * np.log(model_size + 1.0) / np.e
             self.log(f"[op-search t{t}] epoch {epoch} sel={selected} "
                      f"n_new={n_new} valid loss {valid_loss:.3f} "
-                     f"D1 {100*valid_d1:.1f}% reward {reward:.4f}")
+                     f"{qlabel} {100*valid_d1:.1f}% reward {reward:.4f}")
             if writer is not None:
                 writer.scalars(f"search_op/task{t}",
                                {"valid_loss": valid_loss, "valid_d1": valid_d1,

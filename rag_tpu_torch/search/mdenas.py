@@ -2,7 +2,7 @@
 epoch/accuracy probability update.
 
 Counterpart of rag_tpu/search/mdenas.py (CellSearch, with its mid-search
-state file and fault injection; the mesh and DepthCellSearch are not
+state file and fault injection, and DepthCellSearch; the mesh is not
 ported). Per
 epoch: sample one op per edge from the categorical p, train that single
 path of the supernet for an epoch, score it on the held-out half, then
@@ -39,9 +39,16 @@ from rag_tpu_torch.continual.state import (
     tree_device,
 )
 from rag_tpu_torch.data.stereo_dataset import split_half
+from rag_tpu_torch.metrics.depth import depth_metrics
 from rag_tpu_torch.metrics.meters import AverageMeterDict
 from rag_tpu_torch.metrics.stereo import stereo_metrics
-from rag_tpu_torch.models.supernet import NUM_EDGES, init_supernet, supernet_forward
+from rag_tpu_torch.models.supernet import (
+    NUM_EDGES,
+    depth_supernet_forward,
+    init_depth_supernet,
+    init_supernet,
+    supernet_forward,
+)
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.search.genotype import Genotype, parse_genotype
 from rag_tpu_torch.train.trainer import (
@@ -53,6 +60,7 @@ from rag_tpu_torch.train.trainer import (
     sgd_apply,
     supervised_loss,
 )
+from rag_tpu_torch.train.losses import silog_loss
 
 
 def mdenas_update(p: np.ndarray, h_e: np.ndarray, h_a: np.ndarray,
@@ -125,10 +133,47 @@ def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT):
     return step
 
 
+def make_depth_supernet_train_step(optimizer):
+    """step(params, stats, opt_state, lr, image, depth_gt, fea_ops,
+    mat_ops): the depth supernet's step on silog over gt > 0, as
+    make_supernet_train_step's."""
+
+    def step(params, stats, opt_state, lr, image, depth_gt, fea_ops,
+             mat_ops):
+        handles, p_diff = differentiable(params, frozenset(params))
+        mask = depth_gt > 0
+        with torch.enable_grad():
+            pred, new_stats = depth_supernet_forward(
+                p_diff, stats, image, fea_ops, mat_ops, train=True)
+            loss = silog_loss(pred, depth_gt, mask)
+            grads = grads_of(loss, handles)
+        sgd_apply(optimizer, params, grads, opt_state, lr)
+        with torch.no_grad():
+            scalars = {"loss": loss.detach(),
+                       **depth_metrics(pred.detach(), depth_gt, mask)}
+        return params, new_stats, opt_state, scalars
+
+    return step
+
+
+def make_depth_supernet_eval_step():
+    @torch.inference_mode()
+    def step(params, stats, image, depth_gt, fea_ops, mat_ops):
+        pred, _ = depth_supernet_forward(params, stats, image, fea_ops,
+                                         mat_ops, train=False)
+        mask = depth_gt > 0
+        return {"loss": silog_loss(pred, depth_gt, mask),
+                **depth_metrics(pred, depth_gt, mask)}
+
+    return step
+
+
 class CellSearch:
     """Searches one Genotype per task on a fresh supernet, initialized from
     ``torch.Generator().manual_seed(config.seed)`` on ``device``, or from
     ``weights`` = (params, stats) trees when given."""
+
+    _init_net = staticmethod(init_supernet)
 
     def __init__(self, config: CellSearchConfig,
                  log: Optional[Callable] = print, device="cuda",
@@ -136,7 +181,7 @@ class CellSearch:
         self.cfg = config
         self.log = log or (lambda *_: None)
         if weights is None:
-            weights = init_supernet(
+            weights = self._init_net(
                 torch.Generator().manual_seed(config.seed), device)
         self.params, self.stats = weights
         self.optimizer = make_optimizer(config.weight_decay, config.grad_clip)
@@ -145,9 +190,12 @@ class CellSearch:
             "normal": np.full((NUM_EDGES, config.num_ops), 1.0 / config.num_ops),
             "reduce": np.full((NUM_EDGES, config.num_ops), 1.0 / config.num_ops),
         }
-        self._train_step = make_supernet_train_step(
-            self.optimizer, config.maxdisp, variants)
-        self._eval_step = make_supernet_eval_step(config.maxdisp, variants)
+        self._train_step, self._eval_step = self._make_steps(variants)
+
+    def _make_steps(self, variants):
+        return (make_supernet_train_step(self.optimizer, self.cfg.maxdisp,
+                                         variants),
+                make_supernet_eval_step(self.cfg.maxdisp, variants))
 
     @staticmethod
     def _batch_args(b):
@@ -294,3 +342,23 @@ class CellSearch:
         geno = self.genotype()
         self.log(f"[cell-search t{task}] best genotype: {geno}")
         return geno
+
+
+class DepthCellSearch(CellSearch):
+    """MdeNAS over the depth supernet: monocular input, 2D matching half,
+    silog objective, d1 reward quality. It runs no hand-written kernel,
+    so ``variants`` has nothing to pick."""
+
+    _init_net = staticmethod(init_depth_supernet)
+
+    def _make_steps(self, variants):
+        return (make_depth_supernet_train_step(self.optimizer),
+                make_depth_supernet_eval_step())
+
+    @staticmethod
+    def _batch_args(b):
+        return (b["image"], b["depth"])
+
+    @staticmethod
+    def _quality(vm):
+        return min(max(vm.get("d1", 0.0), 0.0), 1.0)

@@ -2,7 +2,11 @@
 
 Counterpart of rag_tpu/train/trainer.py: SGD with momentum 0.9 and weight
 decay after a global-norm gradient clip of 5, a host-computed cosine
-learning rate, the masked smooth-L1 loss, and freezing by site. BatchNorm
+learning rate, the masked smooth-L1 loss, and freezing by site. The
+variants' steps share that tail: the self-supervised step trains the
+stereo forward on the photometric loss (``make_selfsup_train_step``), the
+depth steps the depth net on silog (``make_depth_train_step``,
+``make_depth_eval_step``). BatchNorm
 train-mode sites (``bn_sites``) are apart from the sites whose parameters
 update (``trainable_sites``): the fine-tune stage of a task couples the
 two, op search trains new units with every BatchNorm frozen.
@@ -20,10 +24,16 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from rag_tpu_torch.metrics.depth import depth_metrics
 from rag_tpu_torch.metrics.stereo import stereo_metrics
+from rag_tpu_torch.models.depth import depth_forward
 from rag_tpu_torch.models.stereo import MAXDISP, stereo_forward
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
-from rag_tpu_torch.train.losses import smooth_l1_masked
+from rag_tpu_torch.train.losses import (
+    photometric_loss,
+    silog_loss,
+    smooth_l1_masked,
+)
 
 
 def cosine_lr(base_lr: float, total_epochs: int, epoch: int,
@@ -199,5 +209,76 @@ def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
                                  maxdisp=maxdisp, variants=variants)
         loss, mask = supervised_loss(disp, disp_gt, maxdisp)
         return {"loss": loss, **stereo_metrics(disp, disp_gt, mask)}
+
+    return step
+
+
+def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
+                            optimizer: SGDMomentum,
+                            trainable_sites: Optional[frozenset] = None,
+                            maxdisp: int = MAXDISP,
+                            variants: KernelVariants = DEFAULT):
+    """The photometric (self-supervised) step: make_train_step's forward,
+    freezing and SGD tail, with ``photometric_loss(disp, left, right)`` in
+    place of the supervised loss. ``disp_gt`` serves the D1/EPE
+    monitoring over 0 < gt < maxdisp only; the loss never sees it."""
+    if trainable_sites is None:
+        trainable_sites = bn_sites
+
+    def step(params, stats, opt_state, lr: float, left, right, disp_gt):
+        handles, p_diff = differentiable(params, trainable_sites)
+        with torch.enable_grad():
+            disp, new_stats = stereo_forward(specs, p_diff, stats, left, right,
+                                             train_sites=bn_sites,
+                                             maxdisp=maxdisp,
+                                             variants=variants)
+            loss = photometric_loss(disp, left, right)
+            grads = grads_of(loss, handles)
+        sgd_apply(optimizer, params, grads, opt_state, lr)
+        with torch.no_grad():
+            mask = (disp_gt > 0) & (disp_gt < maxdisp)
+            scalars = {"loss": loss.detach(),
+                       **stereo_metrics(disp.detach(), disp_gt, mask)}
+        return params, new_stats, opt_state, scalars
+
+    return step
+
+
+def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
+                          optimizer: SGDMomentum,
+                          trainable_sites: Optional[frozenset] = None):
+    """step(params, stats, opt_state, lr, image, depth_gt) -> (params,
+    stats, opt_state, scalars): silog over gt > 0 through depth_forward,
+    and the depth metrics."""
+    if trainable_sites is None:
+        trainable_sites = bn_sites
+
+    def step(params, stats, opt_state, lr: float, image, depth_gt):
+        handles, p_diff = differentiable(params, trainable_sites)
+        mask = depth_gt > 0
+        with torch.enable_grad():
+            pred, new_stats = depth_forward(specs, p_diff, stats, image,
+                                            train_sites=bn_sites)
+            loss = silog_loss(pred, depth_gt, mask)
+            grads = grads_of(loss, handles)
+        sgd_apply(optimizer, params, grads, opt_state, lr)
+        with torch.no_grad():
+            scalars = {"loss": loss.detach(),
+                       **depth_metrics(pred.detach(), depth_gt, mask)}
+        return params, new_stats, opt_state, scalars
+
+    return step
+
+
+def make_depth_eval_step(specs: Mapping):
+    """step(params, stats, image, depth_gt) -> dict of 0-d tensors: the
+    frozen-BN depth forward, silog and the depth metrics."""
+
+    @torch.inference_mode()
+    def step(params, stats, image, depth_gt):
+        pred, _ = depth_forward(specs, params, stats, image)
+        mask = depth_gt > 0
+        return {"loss": silog_loss(pred, depth_gt, mask),
+                **depth_metrics(pred, depth_gt, mask)}
 
     return step

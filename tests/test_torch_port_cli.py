@@ -14,8 +14,16 @@
 - One tiny real-file run of the port's CLI on the CPU (PNG files, a
   filename list, stage checkpoints): ``result.json`` with rag_tpu's keys,
   the checkpoint, and ``--eval-only`` reading it back.
-- The flags of parts not ported raise NotImplementedError before any
-  work, and without CUDA ``main`` raises unless asked for the CPU.
+- The variants: ``--variant selfsup|depth`` build rag_tpu's driver
+  class, config and datasets (the depth scenes and the selfsup pretrain
+  and proxy sets equal rag_tpu's batches), and a 2-task run of each on
+  the CPU writes a finite ``result.json`` with zero forgetting;
+  ``--eval-only`` of the committed depth checkpoint reports rag_tpu's
+  depth metrics.
+- The flags of parts not ported (``--mesh`` over more than one device,
+  ``--scene-parallel-search``, ``--bf16``) raise NotImplementedError
+  before any work, and without CUDA ``main`` raises unless asked for the
+  CPU.
 """
 
 import dataclasses
@@ -105,9 +113,7 @@ def test_config_matches(tmp_path, monkeypatch, extra):
     tc, jc = dataclasses.asdict(t["cfg"]), dataclasses.asdict(j["cfg"])
     for stage in ("cell", "train"):
         assert tc.pop(stage) == jc.pop(stage), stage
-    jop = jc.pop("op")
-    assert (jop.pop("eval_max_batches"), jop.pop("split_frac")) == (None, 0.5)
-    assert tc.pop("op") == jop
+    assert tc.pop("op") == jc.pop("op")
     assert (jc.pop("mesh_data"), jc.pop("mesh_model"),
             jc.pop("scene_parallel_search")) == (1, 1, False)
     assert tc == jc
@@ -236,22 +242,130 @@ def test_real_file_run_and_eval_only(tmp_path):
             matrix.m[k][0, 0], rel=1e-6, abs=0), k
 
 
+# the ids the cases had beside the variant cases that the port now runs
 @pytest.mark.parametrize("argv", [
-    ["--variant", "selfsup"], ["--variant", "depth"], ["--mesh", "2"],
-    ["--mesh", "1", "2"], ["--scene-parallel-search"], ["--bf16"],
-    ["--eval-only", "--variant", "depth"]])
+    ["--mesh", "2"], ["--mesh", "1", "2"], ["--scene-parallel-search"],
+    ["--bf16"]], ids=["argv2", "argv3", "argv4", "argv5"])
 def test_unported_flags_raise(tmp_path, argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         tcli.main(argv + ["--output", str(tmp_path)], device="cpu")
     assert not os.listdir(tmp_path)
 
 
-def test_eval_only_of_depth_checkpoint_raises(tmp_path):
-    with open(tmp_path / "manifest_task0.json", "w") as f:
-        json.dump({"task": 0, "variant": "depth"}, f)
-    with pytest.raises(NotImplementedError, match="depth checkpoint"):
-        tcli.main(["--eval-only", "--checkpoint-dir", str(tmp_path)],
-                  device="cpu")
+VARIANT_ARGV = ["--synthetic", "--synthetic-size", "4", "--synthetic-hw",
+                "24", "48", "--num-tasks", "2", "--c_epochs", "1",
+                "--c_batch", "2", "--o_epochs", "1", "--o_batch", "2",
+                "--epochs", "1", "--batch", "2", "--maxdisp", "48",
+                "--pretrain-epochs", "1", "--pretrain-batch", "2",
+                "--train-router", "--router-epochs", "1"]
+VARIANT_KEYS = {
+    "selfsup": ["D1", "EPE", "loss", "Thres1", "Thres2", "Thres3", "mean_D1"],
+    "depth": ["loss", "silog", "abs_rel", "log10", "rms", "sq_rel",
+              "log_rms", "d1", "d2", "d3", "mean_silog"]}
+
+
+@pytest.mark.parametrize("variant", ["selfsup", "depth"])
+def test_variant_config_matches(tmp_path, monkeypatch, variant):
+    """--variant selfsup|depth: the driver class, its config (SelfSupConfig
+    with the pretrain flags) and the datasets' sizes as rag_tpu's main
+    builds them."""
+    argv = VARIANT_ARGV + ["--variant", variant, "--output",
+                           str(tmp_path / "logs")]
+    from rag_tpu.continual import depth_driver as jdd
+    from rag_tpu.continual import self_supervised as jself
+    from rag_tpu_torch.continual import depth_driver as tdd
+    from rag_tpu_torch.continual import self_supervised as tself
+
+    tbase, jbase, jmod, name = {
+        "selfsup": (tself.SelfSupContinualDriver,
+                    jself.SelfSupContinualDriver, jself,
+                    "SelfSupContinualDriver"),
+        "depth": (tdd.DepthContinualDriver, jdd.DepthContinualDriver, jdd,
+                  "DepthContinualDriver")}[variant]
+    tcls, t = _capture(tbase)
+    with pytest.raises(_Stop):
+        tcli.main(argv, device="cpu", driver_cls=tcls)
+    jcls, j = _capture(jbase)
+    monkeypatch.setattr(jmod, name, jcls)
+    with pytest.raises(_Stop):
+        jcli.main(argv)
+    tc, jc = dataclasses.asdict(t["cfg"]), dataclasses.asdict(j["cfg"])
+    assert type(t["cfg"]).__name__ == type(j["cfg"]).__name__
+    assert (jc.pop("mesh_data"), jc.pop("mesh_model"),
+            jc.pop("scene_parallel_search")) == (1, 1, False)
+    assert tc == jc
+    for td, jd in zip(t["data"], j["data"]):
+        assert [len(d) for d in td] == [len(d) for d in jd]
+        assert [type(d).__name__ for d in td] == [type(d).__name__ for d in jd]
+
+
+@pytest.mark.parametrize("variant", ["selfsup", "depth"])
+def test_variant_run(tmp_path, variant):
+    """A 2-task --variant selfsup|depth run on the CPU writes a finite
+    result.json with rag_tpu's keys, and a checkpoint of the variant."""
+    out, ckpt = tmp_path / "logs", tmp_path / "ckpt"
+    matrix = tcli.main(VARIANT_ARGV + [
+        "--variant", variant, "--output", str(out), "--id", variant,
+        "--checkpoint-dir", str(ckpt)], device="cpu", log=lambda *_: None)
+    with open(out / f"drivingstereo_rag_0_{variant}" / "result.json") as f:
+        result = json.load(f)
+    assert sorted(result) == sorted(VARIANT_KEYS[variant] + [
+        "model_size_m", "elapsed_h", "router"])
+    head = VARIANT_KEYS[variant][-1]
+    assert np.isfinite(result[head]) and np.isfinite(
+        [result[k] for k in matrix.metric_names]).all()
+    for k in matrix.metric_names:
+        assert result[k][1][0] == result[k][0][0], k   # zero forgetting
+    with open(ckpt / "manifest_task1.json") as f:
+        assert json.load(f)["variant"] == (
+            "depth" if variant == "depth" else "stereo")
+
+
+def test_eval_only_of_depth_checkpoint():
+    """--eval-only of the committed depth checkpoint: the depth metrics of
+    task 2's path on a synthetic depth scene, as rag_tpu's --eval-only
+    reports them (float32, within 1e-4 relative)."""
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "logs",
+                        "canonical_depth_r3b")
+    argv = ["--eval-only", "--checkpoint-dir", ckpt, "--synthetic-size", "2",
+            "--synthetic-hw", "48", "96", "--eval-task", "2"]
+    got = tcli.main(argv, device="cpu")
+    ref = jcli.main(argv)
+    assert list(got) == list(ref) == ["synthetic"]
+    assert sorted(got["synthetic"]) == sorted(VARIANT_KEYS["depth"][:-1])
+    for k, v in ref["synthetic"].items():
+        assert np.isfinite(got["synthetic"][k]), k
+        assert got["synthetic"][k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+
+
+@pytest.mark.parametrize("split", [0, 1, 2])
+def test_make_depth_datasets_synthetic_match(split):
+    argv = ["--variant", "depth", "--synthetic", "--synthetic-size", "3",
+            "--synthetic-hw", "24", "48", "--synthetic-eval-hw", "36", "48",
+            "--synthetic-eval-size", "2", "--num-tasks", "2"]
+    tsets = tcli.make_depth_datasets(tcli.build_parser().parse_args(argv),
+                                     "cpu")
+    jsets = jcli.make_depth_datasets(jcli.build_parser().parse_args(argv))
+    for td, jd in zip(tsets[split], jsets[split]):
+        assert (td.h, td.w, td.seed, td.max_depth, td.style) == \
+            (jd.h, jd.w, jd.seed, jd.max_depth, jd.style)
+        tb = list(td.batches(2, True, seed=1, drop_last=False))
+        jb = list(jd.batches(2, True, seed=1, drop_last=False))
+        assert len(tb) == len(jb) > 0
+        for t, j in zip(tb, jb):
+            for k in ("image", "depth"):
+                np.testing.assert_array_equal(t[k].numpy(), j[k], err_msg=k)
+
+
+def test_make_selfsup_aux_match():
+    argv = ["--variant", "selfsup", "--synthetic-size", "3", "--synthetic-hw",
+            "24", "48", "--maxdisp", "96"]
+    taux = tcli.make_selfsup_aux(tcli.build_parser().parse_args(argv), "cpu")
+    jaux = jcli.make_selfsup_aux(jcli.build_parser().parse_args(argv))
+    for td, jd in zip(taux, jaux):
+        assert (td.seed, td.max_disp, td.style) == (jd.seed, jd.max_disp,
+                                                    jd.style)
+        _equal_batches(td, jd, 2, True, seed=0, drop_last=False)
 
 
 def test_main_needs_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
