@@ -82,6 +82,31 @@ exception:
                    every updated leaf finite and the first step against the
                    path's plain step of phase 4; print ms/step, training
                    pairs/s and peak memory;
+                   then the float32 probe, default path: both TF32
+                   switches on, as a CLI user has them, one step of each
+                   train builder (make_train_step, make_selfsup_train_step
+                   and make_depth_train_step, the supernet's and the depth
+                   supernet's steps, the stereo and depth op search's) with
+                   a probe on the feature net's first conv that must see
+                   both switches off while its backward runs and both on
+                   after the step; each step's dp/lr against the same step
+                   with the switches off (relative L2 <= FP32_PROBE_RTOL)
+                   and against one whose backward runs outside the float32
+                   scope (relative L2 > FP32_PROBE_RTOL: the gate catches a
+                   backward in TF32);
+     dp            a world of one NCCL process group on the card: 3 steps
+                   of task 0's configuration through make_train_step(
+                   mesh=make_mesh(1)), every launch count set to 0 first;
+                   the first step against phase 4's plain step (STEP_RTOL,
+                   STATS_RTOL) and against the same step without a mesh,
+                   kernels A-G launched and no other, DP_ALL_REDUCES
+                   all-reduces a step (the CPU test's count at world 2);
+                   ms/step and pairs/s beside the train phase's; DP_PAIRS
+                   steps without a mesh and dp steps interleaved, each
+                   timed on the host clock; then
+                   parallel.scaling.measure_scaling's world-1 row (with
+                   --profile, one more dp step profiled). One visible
+                   device: no scaling is claimed;
   9. learn         the port's continual-learning path on the default
                    path: ContinualDriver.run over two styled synthetic
                    scenes (WEATHER_STYLES[0] and [1]; 32 train pairs and 8
@@ -165,8 +190,9 @@ exception:
                    and the card's name and power limit), one of the learn
                    phase ("learn"), one of the cli phase ("cli"), one of
                    the selfsup phase ("selfsup"), one of the depth phase
-                   ("depth"), one of kernels (launches: the serve, route,
-                   train, learn, cli and selfsup runs), the card's name and
+                   ("depth"), one of the dp phase and the float32 probe
+                   ("dp"), one of kernels (launches: the serve, route,
+                   train, dp, learn, cli and selfsup runs), the card's name and
                    power limit, and as the last line {"ok": true,
                    "device": {...}}.
 
@@ -205,6 +231,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 torch.backends.cudnn.allow_tf32 = False
@@ -249,13 +276,20 @@ from rag_tpu_torch.metrics.meters import AverageMeterDict  # noqa: E402
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
 from rag_tpu_torch.models.depth import depth_forward  # noqa: E402
 from rag_tpu_torch.models.stereo import SITE_NAMES  # noqa: E402
-from rag_tpu_torch.models.supernet import NUM_EDGES  # noqa: E402
+from rag_tpu_torch.models.growable import GrowableDepthNet  # noqa: E402
+from rag_tpu_torch.models.supernet import (  # noqa: E402
+    NUM_EDGES,
+    init_depth_supernet,
+    init_supernet,
+)
 from rag_tpu_torch.models.router import (  # noqa: E402
     SceneRouter,
     make_router_train_step,
     router_logits,
 )
 from rag_tpu_torch.ops import conv3d as conv3d_mod  # noqa: E402
+from rag_tpu_torch.ops import convbr as convbr_mod  # noqa: E402
+from rag_tpu_torch.ops.convbr import ConvBRSpec  # noqa: E402
 from rag_tpu_torch.ops import cuda_lib  # noqa: E402
 from rag_tpu_torch.ops import cvstem as cvstem_mod  # noqa: E402
 from rag_tpu_torch.ops import disparity as disparity_mod  # noqa: E402
@@ -264,20 +298,37 @@ from rag_tpu_torch.ops import shear as shear_mod  # noqa: E402
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
 from rag_tpu_torch.ops.resize import _interp_matrix_np  # noqa: E402
 from rag_tpu_torch.ops.variants import KernelVariants  # noqa: E402
-from rag_tpu_torch.search.genotype import parse_genotype  # noqa: E402
+from rag_tpu_torch.parallel.axis import ALL_REDUCES, all_sum_if  # noqa: E402
+from rag_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from rag_tpu_torch.parallel.multihost import (  # noqa: E402
+    initialize_multihost,
+    local_address,
+)
+from rag_tpu_torch.parallel.scaling import measure_scaling  # noqa: E402
+from rag_tpu_torch.search import growth as growth_mod  # noqa: E402
+from rag_tpu_torch.search.genotype import (  # noqa: E402
+    default_genotype,
+    parse_genotype,
+)
 from rag_tpu_torch.search.growth import OpSearchConfig  # noqa: E402
 from rag_tpu_torch.search.mdenas import (  # noqa: E402
     CellSearch,
     CellSearchConfig,
+    make_depth_supernet_train_step,
+    make_supernet_train_step,
 )
+from rag_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from rag_tpu_torch.train.trainer import (  # noqa: E402
     clone_tree,
     cosine_lr,
     make_depth_eval_step,
+    make_depth_train_step,
     make_optimizer,
     make_selfsup_train_step,
     make_train_step,
 )
+from rag_tpu_torch.utils.profiling import trace  # noqa: E402
+from rag_tpu_torch.utils.timing import cuda_ms, graph_ms  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "logs" / "canonical_learn_r4"
@@ -410,6 +461,16 @@ STEP_RTOL = 1e-2   # a train step, kernels vs plain: relative L2 of dp/lr over
                    # through ~25 layers, where a ReLU input within float32
                    # noise of zero takes the other branch (ROADMAP Queue 3)
 STATS_RTOL = 1e-3  # of max(1, |stat|), new BN running statistics of that step
+# all-reduces of one data-parallel step of task 0's stage (BN statistics
+# forward and backward, the loss's sums forward and backward, the metrics,
+# the flattened gradients), as tests/test_torch_dp.py counts them at world 2
+DP_ALL_REDUCES = 130
+DP_PAIRS = 10  # steps without a mesh and dp steps, interleaved and timed
+FP32_PROBE_RTOL = 1e-4  # a train step with both TF32 switches on vs off:
+                   # relative L2 of dp/lr. Sound (the backward in float32)
+                   # the two read at most 1.44e-5 (cuDNN's run-to-run
+                   # order); a backward in TF32 reads 4.5e-4 to 1.35e-3, and
+                   # must read above it, so the gate is shown to catch it
 ROUTER_STEP_RTOL = 1e-4  # the router's first Adam step, card vs CPU: relative
                    # L2 of the update, mu and nu; float32 convs and
                    # reductions summed in another order (~1e-6)
@@ -426,32 +487,6 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean device time of fn()'s launches captured once as a CUDA graph
-    and replayed (free of the host's launch time), after warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, reps)
 
 
 # -- bounds: the least time the card could take for one call ---------------
@@ -1830,12 +1865,9 @@ def profile(fn, label: str, out_dir: Path) -> None:
     """torch.profiler over one call of fn (after one warm-up call): the
     kernel table and trace go to out_dir, the device busy share and the
     top device entries to the log."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with trace(str(out_dir / f"trace_{label}")) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1852,15 +1884,14 @@ def profile(fn, label: str, out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"profile_{label}.txt").write_text(
         events.table(sort_by=key, row_limit=60))
-    trace = out_dir / f"trace_{label}.json"
-    prof.export_chrome_trace(str(trace))
+    trace_file = out_dir / f"trace_{label}" / "trace.json"
     n_dev = sum(e.count for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
         f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / wall_ms:.1f}%), "
         f"{n_dev} device operations; ms by kind "
         + json.dumps({k: round(v, 3) for k, v in
-                      device_breakdown(trace).items()}))
+                      device_breakdown(trace_file).items()}))
     for e in sorted(events, key=lambda e: -getattr(e, key))[:24]:
         log(f"[profile]   {getattr(e, key) / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
@@ -1965,6 +1996,353 @@ def phase_train(dev, plain, path):
     if failures:
         raise SystemExit("chip_smoke: train failed:\n  " + "\n  ".join(failures))
     return launches, per_cfg
+
+
+# -- the float32 probe and the dp phase --------------------------------------
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+class Fp32Probe(torch.autograd.Function):
+    """The identity, recording both TF32 switches when its backward runs."""
+    seen = []
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        Fp32Probe.seen.append(_tf32_flags())
+        return g
+
+
+@contextlib.contextmanager
+def probed_first_conv():
+    """The first 2D conv output that needs a gradient (the feature net's
+    first conv) passes through Fp32Probe until the block ends."""
+    conv = convbr_mod.conv2d_nhwc
+    first = []
+
+    def probed(x, w, spec):
+        y = conv(x, w, spec)
+        if not first and y.requires_grad:
+            first.append(spec)
+            y = Fp32Probe.apply(y)
+        return y
+
+    convbr_mod.conv2d_nhwc = probed
+    try:
+        yield first
+    finally:
+        convbr_mod.conv2d_nhwc = conv
+
+
+def tree_rel_l2(a, b):
+    """Relative L2 norm of a - b over the leaves of b (dicts of tensors)."""
+    num = sum(float(((a[k].double() - v.double()) ** 2).sum())
+              for k, v in b.items())
+    den = sum(float((v.double() ** 2).sum()) for v in b.values())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def fp32_cases(dev):
+    """name -> a function taking one step of that train builder from one
+    fixed state and returning its dp/lr by leaf: the builders whose
+    backward the float32 scope must cover."""
+    cfg = train_configs(dev)["task0"]
+    batch = train_batch(dev)
+    rng = np.random.default_rng(3)
+    depth_gt = torch.from_numpy(rng.uniform(1, 10, (TRAIN_B, TRAIN_H, TRAIN_W))
+                                .astype(np.float32)).to(dev)
+    dnet = GrowableDepthNet.initial(default_genotype(), 0, dev)
+    dspecs, dparams, dstats = dnet.path(dnet.archis[0])
+    ops = [np.zeros(NUM_EDGES, np.int32), np.ones(NUM_EDGES, np.int32)]
+    lr = cosine_lr(LR, TRAIN_EPOCHS, 0)
+
+    def run(step, params, stats, *args):
+        params = clone_tree(params)  # the step updates it in place
+        before = dict(leaves(clone_tree(params)))
+        opt_state = make_optimizer(WD).init(params)
+        params = step(params, stats, opt_state, lr, *args)[0]
+        return {k: (v - before[k]) / lr for k, v in leaves(params)}
+
+    specs, params, stats, sites = cfg
+    opt = make_optimizer(WD)
+    stereo = lambda build, **kw: lambda: run(  # noqa: E731
+        build(specs, sites, opt, maxdisp=MAXDISP, **kw), params, stats,
+        *batch)
+    sup = init_supernet(torch.Generator().manual_seed(0), dev)
+    dsup = init_depth_supernet(torch.Generator().manual_seed(0), dev)
+    op_stereo, _ = growth_mod.VARIANTS["stereo"][0](
+        specs, sites, opt, MAXDISP, KernelVariants(), None)
+    op_depth, _ = growth_mod.VARIANTS["depth"][0](
+        dspecs, dnet.trainable_sites(0), opt, MAXDISP, KernelVariants(), None)
+    return {
+        "make_train_step": stereo(make_train_step),
+        "make_selfsup_train_step": stereo(make_selfsup_train_step),
+        "make_depth_train_step": lambda: run(
+            make_depth_train_step(dspecs, dnet.trainable_sites(0), opt),
+            dparams, dstats, batch[0], depth_gt),
+        "supernet_train_step": lambda: run(
+            make_supernet_train_step(opt, MAXDISP), *sup, *batch, *ops),
+        "depth_supernet_train_step": lambda: run(
+            make_depth_supernet_train_step(opt), *dsup, batch[0], depth_gt,
+            *ops),
+        "op_search_step": lambda: run(op_stereo, params, stats, *batch),
+        "depth_op_search_step": lambda: run(op_depth, dparams, dstats,
+                                            batch[0], depth_gt),
+    }
+
+
+# (B, H, W, Cin, Cout) of 3x3 convs of the feature net at a task-0 step
+# (the stacked left+right batch): the first stem, the stride-3 stem's
+# output width, and a cell's 1/2-scale conv; and the depth net's widest
+TF32_CONVS = ((8, 192, 384, 3, 6), (8, 64, 128, 12, 12),
+              (8, 32, 64, 12, 12), (4, 16, 32, 48, 48))
+
+
+def tf32_conv_gap(dev):
+    """One ops.convbr.conv2d_nhwc forward and backward per TF32_CONVS shape
+    with both switches on against the same with both off: relative L2 of
+    the output, dx and dW. Whether cuDNN's TF32 changes these convs' bits
+    on this card at all."""
+    rng = np.random.default_rng(4)
+    out = []
+    for b, h, w, cin, cout in TF32_CONVS:
+        spec = ConvBRSpec(2, cin, cout, 3)
+        x = torch.from_numpy(rng.standard_normal((b, h, w, cin))
+                             .astype(np.float32)).to(dev)
+        wt = torch.from_numpy(rng.standard_normal((3, 3, cin, cout))
+                              .astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((b, h, w, cout))
+                             .astype(np.float32)).to(dev)
+        res = {}
+        for on in (False, True):
+            _set_tf32(on)
+            try:
+                xr, wr = x.clone().requires_grad_(), wt.clone().requires_grad_()
+                y = convbr_mod.conv2d_nhwc(xr, wr, spec)
+                dx, dw = torch.autograd.grad(y, (xr, wr), g)
+                torch.cuda.synchronize()
+            finally:
+                _set_tf32(False)
+            res[on] = {"y": y.detach(), "dx": dx, "dw": dw}
+        gap = {k: tree_rel_l2({0: res[True][k]}, {0: res[False][k]})
+               for k in ("y", "dx", "dw")}
+        out.append({"shape": [b, h, w, cin, cout], **gap})
+        log(f"[train] TF32 on vs off, one conv {b}x{h}x{w}, {cin}->{cout}: "
+            f"relative L2 y {gap['y']:.3e}, dx {gap['dx']:.3e}, "
+            f"dW {gap['dw']:.3e}")
+    return out
+
+
+def phase_fp32_probe(dev):
+    """Each train builder's step with both TF32 switches on, as a CLI user
+    has them: the probe on the feature net's first conv must see both off
+    while its backward runs, and both on again after the step. The step
+    is set against the same step with the switches off (relative L2 of
+    dp/lr), and against a step whose backward runs outside the float32
+    scope, as every builder's did before the scope covered it."""
+    report, failures = {}, []
+    for name, case in fp32_cases(dev).items():
+        runs = {}
+        for mode in ("off", "on", "tf32_backward"):
+            _set_tf32(mode != "off")
+            Fp32Probe.seen.clear()
+            saved = trainer_mod.full_fp32
+            if mode == "tf32_backward":
+                trainer_mod.full_fp32 = contextlib.nullcontext
+            try:
+                with probed_first_conv() as first:
+                    runs[mode] = case()
+                torch.cuda.synchronize()
+                after = _tf32_flags()
+            finally:
+                trainer_mod.full_fp32 = saved
+                _set_tf32(False)
+            seen = list(Fp32Probe.seen)
+            want = [(True, True)] if mode == "tf32_backward" \
+                else [(False, False)]
+            if not first or seen != want:
+                failures.append(f"{name} switches {mode}: the probe saw "
+                                f"{seen} during the backward")
+            if mode == "on" and after != (True, True):
+                failures.append(f"{name}: switches not restored: {after}")
+        rel = {m: tree_rel_l2(runs[m], runs["off"])
+               for m in ("on", "tf32_backward")}
+        report[name] = {"backward_switches": "off",
+                        "on_vs_off_rel_l2": rel["on"],
+                        "tf32_backward_vs_off_rel_l2": rel["tf32_backward"]}
+        log(f"[train] float32 probe {name}: switches on -> backward ran with "
+            f"both off, restored after; dp/lr vs switches off: relative L2 "
+            f"{rel['on']:.3e}; a backward in TF32 would be {rel['tf32_backward']:.3e} "
+            "from it")
+        if not rel["on"] <= FP32_PROBE_RTOL:
+            failures.append(f"{name}: switches on vs off {rel['on']:.3g} > "
+                            f"{FP32_PROBE_RTOL}")
+        if not rel["tf32_backward"] > FP32_PROBE_RTOL:
+            failures.append(f"{name}: a backward in TF32 reads "
+                            f"{rel['tf32_backward']:.3g} <= {FP32_PROBE_RTOL}: "
+                            "the gate would not catch it")
+    report["one_conv_tf32_on_vs_off"] = tf32_conv_gap(dev)
+    if failures:
+        raise SystemExit("chip_smoke: float32 probe failed:\n  "
+                         + "\n  ".join(failures))
+    return report
+
+
+def phase_dp(dev, plain, train_turns, smi, profile_dir=None):
+    """The data-parallel step on a world of one: one NCCL process group
+    on the card, task 0's training configuration through
+    make_train_step(mesh=make_mesh(1)) for TRAIN_STEPS steps with every
+    launch count set to 0 first; measure_scaling's world-1 row. With
+    profile_dir, one more dp step under the profiler (after the counts
+    are read)."""
+    t_phase = time.perf_counter()
+    initialize_multihost(local_address(), 1, 0, device=dev)
+    try:
+        mesh = make_mesh(1)
+        specs, params, stats, sites = train_configs(dev)["task0"]
+        batch = train_batch(dev)
+        lr0 = cosine_lr(LR, TRAIN_EPOCHS, 0)
+        # the same first step without a mesh, through the kernels
+        ref_params = clone_tree(params)
+        before = dict(leaves(params))
+        make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP)(
+            ref_params, stats, make_optimizer(WD).init(ref_params), lr0,
+            *batch)
+        ref_delta = {k: (v - before[k]) / lr0 for k, v in leaves(ref_params)
+                     if k.split("/")[0] in sites}
+        del ref_params
+        step = make_train_step(specs, sites, make_optimizer(WD),
+                               maxdisp=MAXDISP, mesh=mesh)
+        opt_state = make_optimizer(WD).init(params)
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, reduces, failures = [], [], [], []
+        for i in range(TRAIN_STEPS):
+            lr = cosine_lr(LR, TRAIN_EPOCHS, i)
+            before = dict(leaves(params)) if i == 0 else None
+            if before is not None:
+                before = {k: v.clone() for k, v in before.items()}
+            ALL_REDUCES.count = 0
+            t0 = time.perf_counter()
+            params, stats, opt_state, sc = step(params, stats, opt_state, lr,
+                                                *batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            reduces.append(ALL_REDUCES.count)
+            losses.append(float(sc["loss"]))
+            if i == 0:
+                delta = {k: (v - before[k]) / lr for k, v in leaves(params)
+                         if k.split("/")[0] in sites}
+                cmp, bad = compare_step("dp world 1 task0", delta,
+                                        dict(leaves(stats)), plain["task0"])
+                failures += bad
+                vs_kernel = tree_rel_l2(delta, ref_delta)
+                del before, delta
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_launches()
+        failures += launch_failures("dp", launches, TRAIN_KERNELS["default"])
+        if any(n != DP_ALL_REDUCES for n in reduces):
+            failures.append(f"dp: all-reduces per step {reduces}, the CPU "
+                            f"test's world 2 issues {DP_ALL_REDUCES}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"dp: non-finite loss {losses}")
+        steady = times[1:] or times
+        ms = float(np.mean(steady))
+        non_dp = [t["task0"] for t in train_turns]
+        report = dict(
+            world=1, backend=dist.get_backend(), config="task0",
+            batch=TRAIN_B, hw=[TRAIN_H, TRAIN_W], maxdisp=MAXDISP,
+            first_ms=times[0], ms_per_step=ms,
+            pairs_per_s=TRAIN_B / (ms / 1e3), peak_gb=peak_gb, loss=losses,
+            all_reduces_per_step=reduces, vs_non_dp_kernel_step_rel_l2=vs_kernel,
+            non_dp_ms_per_step=[t["ms_per_step"] for t in non_dp],
+            non_dp_pairs_per_s=[t["pairs_per_s"] for t in non_dp], **cmp,
+            launches=launches)
+        log(f"[dp] world 1 ({report['backend']}), task0: {ms:.2f} ms/step, "
+            f"{report['pairs_per_s']:.2f} pairs/s (without a mesh, train "
+            f"phase default turns: "
+            + ", ".join(f"{t:.2f}" for t in report["non_dp_ms_per_step"])
+            + f" ms/step); {reduces} all-reduces a step; dp/lr vs the "
+            f"step without a mesh: relative L2 {vs_kernel:.3e}; launches "
+            f"{launches}")
+        if failures:
+            raise SystemExit("chip_smoke: dp failed:\n  "
+                             + "\n  ".join(failures))
+        # the step without a mesh and the dp step, interleaved (each pair
+        # in alternating order) from states of their own
+        plain_step = make_train_step(specs, sites, make_optimizer(WD),
+                                     maxdisp=MAXDISP)
+        pp = clone_tree(params)
+        runs = {"no_mesh": (plain_step, [pp, stats,
+                                         make_optimizer(WD).init(pp)]),
+                "dp": (step, [clone_tree(params), stats,
+                              clone_tree(opt_state)])}
+        paired = {k: [] for k in runs}
+        for i in range(DP_PAIRS):
+            for k in (("no_mesh", "dp") if i % 2 == 0 else ("dp", "no_mesh")):
+                fn, st = runs[k]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st[:3] = fn(*st, lr0, *batch)[:3]
+                torch.cuda.synchronize()
+                paired[k].append((time.perf_counter() - t0) * 1e3)
+        del runs, pp
+        report["interleaved"] = {
+            "pairs": DP_PAIRS, **{f"{k}_ms": v for k, v in paired.items()},
+            **{f"{k}_mean_ms": float(np.mean(v)) for k, v in paired.items()},
+            **{f"{k}_median_ms": float(np.median(v))
+               for k, v in paired.items()}}
+        gaps = np.subtract(paired["dp"], paired["no_mesh"])
+        report["interleaved"]["dp_minus_no_mesh_median_ms"] = float(
+            np.median(gaps))
+        log(f"[dp] {DP_PAIRS} steps without a mesh and {DP_PAIRS} dp steps, "
+            f"interleaved: median {np.median(paired['no_mesh']):.2f} / "
+            f"{np.median(paired['dp']):.2f} ms, mean "
+            f"{np.mean(paired['no_mesh']):.2f} / {np.mean(paired['dp']):.2f} "
+            f"ms; median of the pairs' gaps {np.median(gaps):.2f} ms")
+        if profile_dir is not None:
+            state = [params, stats, opt_state]
+
+            def dp_step():
+                state[:3] = step(*state, LR, *batch)[:3]
+            profile(dp_step, "dp_task0_default", profile_dir)
+        # the host cost of one of the step's small collectives: a
+        # stacked pair of statistics summed over the world, back to back
+        pair = torch.zeros(2, 64, device=dev)
+        all_sum_if(pair, mesh.group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_ALL_REDUCES):
+            all_sum_if(pair, mesh.group)
+        torch.cuda.synchronize()
+        report["all_reduces_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"[dp] {DP_ALL_REDUCES} all-reduces of 2x64 floats back to back: "
+            f"{report['all_reduces_ms']:.2f} ms on the host clock")
+        rows = measure_scaling(worlds=(1,), batch_per_rank=TRAIN_B,
+                               hw=(TRAIN_H, TRAIN_W), steps=5, warmup=2,
+                               maxdisp=MAXDISP)
+        report["scaling"] = rows
+        report["scaling_note"] = ("one visible device: a world of one, no "
+                                  "scaling claimed")
+        log(f"[dp] measure_scaling (default genotype, fresh net, batch "
+            f"{TRAIN_B} a rank, {TRAIN_H}x{TRAIN_W}): {json.dumps(rows)}")
+    finally:
+        dist.destroy_process_group()
+    report["device"] = smi
+    report["wall_s"] = time.perf_counter() - t_phase
+    return launches, report
 
 
 # -- the learn phase ---------------------------------------------------------
@@ -3108,8 +3486,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
                     help="also profile one request and one train step per "
-                         "path and one supernet train step; write tables "
-                         "and traces here")
+                         "path, one data-parallel step and one supernet "
+                         "train step; write tables and traces here")
     ap.add_argument("--small-only", action="store_true",
                     help="build and check every kernel at the small shapes "
                          "only; no report")
@@ -3182,6 +3560,13 @@ def main() -> int:
         n, cfgs = phase_train(dev, plain_train[p], p)
         per_cfg[p].append(cfgs)
         launches = {k: launches[k] + n[k] for k in KERNELS}
+    fp32_probe = phase_fp32_probe(dev)
+    torch.cuda.empty_cache()
+    n, dp = phase_dp(dev, plain_train["default"], per_cfg["default"], smi,
+                     opts.profile)
+    dp["fp32_probe"] = fp32_probe
+    launches = {k: launches[k] + n[k] for k in KERNELS}
+    torch.cuda.empty_cache()
     n, learn = phase_learn(dev, plain_learn, smi)
     launches = {k: launches[k] + n[k] for k in KERNELS}
     del plain_learn
@@ -3221,9 +3606,9 @@ def main() -> int:
         "and averaged over the task paths of their path; every kernel's "
         "\"train_step\" or own numbers: per step of task 0's stage; "
         "launches: every serve, route and train run of both paths, the "
-        "learn run, the cli runs and the selfsup phase (its compared step, "
-        "its timed steps, its driver run and its round trip); the depth "
-        "phase launches none")
+        "dp run, the learn run, the cli runs and the selfsup phase (its "
+        "compared step, its timed steps, its driver run and its round "
+        "trip); the depth phase launches none")
     log("[report] ms/request (default turns 1, 4 / variants turns 2, 3): "
         + side_by_side(per_task, "ms_per_request"))
     log("[report] peak GB per request (default / variants): "
@@ -3244,6 +3629,7 @@ def main() -> int:
     print(json.dumps({"cli": cli_report}))
     print(json.dumps({"selfsup": self_report}))
     print(json.dumps({"depth": depth_report}))
+    print(json.dumps({"dp": dp}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,18 @@ The run is on the card: ``main`` raises where CUDA is not available and
 never carries on on the CPU; ``main(argv, device="cpu")`` runs it on the
 CPU (the tests do). The kernels are the default path's
 (``KernelVariants()``): rag_tpu picks its variants through environment
-switches, which the port does not read. The flags of parts not ported
-yet raise NotImplementedError before any work: ``--mesh`` over more than
-one device, ``--scene-parallel-search`` and ``--bf16``.
+switches, which the port does not read.
+
+``--mesh N`` runs the experiment data-parallel on N ranks, one per
+visible CUDA device (N CPU processes over gloo with device="cpu"):
+``main`` spawns them with torch.multiprocessing, joined by a process
+group on a local port, and each runs the driver over the mesh; rank 0
+logs and writes the checkpoints and result.json. Where a process group
+is already initialized (a launcher started the ranks), ``main`` runs as
+its rank instead. ``--mesh`` beyond the visible devices raises
+ValueError. The flags of parts not ported yet raise NotImplementedError
+before any work: ``--mesh D M`` with M > 1, ``--scene-parallel-search``
+and ``--bf16``.
 
 The styled synthetic scenes take WEATHER_STYLES[t % 4], as in rag_tpu, so
 scenes t and t + 4 share a style.
@@ -115,11 +124,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train the Scene Router after each task")
     p.add_argument("--router-epochs", type=int, default=3)
 
-    # device mesh and parallel search (not ported yet)
+    # device mesh and parallel search
     p.add_argument("--mesh", type=int, nargs="+", default=None,
                    metavar=("DP", "SP"),
-                   help="data-parallel (and spatial) mesh; only 1 device "
-                        "is ported")
+                   help="data-parallel mesh: --mesh 4 runs every stage's "
+                        "batch over 4 ranks, one per GPU; a second (spatial) "
+                        "axis is not ported yet")
     p.add_argument("--scene-parallel-search", action="store_true",
                    help="not ported yet")
 
@@ -155,13 +165,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """NotImplementedError for a flag whose part is not ported yet."""
-    if args.mesh and int(np.prod(args.mesh)) > 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: " + UNPORTED.format(7))
+    if args.mesh and len(args.mesh) > 1 and int(np.prod(args.mesh[1:])) > 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: the spatial axis is "
+                                  + UNPORTED.format("7b"))
     if args.scene_parallel_search:
         raise NotImplementedError("--scene-parallel-search: "
-                                  + UNPORTED.format(7))
+                                  + UNPORTED.format("7b"))
     if args.bf16:
         raise NotImplementedError("--bf16: " + UNPORTED.format(11))
+
+
+def visible_devices(device) -> int:
+    """Devices a mesh may span: the visible CUDA devices, or the CPU's
+    cores for device="cpu"."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
+def mesh_size(args) -> int:
+    return args.mesh[0] if args.mesh else 1
 
 
 def eval_only(args, device="cuda"):
@@ -390,6 +413,8 @@ def make_config(args):
         maxdisp=args.maxdisp,
         use_router=args.train_router,
         router_epochs=args.router_epochs,
+        mesh_data=mesh_size(args),
+        mesh_model=(args.mesh[1] if args.mesh and len(args.mesh) > 1 else 1),
         **extra,
     )
 
@@ -415,24 +440,75 @@ def make_driver(args, device="cuda", driver_cls=None, **kw):
     return (driver_cls or ContinualDriver)(cfg, device=device, **kw), data
 
 
+def _rank_main(rank, argv, device, address, world, driver_cls, log):
+    """One spawned rank of a --mesh run: join the group, run main."""
+    import torch.distributed as dist
+
+    from rag_tpu_torch.parallel.multihost import initialize_multihost
+
+    dev = (torch.device("cuda", rank) if torch.device(device).type == "cuda"
+           else torch.device("cpu"))
+    initialize_multihost(address, world, rank, device=dev)
+    try:
+        main(argv, device=dev, driver_cls=driver_cls, log=log)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(args, argv, device, driver_cls, log):
+    """Run the experiment on mesh_size(args) spawned ranks; returns the
+    ForgettingMatrix rank 0 wrote to result.json."""
+    import torch.multiprocessing as mp
+
+    from rag_tpu_torch.metrics.meters import ForgettingMatrix
+    from rag_tpu_torch.parallel.multihost import local_address
+
+    n = mesh_size(args)
+    mp.start_processes(_rank_main, args=(argv, str(device), local_address(),
+                                         n, driver_cls, log),
+                       nprocs=n, start_method="spawn")
+    path = os.path.join(args.output,
+                        f"{args.experiment}_rag_{args.seed}_{args.id}",
+                        "result.json")
+    with open(path) as f:
+        result = json.load(f)
+    names = [k for k, v in result.items()
+             if isinstance(v, list) and v and isinstance(v[0], list)]
+    matrix = ForgettingMatrix(args.num_tasks, names)
+    for k in names:
+        matrix.m[k] = np.asarray(result[k], np.float64)
+    return matrix
+
+
 def main(argv=None, device="cuda", driver_cls=None, log=print):
     """Run the CLI on ``device``. Returns the ForgettingMatrix of a
     training run, or --eval-only's {name: scalars}. ``driver_cls`` (a
     subclass of the variant's driver) and ``log`` let a caller observe the
-    run."""
+    run. With --mesh N > 1 and no process group yet, the run goes to N
+    spawned ranks (see the module docstring)."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     check_ported(args)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("rag_tpu_torch.cli runs on a CUDA device and none "
                            "is available; main(argv, device='cpu') runs it "
                            "on the CPU")
+    n = mesh_size(args)
+    if n > visible_devices(device):
+        raise ValueError(f"--mesh {n} needs {n} devices, "
+                         f"{visible_devices(device)} visible")
     if args.eval_only:
         return eval_only(args, device)
+    if n > 1 and not dist.is_initialized():
+        return _spawn_ranks(args, argv, device, driver_cls, log)
+    from rag_tpu_torch.parallel.mesh import barrier
     from rag_tpu_torch.utils.logging import MetricWriter
 
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     exp_name = f"{args.experiment}_rag_{args.seed}_{args.id}"
     log_dir = os.path.join(args.output, exp_name)
-    writer = MetricWriter(log_dir, echo=False)
+    writer = MetricWriter(log_dir if lead else None, echo=False)
     driver, (train, valid, test) = make_driver(
         args, device, driver_cls, writer=writer, log=log,
         checkpoint_dir=args.checkpoint_dir or None)
@@ -440,7 +516,15 @@ def main(argv=None, device="cuda", driver_cls=None, log=print):
     driver.stage_checkpoint_every = args.stage_checkpoint_every
     tstart = time.time()
     matrix = driver.run(train, valid, test, resume=args.resume)
+    if lead:
+        write_result(args, driver, matrix, test, log_dir, tstart)
+    barrier(driver.mesh)
+    writer.close()
+    return matrix
 
+
+def write_result(args, driver, matrix, test, log_dir, tstart) -> None:
+    """Print the run's matrices and write result.json into log_dir."""
     # every tracked forgetting matrix lands in result.json
     result = {k: matrix.m[k].tolist() for k in matrix.metric_names}
     if args.variant != "depth":
@@ -470,8 +554,6 @@ def main(argv=None, device="cuda", driver_cls=None, log=print):
         result["router"] = driver.router_eval
     with open(os.path.join(log_dir, "result.json"), "w") as f:
         json.dump(result, f, indent=2)
-    writer.close()
-    return matrix
 
 
 if __name__ == "__main__":

@@ -92,8 +92,9 @@ class DepthContinualDriver(ContinualDriver):
         return "depth"
 
     def _ft_steps(self, specs, trainable, optimizer):
-        return (make_depth_train_step(specs, trainable, optimizer),
-                make_depth_eval_step(specs))
+        mesh = self._mesh_for(self.cfg.train.batch, "fine-tune")
+        return (make_depth_train_step(specs, trainable, optimizer, mesh=mesh),
+                make_depth_eval_step(specs, mesh=mesh))
 
     def _eval_step_for(self, specs):
         return make_depth_eval_step(specs)

@@ -38,9 +38,28 @@ report lead with). The self-supervised driver
 (continual.self_supervised) and the depth driver (continual.depth_driver)
 override them.
 
-Not ported: meshes and scene-parallel search; ``ExperimentConfig`` has no
-fields for them. The driver runs on ``device`` with the kernels
-``variants`` picks; the datasets' batches must be tensors on that device.
+The driver runs on ``device`` with the kernels ``variants`` picks; the
+datasets' batches must be tensors on that device.
+
+Data parallelism: with ``mesh_data`` > 1 the driver runs on every rank of
+an initialized process group of that many ranks (``python -m
+rag_tpu_torch.cli --mesh N`` starts one rank per GPU), one device each.
+Cell search, op search, fine-tune (and the self-supervised pretrain) take
+data-parallel steps over the mesh: every rank reads the same global
+batches and trains on its slice, and the steps reduce across the ranks so
+that every rank holds the single-process result. A stage whose batch
+does not divide by ``mesh_data`` runs single-process steps on every rank
+(one log line per stage). The evaluations and the router run the same on
+every rank. At the end of each stage every rank takes rank 0's net,
+router and choice (a genotype, the op search's probabilities): a stage
+without the mesh runs alone on each rank, and two runs of one step need
+not agree to the bit on the card (``_replicate``). Rank 0 alone logs and writes the checkpoints and stage files;
+the other ranks wait at a barrier after each write, and a resume reads
+the same files on every rank. Where the world spans several machines,
+each rank reads only its shard of each batch's indices
+(``parallel.multihost.MultihostBatcher``). Not ported yet: a model axis
+(``mesh_model`` > 1) and scene-parallel search (ROADMAP.md Queue 1 item
+7b).
 """
 
 from __future__ import annotations
@@ -53,6 +72,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rag_tpu_torch.continual.state import (
     _geno_from,
@@ -70,6 +90,7 @@ from rag_tpu_torch.metrics.meters import AverageMeterDict, ForgettingMatrix
 from rag_tpu_torch.models.growable import GrowableStereoNet
 from rag_tpu_torch.models.router import SceneRouter
 from rag_tpu_torch.ops.variants import KernelVariants
+from rag_tpu_torch.parallel.mesh import barrier, make_mesh, replicate
 from rag_tpu_torch.search.genotype import Genotype, default_genotype
 from rag_tpu_torch.search.growth import OpSearch, OpSearchConfig
 from rag_tpu_torch.search.mdenas import CellSearch, CellSearchConfig
@@ -106,6 +127,10 @@ class ExperimentConfig:
     use_router: bool = False
     router_epochs: int = 3
     router_batch: int = 8
+    # data parallelism over mesh_data ranks of the initialized process
+    # group (see the module docstring); mesh_model > 1 is not ported yet
+    mesh_data: int = 1
+    mesh_model: int = 1
 
 
 def _arch_key(specs):
@@ -119,6 +144,16 @@ def _save_finetune_state(path, params, stats, opt_state, best, best_loss,
     ``epoch`` and ``best_loss``."""
     savez_atomic(path, epoch=epoch, best_loss=best_loss,
                  **leaf_arrays([params, stats, opt_state, *best]))
+
+
+def _remove_if_exists(path) -> None:
+    if os.path.exists(path):
+        os.remove(path)
+
+
+def _write_json(path, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
 
 
 def _load_finetune_state(path, template, device):
@@ -141,13 +176,41 @@ class ContinualDriver:
                  writer: Optional[MetricWriter] = None,
                  log: Optional[Callable] = print,
                  checkpoint_dir: Optional[str] = None, device="cuda",
-                 variants: KernelVariants = KernelVariants()):
+                 variants: KernelVariants = KernelVariants(), mesh=None):
         self.cfg = config
-        self.writer = writer or MetricWriter()
-        self.log = log or (lambda *_: None)
+        self.device = torch.device(device)
+        # the mesh to run over; by default the process group's world
+        # where mesh_data * mesh_model > 1
+        self.mesh = mesh
+        if mesh is not None and mesh.data != config.mesh_data:
+            raise ValueError(f"a mesh of {mesh.data} ranks for mesh_data "
+                             f"{config.mesh_data}")
+        if mesh is None and config.mesh_data * config.mesh_model > 1:
+            n = config.mesh_data * config.mesh_model
+            if self.device.type == "cuda" and n > torch.cuda.device_count():
+                raise ValueError(
+                    f"mesh {config.mesh_data}x{config.mesh_model} needs {n} "
+                    f"devices, have {torch.cuda.device_count()}")
+            if not (dist.is_initialized() and dist.get_world_size() == n):
+                raise ValueError(
+                    f"mesh {config.mesh_data}x{config.mesh_model} runs on "
+                    f"{n} ranks of a process group: start it with python -m "
+                    "rag_tpu_torch.cli --mesh or parallel.multihost."
+                    "initialize_multihost")
+            self.mesh = make_mesh(config.mesh_data, config.mesh_model,
+                                  device=self.device)
+        # rank 0 alone logs and writes files
+        self._writes = self.mesh is None or self.mesh.rank == 0
+        self.writer = (writer or MetricWriter()) if self._writes \
+            else MetricWriter()
+        self.log = (log or (lambda *_: None)) if self._writes \
+            else (lambda *_: None)
+        if self.mesh is not None:
+            self.log(f"[mesh] {config.mesh_data}-way dp over "
+                     f"{self.mesh.size} ranks")
+        self._mesh_warned = set()
         self.checkpoint_dir = (os.path.abspath(checkpoint_dir)
                                if checkpoint_dir else None)
-        self.device = torch.device(device)
         self.variants = variants
         self.net: Optional[GrowableStereoNet] = None
         self.router: Optional[SceneRouter] = None
@@ -167,6 +230,67 @@ class ContinualDriver:
         # the restored checkpoint's stage and task (resume)
         self._resume_stage: Optional[str] = None
         self._resume_task: Optional[int] = None
+
+    # -- data parallelism --------------------------------------------------
+
+    def _mesh_for(self, batch: int, stage: str):
+        """The mesh a stage's steps run over, or None: without a mesh, or
+        where the stage's batch does not divide by mesh_data (logged once
+        a stage; every rank then runs the single-process steps)."""
+        if self.mesh is None:
+            return None
+        if batch % self.cfg.mesh_data != 0:
+            if stage not in self._mesh_warned:
+                self._mesh_warned.add(stage)
+                self.log(f"[mesh] {stage}: batch {batch} not divisible by "
+                         f"mesh_data {self.cfg.mesh_data} -> single-device "
+                         "steps")
+            return None
+        return self.mesh
+
+    def _replicate(self, obj=None):
+        """Rank 0's net and router on every rank, and rank 0's copy of obj
+        (returned): a stage's result, such as a search's genotype. A stage
+        whose steps run without the mesh (a batch that does not divide by
+        mesh_data, the router) runs alone on each rank, and two runs of
+        one step need not agree to the bit on the card, so the ranks'
+        copies, or a search's choice, could drift apart; later
+        data-parallel steps would then sum mismatched tensors or issue
+        different collectives. Called on every rank at the end of each
+        stage; nothing without a mesh."""
+        if self.mesh is None:
+            return obj
+        if self.net is not None:
+            for u in self.net.all_units():
+                u.params = replicate(u.params, self.mesh)
+                u.stats = replicate(u.stats, self.mesh)
+        if self.router is not None:
+            self.router.params = replicate(self.router.params, self.mesh)
+            self.router.opt_state = replicate(self.router.opt_state,
+                                              self.mesh)
+        return None if obj is None else replicate(obj, self.mesh)
+
+    def _dist_data(self, ds):
+        """A world on one machine reads the global batches on every rank,
+        as rag_tpu's single-process mesh does; across machines each rank
+        reads only its shard of each batch (MultihostBatcher)."""
+        if self.mesh is None or self.mesh.hosts == 1:
+            return ds
+        from rag_tpu_torch.parallel.multihost import MultihostBatcher
+
+        return MultihostBatcher(ds, self.mesh)
+
+    def _write(self, fn, *args, **kw) -> None:
+        """fn(*args, **kw) on rank 0 alone; every rank then waits for the
+        others."""
+        if self._writes:
+            fn(*args, **kw)
+        barrier(self.mesh)
+
+    def _drop(self, path: Optional[str]) -> None:
+        """Remove a finished stage's file (rank 0)."""
+        if path:
+            self._write(_remove_if_exists, path)
 
     # -- variant hooks -----------------------------------------------------
 
@@ -193,11 +317,12 @@ class ContinualDriver:
     def _ft_steps(self, specs, trainable, optimizer):
         """(train step, eval step) of the fine-tune: BatchNorm trains and
         params update on the task's trainable sites."""
+        mesh = self._mesh_for(self.cfg.train.batch, "fine-tune")
         return (make_train_step(specs, trainable, optimizer,
                                 maxdisp=self.cfg.maxdisp,
-                                variants=self.variants),
+                                variants=self.variants, mesh=mesh),
                 make_eval_step(specs, maxdisp=self.cfg.maxdisp,
-                               variants=self.variants))
+                               variants=self.variants, mesh=mesh))
 
     def _eval_step_for(self, specs):
         return make_eval_step(specs, maxdisp=self.cfg.maxdisp,
@@ -232,13 +357,15 @@ class ContinualDriver:
         """Task t's cell search on a fresh supernet seeded cell.seed + t."""
         cfg = dataclasses.replace(self.cfg.cell, seed=self.cfg.cell.seed + t,
                                   maxdisp=self.cfg.maxdisp)
-        return self._cell_search_cls()(cfg, log=self.log, device=self.device,
-                                       variants=self.variants)
+        return self._cell_search_cls()(
+            cfg, log=self.log, device=self.device, variants=self.variants,
+            mesh=self._mesh_for(cfg.batch, "cell-search"))
 
     def _op_search(self) -> OpSearch:
-        return OpSearch(self.net, self._op_search_cfg(), log=self.log,
-                        variants=self.variants,
-                        variant=self._op_search_variant())
+        cfg = self._op_search_cfg()
+        return OpSearch(self.net, cfg, log=self.log, variants=self.variants,
+                        variant=self._op_search_variant(),
+                        mesh=self._mesh_for(cfg.batch, "op-search"))
 
     def _grow(self, t: int, genotype) -> None:
         """Task 0: a new net; t > 0: expand it. Drawn from seed + 31 t."""
@@ -261,19 +388,18 @@ class ContinualDriver:
         geno = self._cell_search(t).search(
             train_data, writer=self.writer, task=t, checkpoint_path=ckpt,
             checkpoint_every=self.stage_checkpoint_every,
-            resume=bool(ckpt and os.path.exists(ckpt)))
+            resume=bool(ckpt and os.path.exists(ckpt)), writes=self._writes)
+        geno = self._replicate(geno)
         if geno_file:
-            with open(geno_file, "w") as f:
-                json.dump(_geno_json(geno), f)
-        if ckpt and os.path.exists(ckpt):
-            os.remove(ckpt)
+            self._write(_write_json, geno_file, _geno_json(geno))
+        self._drop(ckpt)
         return geno
 
     def _save(self, t: int, stage: str, manifest_only: bool = False):
         if self.checkpoint_dir:
-            save_checkpoint(self.checkpoint_dir, self.net, task=t,
-                            extra=self._ckpt_extra(stage),
-                            manifest_only=manifest_only)
+            self._write(save_checkpoint, self.checkpoint_dir, self.net,
+                        task=t, extra=self._ckpt_extra(stage),
+                        manifest_only=manifest_only)
 
     def train_task(self, t: int, train_data, valid_data):
         """The task's pipeline: cell search, t = 0 a new net, t > 0 expand,
@@ -300,9 +426,10 @@ class ContinualDriver:
                 t, self._search_data_for(t, train_data), writer=self.writer,
                 checkpoint_path=ckpt,
                 checkpoint_every=self.stage_checkpoint_every,
-                resume=bool(ckpt and os.path.exists(ckpt)))
-            if ckpt and os.path.exists(ckpt):
-                os.remove(ckpt)
+                resume=bool(ckpt and os.path.exists(ckpt)),
+                writes=self._writes)
+            self.net.p = self._replicate(self.net.p)
+            self._drop(ckpt)
             best = self.net.select(t)
             self.log(f"[task {t}] best_archi = {best}")
             self.writer.text(f"archi/task{t}", str(best))
@@ -359,15 +486,15 @@ class ContinualDriver:
                 best_loss = v.get("loss", np.inf)
                 best = (clone_tree(params), stats)
             if ckpt and (epoch + 1) % self.stage_checkpoint_every == 0:
-                _save_finetune_state(ckpt, params, stats, opt_state, best,
-                                     best_loss, epoch)
+                self._write(_save_finetune_state, ckpt, params, stats,
+                            opt_state, best, best_loss, epoch)
             if (self._finetune_stop_after is not None
                     and epoch + 1 >= self._finetune_stop_after):
                 return
         net.write_back(arch, *best)
+        self._replicate()
         self._save(t, "trained")
-        if ckpt and os.path.exists(ckpt):
-            os.remove(ckpt)
+        self._drop(ckpt)
 
     def _cached_eval_step(self, specs):
         key = _arch_key(specs)
@@ -397,6 +524,7 @@ class ContinualDriver:
         self.router.train(train_datasets[:t + 1],
                           epochs=self.cfg.router_epochs,
                           batch=self.cfg.router_batch, log=self.log)
+        self._replicate()
         self.router.trained_task = t
         acc = self.router.accuracy(test_datasets[:t + 1])
         self.log(f"[router] after task {t}: scene accuracy {100*acc:.1f}%")
@@ -492,6 +620,8 @@ class ContinualDriver:
     def run(self, train_datasets: Sequence, valid_datasets: Sequence,
             test_datasets: Sequence, resume: bool = False) -> ForgettingMatrix:
         tstart = time.time()
+        train_datasets = [self._dist_data(d) for d in train_datasets]
+        valid_datasets = [self._dist_data(d) for d in valid_datasets]
         start = self.resume() if resume else 0
         if resume and self.cfg.use_router and start > 1:
             # a router saved before the last finished task (a kill in that
@@ -502,7 +632,7 @@ class ContinualDriver:
                          f"< completed task {start - 1}; re-training")
                 self.train_router(start - 1, train_datasets, test_datasets)
                 if self.checkpoint_dir and self.router is not None:
-                    save_router(self.checkpoint_dir, self.router)
+                    self._write(save_router, self.checkpoint_dir, self.router)
         for t in range(start, self.cfg.num_tasks):
             self.log("*" * 60 + f"\nTask {t}\n" + "*" * 60)
             self.train_task(t, train_datasets[t], valid_datasets[t])
@@ -532,7 +662,7 @@ class ContinualDriver:
             if self.cfg.use_router:
                 self.train_router(t, train_datasets, test_datasets)
                 if self.checkpoint_dir and self.router is not None:
-                    save_router(self.checkpoint_dir, self.router)
+                    self._write(save_router, self.checkpoint_dir, self.router)
         if self.cfg.use_router and self.router is not None:
             self.router_report(test_datasets)
         hours = (time.time() - tstart) / 3600

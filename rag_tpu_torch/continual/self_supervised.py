@@ -77,11 +77,12 @@ class SelfSupContinualDriver(ContinualDriver):
     # -- variant hooks --------------------------------------------------------
 
     def _ft_steps(self, specs, trainable, optimizer):
+        mesh = self._mesh_for(self.cfg.train.batch, "fine-tune")
         return (make_selfsup_train_step(specs, trainable, optimizer,
                                         maxdisp=self.cfg.maxdisp,
-                                        variants=self.variants),
+                                        variants=self.variants, mesh=mesh),
                 make_eval_step(specs, maxdisp=self.cfg.maxdisp,
-                               variants=self.variants))
+                               variants=self.variants, mesh=mesh))
 
     def _ft_tag(self) -> str:
         return "selfsup"
@@ -118,7 +119,9 @@ class SelfSupContinualDriver(ContinualDriver):
         specs, params, stats = net.path(arch)
         optimizer = make_optimizer(cfg.train.weight_decay, cfg.train.grad_clip)
         step = make_train_step(specs, trainable, optimizer,
-                               maxdisp=cfg.maxdisp, variants=self.variants)
+                               maxdisp=cfg.maxdisp, variants=self.variants,
+                               mesh=self._mesh_for(cfg.pretrain_batch,
+                                                   "pretrain"))
         opt_state = optimizer.init(params)
         for epoch in range(cfg.pretrain_epochs):
             lr = cosine_lr(cfg.pretrain_lr, cfg.pretrain_epochs, epoch)
@@ -130,3 +133,4 @@ class SelfSupContinualDriver(ContinualDriver):
             self.log(f"[pretrain t{t}] epoch {epoch} "
                      f"loss {float(sc['loss']):.3f}")
         net.write_back(arch, params, stats)
+        self._replicate()

@@ -5,17 +5,17 @@ Counterpart of rag_tpu/metrics/stereo.py:
   * metrics are computed per image over the valid mask; an image whose mask
     covers less than 10% of its gt>0 area (or has no gt>0 pixel) is skipped,
     and the kept images' values are averaged.
+
+``stereo_metrics`` takes ``group=None``: under a data-parallel group the
+kept images' count and every metric's sum add up over the ranks in one
+all-reduce (``parallel.axis``), giving the global batch's averages.
 """
 
 from __future__ import annotations
 
 import torch
 
-
-def _per_image(vals, weights):
-    total = weights.sum()
-    return torch.where(total > 0, (vals * weights).sum() / total.clamp(min=1),
-                       torch.zeros_like(total))
+from rag_tpu_torch.parallel.axis import all_sum_if
 
 
 def _image_weights(d_gt, mask):
@@ -33,30 +33,25 @@ def _masked_image_mean(x, mask):
     return (x * m).sum(dim=dims) / m.sum(dim=dims).clamp(min=1.0)
 
 
-def d1_metric(d_est, d_gt, mask):
+def _pixel_terms(d_est, d_gt):
+    """Per pixel: |err| (EPE), the D1 outlier flag and err > tau for tau
+    1, 2, 3."""
     err = (d_gt - d_est).abs()
     bad = (err > 3.0) & (err / d_gt.abs().clamp(min=1e-12) > 0.05)
-    return _per_image(_masked_image_mean(bad.to(d_est.dtype), mask),
-                      _image_weights(d_gt, mask))
+    return {"EPE": err, "D1": bad.to(d_est.dtype),
+            **{f"Thres{t}": (err > float(t)).to(d_est.dtype)
+               for t in (1, 2, 3)}}
 
 
-def thres_metric(d_est, d_gt, mask, tau):
-    err = (d_gt - d_est).abs()
-    return _per_image(_masked_image_mean((err > tau).to(d_est.dtype), mask),
-                      _image_weights(d_gt, mask))
-
-
-def epe_metric(d_est, d_gt, mask):
-    err = (d_gt - d_est).abs()
-    return _per_image(_masked_image_mean(err, mask), _image_weights(d_gt, mask))
-
-
-def stereo_metrics(d_est, d_gt, mask):
-    """All standard scalars, as 0-d tensors."""
-    return {
-        "EPE": epe_metric(d_est, d_gt, mask),
-        "D1": d1_metric(d_est, d_gt, mask),
-        "Thres1": thres_metric(d_est, d_gt, mask, 1.0),
-        "Thres2": thres_metric(d_est, d_gt, mask, 2.0),
-        "Thres3": thres_metric(d_est, d_gt, mask, 3.0),
-    }
+def stereo_metrics(d_est, d_gt, mask, group=None):
+    """All standard scalars, as 0-d tensors: each the kept images' mean of
+    its per-image masked mean."""
+    weights = _image_weights(d_gt, mask)
+    terms = _pixel_terms(d_est, d_gt)
+    sums = all_sum_if(torch.stack(
+        [weights.sum()] + [(_masked_image_mean(v, mask) * weights).sum()
+                           for v in terms.values()]), group)
+    total = sums[0]
+    return {k: torch.where(total > 0, sums[i + 1] / total.clamp(min=1),
+                           torch.zeros_like(total))
+            for i, k in enumerate(terms)}

@@ -199,14 +199,17 @@ class GrowableStereoNet:
         return frozenset(name for name, idx in self.archis[t].items()
                          if idx in self.model_to_train.get(name, []))
 
+    def all_units(self) -> List[Unit]:
+        """Every candidate of every site and head."""
+        return [u for store in (self.units, self.heads)
+                for units in store.values() for u in units]
+
     def to(self, device) -> "GrowableStereoNet":
-        """Move every candidate's tensors to ``device`` (in place)."""
+        """Move every unit's tensors to ``device`` (in place)."""
         device = torch.device(device)
-        for store in (self.units, self.heads):
-            for units in store.values():
-                for u in units:
-                    u.params = _tree_to(u.params, device)
-                    u.stats = _tree_to(u.stats, device)
+        for u in self.all_units():
+            u.params = _tree_to(u.params, device)
+            u.stats = _tree_to(u.stats, device)
         return self
 
     def num_params(self) -> int:
@@ -273,8 +276,5 @@ class GrowableDepthNet(GrowableStereoNet):
         base = super().trainable_sites(t)
         return base | {"depth_head"} if t == 0 else base
 
-    def to(self, device) -> "GrowableDepthNet":
-        super().to(device)
-        self.depth_head.params = _tree_to(self.depth_head.params, device)
-        self.depth_head.stats = _tree_to(self.depth_head.stats, device)
-        return self
+    def all_units(self) -> List[Unit]:
+        return super().all_units() + [self.depth_head]

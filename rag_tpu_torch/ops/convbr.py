@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from rag_tpu_torch.parallel.axis import all_mean_if, bn_group, world_size
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
@@ -86,9 +88,19 @@ def bn_fold(params, stats):
 def batch_stats(x: torch.Tensor, dims, n: int):
     """Biased batch mean and variance over ``dims`` as the reference takes
     them (``E[x^2] - mean^2`` in float32), and the unbiased variance
-    ``var * n/(n-1)`` for the running update."""
+    ``var * n/(n-1)`` for the running update.
+
+    Under a data-parallel group (``parallel.axis.bn_collective``) the mean
+    and mean-square are averaged over the ranks in one all-reduce and n
+    counts every rank's elements, so that the ranks' slices together give
+    the global batch's statistics."""
     mean = x.mean(dim=dims)
-    var = (x * x).mean(dim=dims) - mean * mean
+    msq = (x * x).mean(dim=dims)
+    group = bn_group()
+    if group is not None:
+        mean, msq = all_mean_if(torch.stack([mean, msq]), group).unbind(0)
+        n *= world_size(group)
+    var = msq - mean * mean
     return mean, var, var.detach() * (n / max(n - 1, 1))
 
 

@@ -2,7 +2,9 @@
 network.
 
 Counterpart of rag_tpu/search/growth.py, with its mid-search state file
-and fault injection, without the mesh. After ``expand`` every searchable
+and fault injection; with a ``mesh`` its steps run data-parallel
+(``train.trainer``) while the sampled paths stay on the host, the same on
+every rank. After ``expand`` every searchable
 site holds L reuse candidates + 1 new unit; per epoch a full path is
 sampled from the per-site categoricals, trained for an epoch on the
 search split's first ``split_frac`` (only the new units and task t's
@@ -85,12 +87,13 @@ class OpSearchConfig:
     split_frac: float = 0.5
 
 
-def _stereo_steps(specs, trainable, optimizer, maxdisp, variants):
+def _stereo_steps(specs, trainable, optimizer, maxdisp, variants, mesh):
     # bn_sites = {}: every BatchNorm frozen during op search
     return (make_train_step(specs, frozenset(), optimizer,
                             trainable_sites=trainable, maxdisp=maxdisp,
-                            variants=variants),
-            make_eval_step(specs, maxdisp=maxdisp, variants=variants))
+                            variants=variants, mesh=mesh),
+            make_eval_step(specs, maxdisp=maxdisp, variants=variants,
+                           mesh=mesh))
 
 
 def _stereo_args(batch):
@@ -102,10 +105,10 @@ def _stereo_quality(vm):
     return 1.0 - min(max(vm.get("D1", 1.0), 0.0), 1.0), "D1"
 
 
-def _depth_steps(specs, trainable, optimizer, maxdisp, variants):
+def _depth_steps(specs, trainable, optimizer, maxdisp, variants, mesh):
     return (make_depth_train_step(specs, frozenset(), optimizer,
-                                  trainable_sites=trainable),
-            make_depth_eval_step(specs))
+                                  trainable_sites=trainable, mesh=mesh),
+            make_depth_eval_step(specs, mesh=mesh))
 
 
 def _depth_args(batch):
@@ -142,9 +145,11 @@ class OpSearch:
 
     def __init__(self, net: GrowableStereoNet, config: OpSearchConfig,
                  log: Optional[Callable] = print,
-                 variants: KernelVariants = DEFAULT, variant: str = "stereo"):
+                 variants: KernelVariants = DEFAULT, variant: str = "stereo",
+                 mesh=None):
         self.net = net
         self.cfg = config
+        self.mesh = mesh
         self.log = log or (lambda *_: None)
         self.variants = variants
         self._step_cache = {}
@@ -159,7 +164,8 @@ class OpSearch:
             optimizer = make_optimizer(self.cfg.weight_decay,
                                        self.cfg.grad_clip)
             train_step, eval_step = self._make_steps(
-                specs, trainable, optimizer, self.cfg.maxdisp, self.variants)
+                specs, trainable, optimizer, self.cfg.maxdisp, self.variants,
+                self.mesh)
             self._step_cache[key] = (train_step, eval_step, optimizer)
         return self._step_cache[key]
 
@@ -235,13 +241,15 @@ class OpSearch:
     def search(self, t: int, train_data, writer=None,
                checkpoint_path: Optional[str] = None,
                checkpoint_every: int = 10, resume: bool = False,
-               stop_after: Optional[int] = None):
+               stop_after: Optional[int] = None, writes: bool = True):
         """Updates net.p in place; the caller then runs net.select(t).
 
         checkpoint_path: the state file, written every ``checkpoint_every``
         epochs; resume=True continues from it where it exists. stop_after:
         return after that many epochs, right after the state file's write
-        and without the best-epoch restore (a simulated kill)."""
+        and without the best-epoch restore (a simulated kill).
+        writes=False: resume from the state file, write none (a
+        data-parallel run's ranks other than 0)."""
         net, cfg = self.net, self.cfg
         if net.p is None or net.new_models is None:
             raise ValueError("op search before expand")
@@ -318,7 +326,8 @@ class OpSearch:
                 best_loss = valid_loss
                 best = self._snapshot(t)
 
-            if checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+            if (writes and checkpoint_path
+                    and (epoch + 1) % checkpoint_every == 0):
                 self.save_state(checkpoint_path, t, epoch, h_e, h_a,
                                 momentum, best, best_loss, rng=rng)
             if stop_after is not None and epoch + 1 >= stop_after:

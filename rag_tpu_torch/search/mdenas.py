@@ -2,8 +2,10 @@
 epoch/accuracy probability update.
 
 Counterpart of rag_tpu/search/mdenas.py (CellSearch, with its mid-search
-state file and fault injection, and DepthCellSearch; the mesh is not
-ported). Per
+state file and fault injection, and DepthCellSearch). With a ``mesh``
+the supernet's steps run data-parallel (``train.trainer``); the sampled
+ops and the probability update stay on the host, the same on every
+rank. Per
 epoch: sample one op per edge from the categorical p, train that single
 path of the supernet for an epoch, score it on the held-out half, then
 update p with the pairwise rule
@@ -50,15 +52,15 @@ from rag_tpu_torch.models.supernet import (
     supernet_forward,
 )
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
+from rag_tpu_torch.parallel.axis import data_group
 from rag_tpu_torch.search.genotype import Genotype, parse_genotype
 from rag_tpu_torch.train.trainer import (
     clone_tree,
     cosine_lr,
-    differentiable,
-    grads_of,
+    local_batch,
     make_optimizer,
-    sgd_apply,
     supervised_loss,
+    train_update,
 )
 from rag_tpu_torch.train.losses import silog_loss
 
@@ -93,77 +95,95 @@ class CellSearchConfig:
 
 
 def make_supernet_train_step(optimizer, maxdisp: int,
-                             variants: KernelVariants = DEFAULT):
+                             variants: KernelVariants = DEFAULT, mesh=None):
     """step(params, stats, opt_state, lr, left, right, disp_gt, fea_ops,
     mat_ops) -> (params, new_stats, opt_state, scalars): every BatchNorm
     in train mode, SGD on every leaf (an unsampled edge's gradient is
     zero; weight decay and momentum still move it, as under optax).
-    ``params`` and ``opt_state`` update in place."""
+    ``params`` and ``opt_state`` update in place. mesh: data parallelism
+    over its ranks, as in train.trainer."""
+    group = data_group(mesh)
 
     def step(params, stats, opt_state, lr, left, right, disp_gt, fea_ops,
              mat_ops):
-        handles, p_diff = differentiable(params, frozenset(params))
-        with torch.enable_grad():
+        left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
+
+        def forward(p):
             disp, new_stats = supernet_forward(
-                p_diff, stats, left, right, fea_ops, mat_ops, train=True,
+                p, stats, left, right, fea_ops, mat_ops, train=True,
                 maxdisp=maxdisp, variants=variants)
-            loss, mask = supervised_loss(disp, disp_gt, maxdisp)
-            grads = grads_of(loss, handles)
-        sgd_apply(optimizer, params, grads, opt_state, lr)
+            loss, _ = supervised_loss(disp, disp_gt, maxdisp, group)
+            return loss, disp, new_stats
+
+        loss, disp, new_stats = train_update(params, frozenset(params),
+                                             optimizer, opt_state, lr, group,
+                                             forward)
         with torch.no_grad():
-            scalars = {"loss": loss.detach(),
-                       **stereo_metrics(disp.detach(), disp_gt, mask)}
+            mask = (disp_gt > 0) & (disp_gt < maxdisp)
+            scalars = {"loss": loss,
+                       **stereo_metrics(disp, disp_gt, mask, group)}
         return params, new_stats, opt_state, scalars
 
     return step
 
 
-def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT):
+def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT,
+                            mesh=None):
     """step(params, stats, left, right, disp_gt, fea_ops, mat_ops) ->
     scalars, with every BatchNorm frozen."""
+    group = data_group(mesh)
 
     @torch.inference_mode()
     def step(params, stats, left, right, disp_gt, fea_ops, mat_ops):
+        left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
         disp, _ = supernet_forward(params, stats, left, right, fea_ops,
                                    mat_ops, train=False, maxdisp=maxdisp,
                                    variants=variants)
-        loss, mask = supervised_loss(disp, disp_gt, maxdisp)
-        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask)}
+        loss, mask = supervised_loss(disp, disp_gt, maxdisp, group)
+        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask, group)}
 
     return step
 
 
-def make_depth_supernet_train_step(optimizer):
+def make_depth_supernet_train_step(optimizer, mesh=None):
     """step(params, stats, opt_state, lr, image, depth_gt, fea_ops,
     mat_ops): the depth supernet's step on silog over gt > 0, as
     make_supernet_train_step's."""
+    group = data_group(mesh)
 
     def step(params, stats, opt_state, lr, image, depth_gt, fea_ops,
              mat_ops):
-        handles, p_diff = differentiable(params, frozenset(params))
+        image, depth_gt = local_batch(mesh, image, depth_gt)
         mask = depth_gt > 0
-        with torch.enable_grad():
+
+        def forward(p):
             pred, new_stats = depth_supernet_forward(
-                p_diff, stats, image, fea_ops, mat_ops, train=True)
-            loss = silog_loss(pred, depth_gt, mask)
-            grads = grads_of(loss, handles)
-        sgd_apply(optimizer, params, grads, opt_state, lr)
+                p, stats, image, fea_ops, mat_ops, train=True)
+            return silog_loss(pred, depth_gt, mask, group=group), pred, \
+                new_stats
+
+        loss, pred, new_stats = train_update(params, frozenset(params),
+                                             optimizer, opt_state, lr, group,
+                                             forward)
         with torch.no_grad():
-            scalars = {"loss": loss.detach(),
-                       **depth_metrics(pred.detach(), depth_gt, mask)}
+            scalars = {"loss": loss,
+                       **depth_metrics(pred, depth_gt, mask, group)}
         return params, new_stats, opt_state, scalars
 
     return step
 
 
-def make_depth_supernet_eval_step():
+def make_depth_supernet_eval_step(mesh=None):
+    group = data_group(mesh)
+
     @torch.inference_mode()
     def step(params, stats, image, depth_gt, fea_ops, mat_ops):
+        image, depth_gt = local_batch(mesh, image, depth_gt)
         pred, _ = depth_supernet_forward(params, stats, image, fea_ops,
                                          mat_ops, train=False)
         mask = depth_gt > 0
-        return {"loss": silog_loss(pred, depth_gt, mask),
-                **depth_metrics(pred, depth_gt, mask)}
+        return {"loss": silog_loss(pred, depth_gt, mask, group=group),
+                **depth_metrics(pred, depth_gt, mask, group)}
 
     return step
 
@@ -177,8 +197,10 @@ class CellSearch:
 
     def __init__(self, config: CellSearchConfig,
                  log: Optional[Callable] = print, device="cuda",
-                 variants: KernelVariants = DEFAULT, weights=None):
+                 variants: KernelVariants = DEFAULT, weights=None,
+                 mesh=None):
         self.cfg = config
+        self.mesh = mesh
         self.log = log or (lambda *_: None)
         if weights is None:
             weights = self._init_net(
@@ -194,8 +216,9 @@ class CellSearch:
 
     def _make_steps(self, variants):
         return (make_supernet_train_step(self.optimizer, self.cfg.maxdisp,
-                                         variants),
-                make_supernet_eval_step(self.cfg.maxdisp, variants))
+                                         variants, self.mesh),
+                make_supernet_eval_step(self.cfg.maxdisp, variants,
+                                        self.mesh))
 
     @staticmethod
     def _batch_args(b):
@@ -258,7 +281,8 @@ class CellSearch:
     def search(self, train_data, writer=None, task: int = 0,
                checkpoint_path: Optional[str] = None,
                checkpoint_every: int = 10, resume: bool = False,
-               stop_after: Optional[int] = None) -> Genotype:
+               stop_after: Optional[int] = None,
+               writes: bool = True) -> Genotype:
         """The MdeNAS loop; returns the genotype of the best-by-valid-loss
         epoch's p, with that epoch's params restored (the statistics and
         the optimizer state stay the last epoch's, as in rag_tpu).
@@ -268,7 +292,8 @@ class CellSearch:
         epochs; resume=True continues from it where it exists.
         stop_after: return after that many epochs, right after the state
         file's write and without the best-epoch restore (a simulated
-        kill)."""
+        kill). writes=False: resume from the state file, write none (a
+        data-parallel run's ranks other than 0)."""
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed + 1000 * task)
         train_idx, valid_idx = split_half(len(train_data),
@@ -329,7 +354,8 @@ class CellSearch:
                 # a copy: the train step updates self.params in place
                 best_params = clone_tree(self.params)
 
-            if checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+            if (writes and checkpoint_path
+                    and (epoch + 1) % checkpoint_every == 0):
                 self.save_state(checkpoint_path, epoch, h_e, h_a, rng,
                                 best_loss, best_p, best_params)
             if stop_after is not None and epoch + 1 >= stop_after:
@@ -352,8 +378,8 @@ class DepthCellSearch(CellSearch):
     _init_net = staticmethod(init_depth_supernet)
 
     def _make_steps(self, variants):
-        return (make_depth_supernet_train_step(self.optimizer),
-                make_depth_supernet_eval_step())
+        return (make_depth_supernet_train_step(self.optimizer, self.mesh),
+                make_depth_supernet_eval_step(self.mesh))
 
     @staticmethod
     def _batch_args(b):

@@ -7,6 +7,11 @@ Images are NHWC, as in rag_tpu. The warp is the gather form of
 ``warp_by_disparity``; rag_tpu's gather-free ``warp_by_disparity_scan``
 computes the same function for the TPU and has no counterpart here.
 
+Each loss takes ``group=None``: under a data-parallel group it reduces
+its numerators and denominators (or, for the photometric loss's plain
+means over equal slices, the loss itself) across the ranks through
+``parallel.axis``, so that every rank holds the global batch's loss.
+
 Gradients at ties follow JAX: ``jnp.clip`` and ``jnp.maximum`` pass half
 the gradient to each side where the two are equal, as ``torch.maximum``
 and ``torch.minimum`` do; ``torch.clamp`` would pass all of it, so it is
@@ -18,13 +23,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from rag_tpu_torch.parallel.axis import all_mean_if, all_sum_if
 
-def smooth_l1_masked(pred, target, mask, beta: float = 1.0):
+
+def smooth_l1_masked(pred, target, mask, beta: float = 1.0, group=None):
     """Masked mean smooth-L1 (torch F.smooth_l1_loss semantics)."""
     diff = (pred - target).abs()
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
     m = mask.to(loss.dtype)
-    return (loss * m).sum() / m.sum().clamp(min=1.0)
+    num, den = all_sum_if(torch.stack([(loss * m).sum(), m.sum()]),
+                          group).unbind(0)
+    return num / den.clamp(min=1.0)
 
 
 def _max(x, v: float):
@@ -36,13 +45,16 @@ def _clip(x, lo: float, hi: float):
     return torch.minimum(_max(x, lo), x.new_tensor(hi))
 
 
-def silog_loss(depth_est, depth_gt, mask, variance_focus: float = 0.85):
+def silog_loss(depth_est, depth_gt, mask, variance_focus: float = 0.85,
+               group=None):
     """Scale-invariant log loss over the masked pixels, x10."""
     m = mask.to(depth_est.dtype)
-    n = _max(m.sum(), 1.0)
     d = (torch.log(_max(depth_est, 1e-8)) - torch.log(_max(depth_gt, 1e-8))) * m
-    mean_sq = (d * d).sum() / n
-    mean = d.sum() / n
+    count, sq, total = all_sum_if(
+        torch.stack([m.sum(), (d * d).sum(), d.sum()]), group).unbind(0)
+    n = _max(count, 1.0)
+    mean_sq = sq / n
+    mean = total / n
     return torch.sqrt(_max(mean_sq - variance_focus * mean * mean, 1e-12)) * 10.0
 
 
@@ -86,9 +98,10 @@ def ssim(x, y):
     return _clip((1.0 - num / den) / 2.0, 0.0, 1.0)
 
 
-def photometric_loss(disp_est, left, right):
+def photometric_loss(disp_est, left, right, group=None):
     """0.85 SSIM + 0.15 L1 reconstruction + 0.1 edge-aware smoothness.
-    disp_est (B,H,W); left, right (B,H,W,C)."""
+    disp_est (B,H,W); left, right (B,H,W,C). Every term is a plain mean
+    over equal slices, so under a group the loss averages over the ranks."""
     left_est, _ = warp_by_disparity(right, disp_est)
     recon = 0.85 * ssim(left, left_est).mean() \
         + 0.15 * (left - left_est).abs().mean()
@@ -101,4 +114,4 @@ def photometric_loss(disp_est, left, right):
     wx = torch.exp(-igx.abs())
     wy = torch.exp(-igy.abs())
     smooth = (dgx.abs() * wx).mean() + (dgy.abs() * wy).mean()
-    return recon + 0.1 * smooth
+    return all_mean_if(recon + 0.1 * smooth, group)

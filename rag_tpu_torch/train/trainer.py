@@ -15,6 +15,20 @@ The optimizer is optax's ``chain(clip_by_global_norm(clip),
 add_decayed_weights(wd), trace(0.9))`` written out, with the reference's
 freeze mask applied to the gradients before it and to the updates after
 it.
+
+Every step takes its gradients inside ``full_fp32()``: ATen reads the
+TF32 switches when the backward runs, so a backward taken after the
+forward's scope closed would run its convs in TF32 wherever the caller
+left them on.
+
+Data parallelism: every step builder takes ``mesh=None``. With a mesh
+(``parallel.mesh.make_mesh``), the step takes the global batch on every
+rank, runs the same body on its rank's slice of it with every batch-wide
+statistic reduced across the ranks (BatchNorm statistics, the loss's and
+the metrics' sums; ``parallel.axis``), differentiates the global loss
+divided by the world size and sums the gradients over the ranks before
+the SGD tail, so that every rank ends the step with the single-process
+params, statistics and optimizer state.
 """
 
 from __future__ import annotations
@@ -27,8 +41,16 @@ import torch
 from rag_tpu_torch.metrics.depth import depth_metrics
 from rag_tpu_torch.metrics.stereo import stereo_metrics
 from rag_tpu_torch.models.depth import depth_forward
-from rag_tpu_torch.models.stereo import MAXDISP, stereo_forward
+from rag_tpu_torch.models.stereo import MAXDISP, full_fp32, stereo_forward
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
+from rag_tpu_torch.parallel.axis import (
+    all_sum_tree,
+    bn_collective,
+    data_group,
+    world_size,
+)
+from rag_tpu_torch.parallel.mesh import rank_slice
+from rag_tpu_torch.utils.profiling import check_finite
 from rag_tpu_torch.train.losses import (
     photometric_loss,
     silog_loss,
@@ -141,30 +163,59 @@ def differentiable(params, sites):
 
 def grads_of(loss, handles) -> Dict[str, torch.Tensor]:
     """d loss / d handle for every handle; zeros where the loss does not
-    depend on it (an unsampled edge), as jax.grad gives them."""
-    grads = torch.autograd.grad(loss, list(handles.values()),
-                                allow_unused=True)
+    depend on it (an unsampled edge), as jax.grad gives them. The
+    backward runs in full float32 (``full_fp32``)."""
+    with full_fp32():
+        grads = torch.autograd.grad(loss, list(handles.values()),
+                                    allow_unused=True)
     return {path: torch.zeros_like(handles[path]) if g is None else g
             for path, g in zip(handles, grads)}
 
 
-def supervised_loss(disp, disp_gt, maxdisp: int = MAXDISP):
+def local_batch(mesh, *tensors):
+    """This rank's slices of the global batch's tensors (the tensors
+    themselves without a mesh)."""
+    if mesh is None:
+        return tensors
+    return tuple(rank_slice(t, mesh) for t in tensors)
+
+
+def train_update(params, sites, optimizer: SGDMomentum, opt_state, lr: float,
+                 group, forward):
+    """The train steps' shared body. ``forward(p_diff)`` -> (loss, output,
+    new_stats) runs with the trainable ``sites``' leaves differentiable and
+    BatchNorm reducing over ``group``; then the gradients of loss / world,
+    summed over the ranks, take the masked SGD step in place. Returns the
+    detached (loss, output) and new_stats."""
+    handles, p_diff = differentiable(params, sites)
+    with torch.enable_grad():
+        with bn_collective(group):
+            loss, out, new_stats = forward(p_diff)
+        grads = grads_of(loss / world_size(group), handles)
+    grads = all_sum_tree(grads, group)
+    check_finite(loss=loss, output=out, **grads)
+    sgd_apply(optimizer, params, grads, opt_state, lr)
+    return loss.detach(), out.detach(), new_stats
+
+
+def supervised_loss(disp, disp_gt, maxdisp: int = MAXDISP, group=None):
     mask = (disp_gt > 0) & (disp_gt < maxdisp)
-    return smooth_l1_masked(disp, disp_gt, mask), mask
+    return smooth_l1_masked(disp, disp_gt, mask, group=group), mask
 
 
 def make_train_step(specs: Mapping, bn_sites: frozenset,
                     optimizer: SGDMomentum,
                     trainable_sites: Optional[frozenset] = None,
                     maxdisp: int = MAXDISP,
-                    variants: KernelVariants = DEFAULT):
+                    variants: KernelVariants = DEFAULT, mesh=None):
     """Returns step(params, stats, opt_state, lr, left, right, disp_gt) ->
     (params, stats, opt_state, scalars).
 
     bn_sites: sites whose BatchNorm runs in train mode (batch statistics
     and a running update). trainable_sites: sites whose params update;
     defaults to bn_sites. variants: the optional kernels the forward and
-    its backward run (see ops.variants).
+    its backward run (see ops.variants). mesh: data parallelism over its
+    ranks (see the module docstring).
 
     The step differentiates the forward (the fused head's loss, through
     kernels A-G on the card) with respect to the trainable sites' leaves
@@ -179,36 +230,45 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
     """
     if trainable_sites is None:
         trainable_sites = bn_sites
+    group = data_group(mesh)
 
     def step(params, stats, opt_state, lr: float, left, right, disp_gt):
-        handles, p_diff = differentiable(params, trainable_sites)
-        with torch.enable_grad():
-            disp, new_stats = stereo_forward(specs, p_diff, stats, left, right,
+        left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
+
+        def forward(p):
+            disp, new_stats = stereo_forward(specs, p, stats, left, right,
                                              train_sites=bn_sites,
                                              maxdisp=maxdisp,
                                              variants=variants)
-            loss, mask = supervised_loss(disp, disp_gt, maxdisp)
-            grads = grads_of(loss, handles)
-        sgd_apply(optimizer, params, grads, opt_state, lr)
+            loss, _ = supervised_loss(disp, disp_gt, maxdisp, group)
+            return loss, disp, new_stats
+
+        loss, disp, new_stats = train_update(params, trainable_sites,
+                                             optimizer, opt_state, lr, group,
+                                             forward)
         with torch.no_grad():
-            scalars = {"loss": loss.detach(),
-                       **stereo_metrics(disp.detach(), disp_gt, mask)}
+            mask = (disp_gt > 0) & (disp_gt < maxdisp)
+            scalars = {"loss": loss,
+                       **stereo_metrics(disp, disp_gt, mask, group)}
         return params, new_stats, opt_state, scalars
 
     return step
 
 
 def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
-                   variants: KernelVariants = DEFAULT):
+                   variants: KernelVariants = DEFAULT, mesh=None):
     """step(params, stats, left, right, disp_gt) -> dict of 0-d tensors:
-    the frozen-BN serving forward, the masked loss and the stereo metrics."""
+    the frozen-BN serving forward, the masked loss and the stereo metrics
+    (over the ranks' slices with a mesh)."""
+    group = data_group(mesh)
 
     @torch.inference_mode()
     def step(params, stats, left, right, disp_gt):
+        left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
         disp, _ = stereo_forward(specs, params, stats, left, right,
                                  maxdisp=maxdisp, variants=variants)
-        loss, mask = supervised_loss(disp, disp_gt, maxdisp)
-        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask)}
+        loss, mask = supervised_loss(disp, disp_gt, maxdisp, group)
+        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask, group)}
 
     return step
 
@@ -217,28 +277,32 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
                             optimizer: SGDMomentum,
                             trainable_sites: Optional[frozenset] = None,
                             maxdisp: int = MAXDISP,
-                            variants: KernelVariants = DEFAULT):
+                            variants: KernelVariants = DEFAULT, mesh=None):
     """The photometric (self-supervised) step: make_train_step's forward,
     freezing and SGD tail, with ``photometric_loss(disp, left, right)`` in
     place of the supervised loss. ``disp_gt`` serves the D1/EPE
     monitoring over 0 < gt < maxdisp only; the loss never sees it."""
     if trainable_sites is None:
         trainable_sites = bn_sites
+    group = data_group(mesh)
 
     def step(params, stats, opt_state, lr: float, left, right, disp_gt):
-        handles, p_diff = differentiable(params, trainable_sites)
-        with torch.enable_grad():
-            disp, new_stats = stereo_forward(specs, p_diff, stats, left, right,
+        left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
+
+        def forward(p):
+            disp, new_stats = stereo_forward(specs, p, stats, left, right,
                                              train_sites=bn_sites,
                                              maxdisp=maxdisp,
                                              variants=variants)
-            loss = photometric_loss(disp, left, right)
-            grads = grads_of(loss, handles)
-        sgd_apply(optimizer, params, grads, opt_state, lr)
+            return photometric_loss(disp, left, right, group), disp, new_stats
+
+        loss, disp, new_stats = train_update(params, trainable_sites,
+                                             optimizer, opt_state, lr, group,
+                                             forward)
         with torch.no_grad():
             mask = (disp_gt > 0) & (disp_gt < maxdisp)
-            scalars = {"loss": loss.detach(),
-                       **stereo_metrics(disp.detach(), disp_gt, mask)}
+            scalars = {"loss": loss,
+                       **stereo_metrics(disp, disp_gt, mask, group)}
         return params, new_stats, opt_state, scalars
 
     return step
@@ -246,39 +310,47 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
 
 def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
                           optimizer: SGDMomentum,
-                          trainable_sites: Optional[frozenset] = None):
+                          trainable_sites: Optional[frozenset] = None,
+                          mesh=None):
     """step(params, stats, opt_state, lr, image, depth_gt) -> (params,
     stats, opt_state, scalars): silog over gt > 0 through depth_forward,
     and the depth metrics."""
     if trainable_sites is None:
         trainable_sites = bn_sites
+    group = data_group(mesh)
 
     def step(params, stats, opt_state, lr: float, image, depth_gt):
-        handles, p_diff = differentiable(params, trainable_sites)
+        image, depth_gt = local_batch(mesh, image, depth_gt)
         mask = depth_gt > 0
-        with torch.enable_grad():
-            pred, new_stats = depth_forward(specs, p_diff, stats, image,
+
+        def forward(p):
+            pred, new_stats = depth_forward(specs, p, stats, image,
                                             train_sites=bn_sites)
-            loss = silog_loss(pred, depth_gt, mask)
-            grads = grads_of(loss, handles)
-        sgd_apply(optimizer, params, grads, opt_state, lr)
+            return silog_loss(pred, depth_gt, mask, group=group), pred, \
+                new_stats
+
+        loss, pred, new_stats = train_update(params, trainable_sites,
+                                             optimizer, opt_state, lr, group,
+                                             forward)
         with torch.no_grad():
-            scalars = {"loss": loss.detach(),
-                       **depth_metrics(pred.detach(), depth_gt, mask)}
+            scalars = {"loss": loss,
+                       **depth_metrics(pred, depth_gt, mask, group)}
         return params, new_stats, opt_state, scalars
 
     return step
 
 
-def make_depth_eval_step(specs: Mapping):
+def make_depth_eval_step(specs: Mapping, mesh=None):
     """step(params, stats, image, depth_gt) -> dict of 0-d tensors: the
     frozen-BN depth forward, silog and the depth metrics."""
+    group = data_group(mesh)
 
     @torch.inference_mode()
     def step(params, stats, image, depth_gt):
+        image, depth_gt = local_batch(mesh, image, depth_gt)
         pred, _ = depth_forward(specs, params, stats, image)
         mask = depth_gt > 0
-        return {"loss": silog_loss(pred, depth_gt, mask),
-                **depth_metrics(pred, depth_gt, mask)}
+        return {"loss": silog_loss(pred, depth_gt, mask, group=group),
+                **depth_metrics(pred, depth_gt, mask, group)}
 
     return step
