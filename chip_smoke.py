@@ -107,6 +107,22 @@ exception:
                    parallel.scaling.measure_scaling's world-1 row (with
                    --profile, one more dp step profiled). One visible
                    device: no scaling is claimed;
+     sp            the spatial (model-axis) step: a world of two gloo
+                   ranks sharing the one card (NCCL refuses two ranks on
+                   one device), mesh data 1 x model 2, each a process of
+                   this script (--sp-rank); 3 steps of task 0's
+                   configuration through make_sharded_train_step, every
+                   launch count at 0 first (H slabs of 32/16/8 rows by
+                   scale): the first step against phase 4's plain step
+                   (STEP_RTOL, STATS_RTOL) and against the unsharded
+                   kernel step, each rank launching A-G and no other
+                   kernel, at the unsharded steps' counts; one 480x960
+                   eval step through make_sharded_eval_step, its rows of
+                   the disparity and its EPE and loss within SERVE_ATOL of
+                   the unsharded ones; ms/step, halo and gather bytes a
+                   step and peak memory per rank. Any rank's failure fails
+                   the run. Two ranks on one card over gloo: no scaling
+                   is measured;
   9. learn         the port's continual-learning path on the default
                    path: ContinualDriver.run over two styled synthetic
                    scenes (WEATHER_STYLES[0] and [1]; 32 train pairs and 8
@@ -130,6 +146,16 @@ exception:
                    not bit-equal); the final checkpoint reloaded on the card
                    reproducing matrix[1, u] through RoutedInference
                    (ROUNDTRIP_RTOL), routed accuracy printed;
+     scenes        SceneParallelCellSearch over the learn phase's two
+                   scenes with its cell configuration, one CUDA stream per
+                   scene on the card, every launch count at 0 first: each
+                   scene's sampled ops equal to the learn phase's
+                   sequential search's, p within SCENES_P_ATOL, genotypes
+                   equal, kernels A and D only; its seconds beside the two
+                   sequential searches run again, in turns (parallel,
+                   sequential, sequential, parallel), and each under the
+                   profiler for its device-busy share (the union of the
+                   device's busy intervals over the wall);
  10. cli           python -m rag_tpu_torch.cli's path on files, default path:
                    a fake DrivingStereo tree (cloudy and foggy, 24 + 8
                    frames of 400x881 PNG each, a seeded smooth texture seen
@@ -191,8 +217,10 @@ exception:
                    phase ("learn"), one of the cli phase ("cli"), one of
                    the selfsup phase ("selfsup"), one of the depth phase
                    ("depth"), one of the dp phase and the float32 probe
-                   ("dp"), one of kernels (launches: the serve, route,
-                   train, dp, learn, cli and selfsup runs), the card's name and
+                   ("dp"), one of the sp phase ("sp"), one of the scenes
+                   phase ("scenes"), one of kernels (launches: the serve,
+                   route, train, dp, sp, learn, scenes, cli and selfsup
+                   runs), the card's name and
                    power limit, and as the last line {"ok": true,
                    "device": {...}}.
 
@@ -275,7 +303,11 @@ from rag_tpu_torch.metrics.depth import DEPTH_METRIC_NAMES  # noqa: E402
 from rag_tpu_torch.metrics.meters import AverageMeterDict  # noqa: E402
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
 from rag_tpu_torch.models.depth import depth_forward  # noqa: E402
-from rag_tpu_torch.models.stereo import SITE_NAMES  # noqa: E402
+from rag_tpu_torch.models.stereo import (  # noqa: E402
+    SITE_NAMES,
+    disparity_rows,
+    stereo_forward,
+)
 from rag_tpu_torch.models.growable import GrowableDepthNet  # noqa: E402
 from rag_tpu_torch.models.supernet import (  # noqa: E402
     NUM_EDGES,
@@ -299,12 +331,17 @@ from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
 from rag_tpu_torch.ops.resize import _interp_matrix_np  # noqa: E402
 from rag_tpu_torch.ops.variants import KernelVariants  # noqa: E402
 from rag_tpu_torch.parallel.axis import ALL_REDUCES, all_sum_if  # noqa: E402
+from rag_tpu_torch.parallel.halo import HALO  # noqa: E402
 from rag_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from rag_tpu_torch.parallel.multihost import (  # noqa: E402
     initialize_multihost,
     local_address,
 )
 from rag_tpu_torch.parallel.scaling import measure_scaling  # noqa: E402
+from rag_tpu_torch.parallel.sharded import (  # noqa: E402
+    make_sharded_eval_step,
+    make_sharded_train_step,
+)
 from rag_tpu_torch.search import growth as growth_mod  # noqa: E402
 from rag_tpu_torch.search.genotype import (  # noqa: E402
     default_genotype,
@@ -317,12 +354,16 @@ from rag_tpu_torch.search.mdenas import (  # noqa: E402
     make_depth_supernet_train_step,
     make_supernet_train_step,
 )
+from rag_tpu_torch.search.scene_parallel import (  # noqa: E402
+    SceneParallelCellSearch,
+)
 from rag_tpu_torch.train import trainer as trainer_mod  # noqa: E402
 from rag_tpu_torch.train.trainer import (  # noqa: E402
     clone_tree,
     cosine_lr,
     make_depth_eval_step,
     make_depth_train_step,
+    make_eval_step,
     make_optimizer,
     make_selfsup_train_step,
     make_train_step,
@@ -466,6 +507,10 @@ STATS_RTOL = 1e-3  # of max(1, |stat|), new BN running statistics of that step
 # the flattened gradients), as tests/test_torch_dp.py counts them at world 2
 DP_ALL_REDUCES = 130
 DP_PAIRS = 10  # steps without a mesh and dp steps, interleaved and timed
+SCENES_P_ATOL = 1e-6  # the scene-parallel search's p vs the learn phase's
+                   # sequential searches': the same float64 host updates
+                   # from the same qualities give the same bits, and a
+                   # quality that moved in float32 moves p by ~lr_a
 FP32_PROBE_RTOL = 1e-4  # a train step with both TF32 switches on vs off:
                    # relative L2 of dp/lr. Sound (the backward in float32)
                    # the two read at most 1.44e-5 (cuDNN's run-to-run
@@ -2444,6 +2489,19 @@ def launch_failures(what, n, must):
                   if c and k not in must]
 
 
+def record_ops(cs):
+    """Wrap a cell search's train step to keep each step's sampled
+    (normal, reduce) ops as lists; returns the list they go to."""
+    out, step = [], cs._train_step
+
+    def run(*a):
+        out.append([np.asarray(a[-2]).tolist(), np.asarray(a[-1]).tolist()])
+        return step(*a)
+
+    cs._train_step = run
+    return out
+
+
 class StagedDriver(ContinualDriver):
     """The port's ContinualDriver with each stage timed on synchronized
     host clocks, its peak memory and launches read, and the trainable
@@ -2459,6 +2517,7 @@ class StagedDriver(ContinualDriver):
         super().__init__(*a, **kw)
         self.counts = counts
         self.stages, self.cell_searches, self.op_p = [], [], {}
+        self.cell_ops = []
         self._trainable = None
         self.outside = dict.fromkeys(KERNELS, 0)
 
@@ -2502,6 +2561,7 @@ class StagedDriver(ContinualDriver):
     def _cell_search(self, t):
         cs = super()._cell_search(t)
         self.cell_searches.append(cs)
+        self.cell_ops.append(record_ops(cs))
         return cs
 
     def search_cell(self, t, train_data):
@@ -2683,6 +2743,12 @@ def phase_learn(dev, plain_step, smi):
         "supernet_step_ms": step_ms, "supernet_step_vs_plain": cmp,
         "stages": drv.stages,
         "genotypes": [str(g) for g in net.genotypes], "archis": net.archis,
+        "cell_search": [
+            {"ops": ops, "p": {k: v.tolist() for k, v in cs.p.items()},
+             "s": next(r["s"] for r in drv.stages
+                       if r["stage"] == "cell" and r["task"] == t)}
+            for t, (cs, ops) in enumerate(zip(drv.cell_searches,
+                                              drv.cell_ops))],
         "model_to_train": net.model_to_train, "size_m": net.size_m(),
         "matrix": {k: matrix.m[k].tolist() for k in ("D1", "EPE")},
         "zero_forgetting": forget, "roundtrip_rel": roundtrip,
@@ -2695,6 +2761,357 @@ def phase_learn(dev, plain_step, smi):
     for rec in drv.stages:
         for k, c in rec["launches"].items():
             launches[k] += c
+    return launches, report
+
+
+# -- the sp phase: the spatial (model-axis) step on two ranks of one card --
+
+SP_MESH = (1, 2)        # data x model: two gloo ranks sharing the one card
+SP_TIMEOUT_S = 600      # both ranks, start to end
+SP_EVAL_SEED = 5
+
+
+def sp_eval_frame(dev):
+    """One 480x960 frame for the eval step: the serve phase's plane at
+    TRUE_DISP, its ground truth 0 where the left pixel has no match."""
+    left, right = stereo_pair(np.random.default_rng(SP_EVAL_SEED), H, W,
+                              TRUE_DISP)
+    gt = np.full((1, H, W), float(TRUE_DISP), np.float32)
+    gt[..., :TRUE_DISP] = 0.0
+    return tuple(torch.from_numpy(a).to(dev) for a in (left, right, gt))
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def phase_sp(dev, plain, train_turns, smi):
+    """The spatial step on a world of two gloo ranks sharing the card
+    (NCCL refuses two ranks on one device; gloo moves CUDA tensors in
+    all_reduce and broadcast, all the model axis uses). This process
+    takes task 0's unsharded kernel step (its dp/lr and its launches a
+    step) and the unsharded 480x960 eval (disparity and scalars) as
+    references, then starts both ranks (``--sp-rank``; sp_rank), which
+    gate themselves; any rank's failure fails the run. Returns the ranks'
+    launches summed and the report."""
+    t_phase = time.perf_counter()
+    specs, params, stats, sites = train_configs(dev)["task0"]
+    batch = train_batch(dev)
+    lr0 = cosine_lr(LR, TRAIN_EPOCHS, 0)
+    ref = clone_tree(params)
+    before = dict(leaves(params))
+    zero_launches()
+    make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP)(
+        ref, stats, make_optimizer(WD).init(ref), lr0, *batch)
+    torch.cuda.synchronize()
+    per_step = read_launches()
+    kernel_delta = {k: (v - before[k]) / lr0 for k, v in leaves(ref)
+                    if k.split("/")[0] in sites}
+    frame = sp_eval_frame(dev)
+    with torch.inference_mode():
+        disp, _ = stereo_forward(specs, params, stats, frame[0], frame[1],
+                                 maxdisp=MAXDISP)
+        scalars = make_eval_step(specs, maxdisp=MAXDISP)(params, stats,
+                                                        *frame)
+    zero_launches()
+    non_sp = [t["task0"] for t in train_turns]
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({"plain": _cpu(plain["task0"]),
+                    "kernel_delta": _cpu(kernel_delta),
+                    "per_step": per_step, "eval_disp": disp.cpu(),
+                    "eval_scalars": {k: float(v) for k, v in scalars.items()}},
+                   os.path.join(d, "ref.pt"))
+        del ref, kernel_delta, disp, params, stats, specs, batch, frame
+        torch.cuda.empty_cache()
+        addr = local_address()
+        world = SP_MESH[0] * SP_MESH[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sp-rank",
+             str(r), addr, d], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        outs, failed = [], []
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        try:
+            for r, p in enumerate(procs):
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                outs.append(out)
+        except subprocess.TimeoutExpired:
+            failed.append(f"sp: ranks still running after {SP_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                log(f"[sp r{r}] {line}")
+        failed += [f"sp: rank {r} exited {p.returncode}"
+                   for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            raise SystemExit("chip_smoke: sp failed:\n  " + "\n  ".join(failed))
+        ranks = [json.loads(Path(d, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    launches = {k: sum(rk["launches"][k] + rk["eval_launches"].get(k, 0)
+                       for rk in ranks) for k in KERNELS}
+    report = {
+        "device": smi, "mesh": list(SP_MESH), "backend": "gloo",
+        "note": "two ranks share one card over gloo: no scaling is measured",
+        "config": "task0", "batch": TRAIN_B, "hw": [TRAIN_H, TRAIN_W],
+        "maxdisp": MAXDISP,
+        "non_sp_ms_per_step": [t["ms_per_step"] for t in non_sp],
+        "unsharded_launches_per_step": {k: c for k, c in per_step.items()
+                                        if c},
+        "ranks": ranks, "wall_s": time.perf_counter() - t_phase}
+    log(f"[sp] mesh {SP_MESH[0]}x{SP_MESH[1]} over gloo on one card, task0: "
+        + "; ".join(f"rank {r['rank']} {r['ms_per_step']:.1f} ms/step, halo "
+                    f"{r['halo_bytes_per_step'] / 1e6:.1f} MB + gather "
+                    f"{r['gather_bytes_per_step'] / 1e6:.1f} MB a step, peak "
+                    f"{r['peak_gb']:.2f} GB, eval {r['eval_ms']:.1f} ms"
+                    for r in ranks)
+        + " (without a mesh, train phase default turns: "
+        + ", ".join(f"{t:.2f}" for t in report["non_sp_ms_per_step"])
+        + f" ms/step); phase {report['wall_s']:.1f} s")
+    return launches, report
+
+
+def sp_rank(rank: int, addr: str, d: str) -> int:
+    """One rank of the sp phase: join the gloo world on the card, take
+    TRAIN_STEPS spatial steps of task 0's configuration (every launch count
+    at 0 first) and one 480x960 eval step, gate them, write
+    rank{rank}.json into d. Returns the exit code."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cuda_lib.lib()
+    world = SP_MESH[0] * SP_MESH[1]
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank)
+    failures = []
+    try:
+        mesh = make_mesh(*SP_MESH, device=dev)
+        ref = torch.load(os.path.join(d, "ref.pt"))
+        to_dev = lambda tree: {k: v.to(dev) for k, v in tree.items()}
+        specs, params, stats, sites = train_configs(dev)["task0"]
+        batch = train_batch(dev)
+        step = make_sharded_train_step(mesh, specs, sites, make_optimizer(WD),
+                                       maxdisp=MAXDISP)
+        opt_state = make_optimizer(WD).init(params)
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, traffic = [], [], []
+        for i in range(TRAIN_STEPS):
+            lr = cosine_lr(LR, TRAIN_EPOCHS, i)
+            before = ({k: v.clone() for k, v in leaves(params)} if i == 0
+                      else None)
+            HALO.reset()
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, stats, opt_state, sc = step(params, stats, opt_state, lr,
+                                                *batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            traffic.append((HALO.halo_bytes, HALO.gather_bytes,
+                            HALO.exchanges))
+            losses.append(float(sc["loss"]))
+            if i == 0:
+                delta = {k: (v - before[k]) / lr for k, v in leaves(params)
+                         if k.split("/")[0] in sites}
+                p_delta, p_stats = ref["plain"]
+                cmp, bad = compare_step(f"sp rank {rank} task0", delta,
+                                        dict(leaves(stats)),
+                                        (to_dev(p_delta), to_dev(p_stats)))
+                failures += bad
+                vs_kernel = tree_rel_l2(delta, to_dev(ref["kernel_delta"]))
+                if not vs_kernel <= STEP_RTOL:
+                    failures.append(f"sp rank {rank}: dp/lr vs the unsharded "
+                                    f"kernel step {vs_kernel:.3g}")
+                del before, delta
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_launches()
+        failures += launch_failures(f"sp rank {rank}", launches,
+                                    TRAIN_KERNELS["default"])
+        want = {k: TRAIN_STEPS * c for k, c in ref["per_step"].items()}
+        if launches != want:
+            failures.append(f"sp rank {rank}: launches {launches}, the "
+                            f"unsharded steps' {want}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"sp rank {rank}: non-finite loss {losses}")
+        # the 480x960 eval step on a fresh copy of task 0's path
+        specs, params, stats, _ = train_configs(dev)["task0"]
+        frame = sp_eval_frame(dev)
+        ev = make_sharded_eval_step(mesh, specs, maxdisp=MAXDISP)
+        zero_launches()
+        HALO.reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = ev(params, stats, *frame)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_traffic = (HALO.halo_bytes, HALO.gather_bytes)
+        eval_launches = read_launches()
+        failures += launch_failures(f"sp rank {rank} eval", eval_launches,
+                                    SERVE_KERNELS["default"])
+        with torch.inference_mode():
+            disp, _ = stereo_forward(specs, params, stats, frame[0],
+                                     frame[1], maxdisp=MAXDISP, mesh=mesh)
+        r0, r1 = disparity_rows(H, mesh)
+        disp_err = float((disp.cpu() - ref["eval_disp"][:, r0:r1]).abs().max())
+        scal_err = {k: abs(float(got[k]) - ref["eval_scalars"][k])
+                    for k in ("EPE", "loss")}
+        if not (disp_err <= SERVE_ATOL and bool(torch.isfinite(disp).all())
+                and max(scal_err.values()) <= SERVE_ATOL):
+            failures.append(f"sp rank {rank} eval: disparity rows [{r0}, "
+                            f"{r1}) {disp_err:.3g} px from the unsharded "
+                            f"one, scalars {scal_err} (tolerance "
+                            f"{SERVE_ATOL})")
+        steady = times[1:] or times
+        out = dict(rank=rank, m=mesh.m, rows=[r0, r1], first_ms=times[0],
+                   ms_per_step=float(np.mean(steady)), step_ms=times,
+                   pairs_per_s=TRAIN_B / (float(np.mean(steady)) / 1e3),
+                   loss=losses, peak_gb=peak_gb,
+                   halo_bytes_per_step=traffic[-1][0],
+                   gather_bytes_per_step=traffic[-1][1],
+                   exchanges_per_step=traffic[-1][2],
+                   vs_unsharded_kernel_step_rel_l2=vs_kernel, **cmp,
+                   launches=launches,
+                   eval_ms=eval_ms, eval_halo_bytes=eval_traffic[0],
+                   eval_gather_bytes=eval_traffic[1],
+                   eval_launches={k: c for k, c in eval_launches.items()
+                                  if c},
+                   eval_disp_max_px=disp_err, eval_scalar_err=scal_err,
+                   failures=failures)
+        log(f"rank {rank} (rows [{r0}, {r1}) of the disparity): "
+            f"{json.dumps({k: v for k, v in out.items() if k != 'launches'})}")
+        Path(d, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    for f in failures:
+        log(f"FAILED {f}")
+    return 1 if failures else 0
+
+
+# -- the scenes phase: every scene's cell search at once --------------------
+
+def busy(fn, label, out_dir):
+    """fn() under the profiler: (wall s, device busy s as the union of
+    the device's kernel and copy intervals, the same summed over
+    streams)."""
+    torch.cuda.synchronize()
+    with trace(str(out_dir / f"trace_{label}")):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = out_dir / f"trace_{label}" / "trace.json"
+    data = json.loads(path.read_text())
+    path.unlink()
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    union, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return wall, union / 1e6, sum(b - a for a, b in spans) / 1e6
+
+
+def phase_scenes(dev, learn, smi):
+    """SceneParallelCellSearch over the learn phase's two scenes with its
+    cell configuration (scene t seeded cell.seed + t, as the driver's
+    sequential searches), every launch count at 0 first: each scene's
+    sampled ops equal the learn phase's sequential search's exactly, p
+    within SCENES_P_ATOL, the genotypes equal, kernels A and D only. Then
+    its seconds beside the two sequential searches (CellSearch.search, one
+    after the other), in turns after a warm-up, and each one's
+    device-busy share under the profiler."""
+    t_phase = time.perf_counter()
+    counts = {"trained": 0, "evaluated": 0}
+    train, _, _ = learn_scenes(dev, counts)
+    cfg = dataclasses.replace(LEARN_CFG.cell, maxdisp=MAXDISP)
+    seeds = [cfg.seed + t for t in range(LEARN_TASKS)]
+
+    def parallel():
+        sp = SceneParallelCellSearch(cfg, LEARN_TASKS, log=None,
+                                     scene_seeds=seeds, device=dev)
+        ops = [record_ops(cs) for cs in sp.searches]
+        return sp, ops, sp.search(train)
+
+    def sequential():
+        return [CellSearch(dataclasses.replace(cfg, seed=seeds[t]), log=None,
+                           device=dev).search(train[t], task=t)
+                for t in range(LEARN_TASKS)]
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, ops, genos = parallel()
+    par_s = time.perf_counter() - t0
+    launches = read_launches()
+    failures = launch_failures("scenes", launches, (KA, KD))
+    p_err = []
+    for t, seq in enumerate(learn["cell_search"]):
+        if ops[t] != seq["ops"]:
+            failures.append(f"scenes t{t}: sampled ops {ops[t]} differ from "
+                            f"the learn phase's {seq['ops']}")
+        p_err.append(max(float(np.abs(sp.p[k][t] - np.asarray(v)).max())
+                         for k, v in seq["p"].items()))
+        if not p_err[-1] <= SCENES_P_ATOL:
+            failures.append(f"scenes t{t}: p {p_err[-1]:.3g} from the learn "
+                            f"phase's")
+        if str(genos[t]) != learn["genotypes"][t]:
+            failures.append(f"scenes t{t}: genotype {genos[t]} is not the "
+                            f"learn phase's {learn['genotypes'][t]}")
+    del sp
+    # times: the sequential pair once to warm up, then both in turns
+    # (parallel, sequential, sequential, parallel), then each profiled
+    seq_genos = sequential()
+    if [str(g) for g in seq_genos] != [str(g) for g in genos]:
+        failures.append(f"scenes: sequential rerun genotypes {seq_genos}")
+    turns = {"parallel": [], "sequential": []}
+    for k in ("parallel", "sequential", "sequential", "parallel"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (parallel if k == "parallel" else sequential)()
+        torch.cuda.synchronize()
+        turns[k].append(time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as d:
+        prof = {"parallel": busy(parallel, "scenes_parallel", Path(d)),
+                "sequential": busy(sequential, "scenes_sequential", Path(d))}
+    zero_launches()
+    report = {
+        "device": smi, "scenes": LEARN_TASKS,
+        "config": dataclasses.asdict(cfg), "scene_seeds": seeds,
+        "streams": "one CUDA stream per scene, one card",
+        "gated_parallel_s": par_s, "turns_s": turns,
+        "learn_cell_stage_s": [c["s"] for c in learn["cell_search"]],
+        "profiled": {k: {"wall_s": w, "busy_union_s": u, "busy_sum_s": su,
+                         "busy_share": u / w, "overlap": su / max(u, 1e-12)}
+                     for k, (w, u, su) in prof.items()},
+        "ops_equal": not any("sampled ops" in f for f in failures),
+        "p_max_abs_err": p_err, "genotypes": [str(g) for g in genos],
+        "launches": {k: c for k, c in launches.items() if c},
+        "wall_s": time.perf_counter() - t_phase}
+    log(f"[scenes] {LEARN_TASKS} scenes' cell searches at once: "
+        f"{par_s:.2f} s gated, in turns "
+        + ", ".join(f"{x:.2f}" for x in turns["parallel"])
+        + " s; the two sequential searches in turns "
+        + ", ".join(f"{x:.2f}" for x in turns["sequential"])
+        + " s (learn phase's cell stages "
+        + " + ".join(f"{s:.2f}" for s in report["learn_cell_stage_s"])
+        + " s); profiled: " + "; ".join(
+            f"{k} wall {v['wall_s']:.2f} s, device busy {v['busy_union_s']:.2f}"
+            f" s ({100 * v['busy_share']:.1f} %), summed over streams "
+            f"{v['busy_sum_s']:.2f} s" for k, v in report["profiled"].items())
+        + f"; p vs learn {p_err}; launches {report['launches']}")
+    if failures:
+        raise SystemExit("chip_smoke: scenes failed:\n  "
+                         + "\n  ".join(failures))
     return launches, report
 
 
@@ -3491,7 +3908,11 @@ def main() -> int:
     ap.add_argument("--small-only", action="store_true",
                     help="build and check every kernel at the small shapes "
                          "only; no report")
+    # one rank of the sp phase, started by it: RANK ADDRESS DIR
+    ap.add_argument("--sp-rank", nargs=3, help=argparse.SUPPRESS)
     opts = ap.parse_args()
+    if opts.sp_rank:
+        return sp_rank(int(opts.sp_rank[0]), *opts.sp_rank[1:])
     t_start = time.perf_counter()
 
     smi = phase_device()
@@ -3567,9 +3988,15 @@ def main() -> int:
     dp["fp32_probe"] = fp32_probe
     launches = {k: launches[k] + n[k] for k in KERNELS}
     torch.cuda.empty_cache()
+    n, sp = phase_sp(dev, plain_train["default"], per_cfg["default"], smi)
+    launches = {k: launches[k] + n[k] for k in KERNELS}
+    torch.cuda.empty_cache()
     n, learn = phase_learn(dev, plain_learn, smi)
     launches = {k: launches[k] + n[k] for k in KERNELS}
     del plain_learn
+    torch.cuda.empty_cache()
+    n, scenes = phase_scenes(dev, learn, smi)
+    launches = {k: launches[k] + n[k] for k in KERNELS}
     torch.cuda.empty_cache()
     n, cli_report = phase_cli(dev, smi)
     launches = {k: launches[k] + n[k] for k in KERNELS}
@@ -3630,6 +4057,8 @@ def main() -> int:
     print(json.dumps({"selfsup": self_report}))
     print(json.dumps({"depth": depth_report}))
     print(json.dumps({"dp": dp}))
+    print(json.dumps({"sp": sp}))
+    print(json.dumps({"scenes": scenes}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

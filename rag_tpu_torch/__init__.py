@@ -12,6 +12,9 @@ lists (``data.stereo_dataset``, ``data.manifests``; the native loader of
 ``runtime.native``) or styled synthetic scenes (``data.synthetic``), with
 stage files and resume. The self-supervised (``continual.
 self_supervised``) and monocular-depth (``continual.depth_driver``)
-variants run through the same driver's hooks. The package imports torch,
-numpy and PIL, never jax or rag_tpu.
+variants run through the same driver's hooks. ``parallel`` runs the steps
+over a process group, data-parallel or with the matching volumes' H
+split over a model axis, and ``search.scene_parallel`` searches every
+scene's cell at once. The package imports torch, numpy and PIL, never
+jax or rag_tpu.
 """

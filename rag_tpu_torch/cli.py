@@ -20,16 +20,18 @@ CPU (the tests do). The kernels are the default path's
 (``KernelVariants()``): rag_tpu picks its variants through environment
 switches, which the port does not read.
 
-``--mesh N`` runs the experiment data-parallel on N ranks, one per
-visible CUDA device (N CPU processes over gloo with device="cpu"):
-``main`` spawns them with torch.multiprocessing, joined by a process
-group on a local port, and each runs the driver over the mesh; rank 0
-logs and writes the checkpoints and result.json. Where a process group
-is already initialized (a launcher started the ranks), ``main`` runs as
-its rank instead. ``--mesh`` beyond the visible devices raises
-ValueError. The flags of parts not ported yet raise NotImplementedError
-before any work: ``--mesh D M`` with M > 1, ``--scene-parallel-search``
-and ``--bf16``.
+``--mesh D [M]`` runs the experiment on D x M ranks, one per visible
+CUDA device (D x M CPU processes over gloo with device="cpu"): D
+data-parallel ranks, each batch's H split over M (the fine-tune's steps;
+see continual.driver). ``main`` spawns them with torch.multiprocessing,
+joined by a process group on a local port, and each runs the driver over
+the mesh; rank 0 logs and writes the checkpoints and result.json. Where
+a process group is already initialized (a launcher started the ranks),
+``main`` runs as its rank instead. A mesh beyond the visible devices
+raises ValueError. ``--scene-parallel-search`` runs every scene's cell
+search at once before the task loop (search.scene_parallel). The flag of
+the part not ported yet, ``--bf16``, raises NotImplementedError before
+any work.
 
 The styled synthetic scenes take WEATHER_STYLES[t % 4], as in rag_tpu, so
 scenes t and t + 4 share a style.
@@ -127,11 +129,13 @@ def build_parser() -> argparse.ArgumentParser:
     # device mesh and parallel search
     p.add_argument("--mesh", type=int, nargs="+", default=None,
                    metavar=("DP", "SP"),
-                   help="data-parallel mesh: --mesh 4 runs every stage's "
-                        "batch over 4 ranks, one per GPU; a second (spatial) "
-                        "axis is not ported yet")
+                   help="device mesh: --mesh D runs every stage's batch "
+                        "over D ranks, one per GPU; --mesh D M also splits "
+                        "the fine-tune's matching volumes' H over M ranks "
+                        "of each")
     p.add_argument("--scene-parallel-search", action="store_true",
-                   help="not ported yet")
+                   help="every scene's cell search at once before the "
+                        "task loop, one CUDA stream per scene")
 
     # checkpointing
     p.add_argument("--checkpoint-dir", default="")
@@ -165,12 +169,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """NotImplementedError for a flag whose part is not ported yet."""
-    if args.mesh and len(args.mesh) > 1 and int(np.prod(args.mesh[1:])) > 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: the spatial axis is "
-                                  + UNPORTED.format("7b"))
-    if args.scene_parallel_search:
-        raise NotImplementedError("--scene-parallel-search: "
-                                  + UNPORTED.format("7b"))
     if args.bf16:
         raise NotImplementedError("--bf16: " + UNPORTED.format(11))
 
@@ -183,8 +181,17 @@ def visible_devices(device) -> int:
     return os.cpu_count() or 1
 
 
+def mesh_shape(args):
+    """(data, model) of --mesh D [M]."""
+    if not args.mesh:
+        return 1, 1
+    return args.mesh[0], (args.mesh[1] if len(args.mesh) > 1 else 1)
+
+
 def mesh_size(args) -> int:
-    return args.mesh[0] if args.mesh else 1
+    """The ranks of --mesh: data x model."""
+    data, model = mesh_shape(args)
+    return data * model
 
 
 def eval_only(args, device="cuda"):
@@ -413,8 +420,9 @@ def make_config(args):
         maxdisp=args.maxdisp,
         use_router=args.train_router,
         router_epochs=args.router_epochs,
-        mesh_data=mesh_size(args),
-        mesh_model=(args.mesh[1] if args.mesh and len(args.mesh) > 1 else 1),
+        mesh_data=mesh_shape(args)[0],
+        mesh_model=mesh_shape(args)[1],
+        scene_parallel_search=args.scene_parallel_search,
         **extra,
     )
 

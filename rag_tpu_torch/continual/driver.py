@@ -57,9 +57,21 @@ not agree to the bit on the card (``_replicate``). Rank 0 alone logs and writes 
 the other ranks wait at a barrier after each write, and a resume reads
 the same files on every rank. Where the world spans several machines,
 each rank reads only its shard of each batch's indices
-(``parallel.multihost.MultihostBatcher``). Not ported yet: a model axis
-(``mesh_model`` > 1) and scene-parallel search (ROADMAP.md Queue 1 item
-7b).
+(``parallel.multihost.MultihostBatcher``).
+
+Spatial sharding: with ``mesh_model`` > 1 the world is mesh_data x
+mesh_model ranks, and, as in rag_tpu (``_mesh_for``'s ``dp_only``), only
+the supervised fine-tune's train and eval steps take the model axis
+(``parallel.sharded``: every rank runs the kernels on its H slab of the
+matching volumes). Cell search, op search, the variants' steps and the
+evaluations run single-process on each rank, each stage followed by
+``_replicate``.
+
+Scene-parallel search (``scene_parallel_search``): before the task loop
+every scene's cell search runs at once (``search.scene_parallel``, one
+CUDA stream per scene on the card), and the genotypes land where
+``search_cell`` looks (``_pre_genotypes`` and the ``genotype_t{t}.json``
+stage files), so that the loop, and a resume, take them up.
 """
 
 from __future__ import annotations
@@ -128,9 +140,12 @@ class ExperimentConfig:
     router_epochs: int = 3
     router_batch: int = 8
     # data parallelism over mesh_data ranks of the initialized process
-    # group (see the module docstring); mesh_model > 1 is not ported yet
+    # group, times mesh_model ranks that split the matching volumes' H
+    # (see the module docstring)
     mesh_data: int = 1
     mesh_model: int = 1
+    # every scene's cell search at once, before the task loop
+    scene_parallel_search: bool = False
 
 
 def _arch_key(specs):
@@ -182,9 +197,10 @@ class ContinualDriver:
         # the mesh to run over; by default the process group's world
         # where mesh_data * mesh_model > 1
         self.mesh = mesh
-        if mesh is not None and mesh.data != config.mesh_data:
-            raise ValueError(f"a mesh of {mesh.data} ranks for mesh_data "
-                             f"{config.mesh_data}")
+        if mesh is not None and (mesh.data, mesh.model) != (
+                config.mesh_data, config.mesh_model):
+            raise ValueError(f"a {mesh.data}x{mesh.model} mesh for "
+                             f"{config.mesh_data}x{config.mesh_model}")
         if mesh is None and config.mesh_data * config.mesh_model > 1:
             n = config.mesh_data * config.mesh_model
             if self.device.type == "cuda" and n > torch.cuda.device_count():
@@ -206,8 +222,10 @@ class ContinualDriver:
         self.log = (log or (lambda *_: None)) if self._writes \
             else (lambda *_: None)
         if self.mesh is not None:
-            self.log(f"[mesh] {config.mesh_data}-way dp over "
-                     f"{self.mesh.size} ranks")
+            self.log(f"[mesh] {config.mesh_data}-way dp"
+                     + (f" x {config.mesh_model}-way spatial"
+                        if config.mesh_model > 1 else "")
+                     + f" over {self.mesh.size} ranks")
         self._mesh_warned = set()
         self.checkpoint_dir = (os.path.abspath(checkpoint_dir)
                                if checkpoint_dir else None)
@@ -230,23 +248,32 @@ class ContinualDriver:
         # the restored checkpoint's stage and task (resume)
         self._resume_stage: Optional[str] = None
         self._resume_task: Optional[int] = None
+        # the scene-parallel search's genotypes, {task: Genotype}
+        self._pre_genotypes = {}
 
     # -- data parallelism --------------------------------------------------
 
-    def _mesh_for(self, batch: int, stage: str):
-        """The mesh a stage's steps run over, or None: without a mesh, or
-        where the stage's batch does not divide by mesh_data (logged once
-        a stage; every rank then runs the single-process steps)."""
+    def _mesh_for(self, batch: int, stage: str, dp_only: bool = True):
+        """The mesh a stage's steps run over, or None: without a mesh,
+        where the stage's batch does not divide by mesh_data, or where the
+        stage takes data parallelism only (``dp_only``) and mesh_model > 1
+        (logged once a stage; every rank then runs the single-process
+        steps)."""
         if self.mesh is None:
             return None
+        reason = None
         if batch % self.cfg.mesh_data != 0:
-            if stage not in self._mesh_warned:
-                self._mesh_warned.add(stage)
-                self.log(f"[mesh] {stage}: batch {batch} not divisible by "
-                         f"mesh_data {self.cfg.mesh_data} -> single-device "
-                         "steps")
-            return None
-        return self.mesh
+            reason = (f"batch {batch} not divisible by mesh_data "
+                      f"{self.cfg.mesh_data}")
+        elif dp_only and self.cfg.mesh_model > 1:
+            reason = (f"stage supports dp only; mesh_model="
+                      f"{self.cfg.mesh_model}")
+        if reason is None:
+            return self.mesh
+        if stage not in self._mesh_warned:
+            self._mesh_warned.add(stage)
+            self.log(f"[mesh] {stage}: {reason} -> single-device steps")
+        return None
 
     def _replicate(self, obj=None):
         """Rank 0's net and router on every rank, and rank 0's copy of obj
@@ -317,7 +344,8 @@ class ContinualDriver:
     def _ft_steps(self, specs, trainable, optimizer):
         """(train step, eval step) of the fine-tune: BatchNorm trains and
         params update on the task's trainable sites."""
-        mesh = self._mesh_for(self.cfg.train.batch, "fine-tune")
+        mesh = self._mesh_for(self.cfg.train.batch, "fine-tune",
+                              dp_only=False)
         return (make_train_step(specs, trainable, optimizer,
                                 maxdisp=self.cfg.maxdisp,
                                 variants=self.variants, mesh=mesh),
@@ -375,9 +403,48 @@ class ContinualDriver:
         else:
             self.net.expand(t, genotype, seed)
 
+    def parallel_cell_search(self, train_datasets: Sequence) -> None:
+        """Every scene's cell search in one pass (``search.scene_parallel``;
+        scene t seeded cell.seed + t as its sequential search), run the
+        same on every rank and then rank 0's taken. The genotypes go where
+        search_cell reads them: ``_pre_genotypes`` and the
+        ``genotype_t{t}.json`` stage files, so that a resume picks them
+        up. Nothing where every task already has its genotype."""
+        from rag_tpu_torch.search.scene_parallel import (
+            SceneParallelCellSearch,
+        )
+
+        n = self.cfg.num_tasks
+        if self.cfg.skip_cell_search or all(self._have_genotype(t)
+                                            for t in range(n)):
+            return
+        sp = SceneParallelCellSearch(
+            dataclasses.replace(self.cfg.cell, maxdisp=self.cfg.maxdisp),
+            num_scenes=n, log=self.log,
+            scene_seeds=[self.cfg.cell.seed + t for t in range(n)],
+            device=self.device, variants=self.variants,
+            search_cls=self._cell_search_cls())
+        genos = self._replicate(sp.search(list(train_datasets[:n]),
+                                          writer=self.writer))
+        self._pre_genotypes = dict(enumerate(genos))
+        for t, geno in enumerate(genos):
+            geno_file = self._stage_ckpt(f"genotype_t{t}.json")
+            if geno_file:
+                self._write(_write_json, geno_file, _geno_json(geno))
+
+    def _have_genotype(self, t: int) -> bool:
+        if self._pre_genotypes.get(t) is not None:
+            return True
+        geno_file = self._stage_ckpt(f"genotype_t{t}.json")
+        return bool(geno_file and os.path.exists(geno_file))
+
     def search_cell(self, t: int, train_data) -> Genotype:
         if self.cfg.skip_cell_search:
             return default_genotype()
+        pre = self._pre_genotypes.get(t)
+        if pre is not None:
+            self.log(f"[task {t}] using scene-parallel searched genotype")
+            return pre
         geno_file = self._stage_ckpt(f"genotype_t{t}.json")
         if geno_file and os.path.exists(geno_file):
             with open(geno_file) as f:
@@ -633,6 +700,8 @@ class ContinualDriver:
                 self.train_router(start - 1, train_datasets, test_datasets)
                 if self.checkpoint_dir and self.router is not None:
                     self._write(save_router, self.checkpoint_dir, self.router)
+        if self.cfg.scene_parallel_search:
+            self.parallel_cell_search(train_datasets)
         for t in range(start, self.cfg.num_tasks):
             self.log("*" * 60 + f"\nTask {t}\n" + "*" * 60)
             self.train_task(t, train_datasets[t], valid_datasets[t])

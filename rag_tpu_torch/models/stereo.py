@@ -17,6 +17,23 @@ KernelVariants, all off by default) swaps in the counterparts of rag_tpu's
 off-by-default TPU kernels: kernel H for A (``conv3d_dblock``), kernel I
 for the matrix resizes (``resize_kernel``), and the shear stem, tap maps
 plus kernels J and K, for B, E and F (``shear_stem``).
+
+Spatial sharding: with a ``mesh`` whose model axis is > 1 (the
+counterpart of rag_tpu's ``cost_constraint``, which constrains the
+volume to P(data, None, model)), every rank computes the whole feature
+map of its images and the matching net on its H slab [h0, h1) of every
+volume (``parallel.mesh.slab_rows`` at each scale). The stem needs no
+exchange: the cost volume's row h reads feature row h only, so the stem's
+kernel runs on feature rows [h0 - 1, h1 + 1) (clipped at the global
+edges) and its output is cropped to [h0, h1). The ops that read across
+rows run through ``parallel.halo.SlabVolume`` in place of
+``ops.volume.WHOLE``: the 3x3x3 convs exchange one halo row with each
+neighbour, the resizes gather the whole H, the head runs on the slab
+with one halo row on each side that has a neighbour, and train-mode
+BatchNorm of the matching sites reduces its sums over the whole world
+(each rank holds a slab), the feature net's over the data axis (every
+model rank holds the same whole map). The same kernels run on every
+rank; the result is rows [3 h0, 3 h1) of the disparity.
 """
 
 from __future__ import annotations
@@ -26,16 +43,23 @@ from typing import Dict, Mapping, Tuple, Union
 
 import torch
 
-from rag_tpu_torch.ops.cell import CellSpec, apply_cell, apply_cell_cf, init_cell
+from rag_tpu_torch.ops.cell import (
+    CellSpec,
+    apply_cell,
+    apply_cell_cf,
+    cell_out_height,
+    init_cell,
+)
 from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, bn_fold, init_convbr
 from rag_tpu_torch.ops.conv3d import needs_grad
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf, batch_norm_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 from rag_tpu_torch.ops.cvstem import cvstem_brc, cvstem_conv
-from rag_tpu_torch.ops.disparity import fused_soft_argmin
-from rag_tpu_torch.ops.resize import resize_cf
 from rag_tpu_torch.ops.shear import shear_stem_brc, shear_stem_z
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
+from rag_tpu_torch.ops.volume import WHOLE
+from rag_tpu_torch.parallel.axis import bn_collective
+from rag_tpu_torch.parallel.halo import SlabVolume
 
 MAXDISP = 192
 FILTER_MULTIPLIER = 4
@@ -158,29 +182,54 @@ def _std_stem(spec) -> bool:
             and spec.stride == 1 and spec.bn and spec.relu)
 
 
+def volume_ops(mesh):
+    """The matching net's cross-row ops (``ops.volume``) for a mesh: this
+    rank's H slabs where its model axis is > 1, else whole volumes."""
+    return SlabVolume(mesh) if mesh is not None and mesh.spatial else WHOLE
+
+
+def disparity_rows(height: int, mesh) -> Tuple[int, int]:
+    """Rows [3 h0, 3 h1) of an H x W disparity that this rank computes,
+    for its rows [h0, h1) of the h = ceil(height / 3) feature rows (all
+    of them without a model axis)."""
+    h0, h1 = volume_ops(mesh).rows((height + 2) // 3)
+    return 3 * h0, min(3 * h1, height)
+
+
 def run_matching_cf(specs, params, stats, x: torch.Tensor, y: torch.Tensor,
                     num_disp: int, train_sites, new_stats,
-                    variants: KernelVariants = DEFAULT) -> torch.Tensor:
+                    variants: KernelVariants = DEFAULT,
+                    vol=WHOLE) -> torch.Tensor:
     """Channel-first matching: NHWC features x, y (B,h,w,C) -> matching
-    cost (B, num_disp, h, w). New BatchNorm statistics land in
+    cost (B, num_disp, h, w), or its rows that ``vol`` holds (x and y
+    whole; ``ops.volume``). New BatchNorm statistics land in
     ``new_stats``; ``variants`` picks the optional kernels."""
+    h = x.shape[1]
+    h0, h1 = vol.rows(h)
 
-    def appl(name, v, *extra):
+    def appl(name, v, *extra, heights=None):
         spec = specs[name]
         train = name in train_sites
         if isinstance(spec, CellSpec):
             out, st = apply_cell_cf(spec, params[name], stats[name], extra[0],
-                                    v, train, variants)
+                                    v, train, variants, vol, heights)
         else:
             out, st = apply_convbr_cf(spec, params[name], stats[name], v,
-                                      train, variants)
+                                      train, variants, vol)
         new_stats[name] = st
         return out
 
     spec0 = specs["stem_3d0"]
     if _std_stem(spec0):
-        x_cf = x.permute(0, 3, 1, 2).contiguous()
-        y_cf = y.permute(0, 3, 1, 2).contiguous()
+        # the 3x3x3 conv's rows [h0, h1) read the volume's, and so the
+        # features', rows [h0 - 1, h1 + 1)
+        lo, hi = max(h0 - 1, 0), min(h1 + 1, h)
+        x_cf = x[:, lo:hi].permute(0, 3, 1, 2).contiguous()
+        y_cf = y[:, lo:hi].permute(0, 3, 1, 2).contiguous()
+
+        def crop(v):
+            return v[..., h0 - lo:h1 - lo, :]
+
         p0, st0 = params["stem_3d0"], stats["stem_3d0"]
         train0 = "stem_3d0" in train_sites
         if variants.shear_stem and (train0 or needs_grad(
@@ -188,37 +237,43 @@ def run_matching_cf(specs, params, stats, x: torch.Tensor, y: torch.Tensor,
             # rag_tpu/models/stereo.py's shear branch: tap maps + kernel J
             # at identity affine (K behind it), then BatchNorm, train-mode
             # or frozen
-            z = shear_stem_z(x_cf, y_cf, p0["w"], num_disp)
+            z = crop(shear_stem_z(x_cf, y_cf, p0["w"], num_disp))
             stem0, new_stats["stem_3d0"] = batch_norm_cf(z, p0, st0, train0)
             stem0 = torch.relu(stem0)
         elif variants.shear_stem:
             # serving: frozen BN and ReLU folded into kernel J's epilogue
             a, b = bn_fold(p0, st0)
-            stem0 = shear_stem_brc(x_cf, y_cf, p0["w"], a, b, num_disp, True)
+            stem0 = crop(shear_stem_brc(x_cf, y_cf, p0["w"], a, b, num_disp,
+                                        True))
             new_stats["stem_3d0"] = st0
         elif train0:
             # kernel B at identity affine, then train-mode BatchNorm
-            z = cvstem_conv(x_cf, y_cf, p0["w"], num_disp)
+            z = crop(cvstem_conv(x_cf, y_cf, p0["w"], num_disp))
             stem0, new_stats["stem_3d0"] = batch_norm_cf(z, p0, st0, True)
             stem0 = torch.relu(stem0)
         else:
             # cost volume + stem conv + folded frozen BN + ReLU in one kernel
             a, b = bn_fold(p0, st0)
-            stem0 = cvstem_brc(x_cf, y_cf, p0["w"], a, b, num_disp, True)
+            stem0 = crop(cvstem_brc(x_cf, y_cf, p0["w"], a, b, num_disp,
+                                    True))
             new_stats["stem_3d0"] = st0
     else:
-        stem0 = appl("stem_3d0", cost_volume_cf(x, y, num_disp))
+        stem0 = appl("stem_3d0", cost_volume_cf(x[:, h0:h1], y[:, h0:h1],
+                                                num_disp))
     stem1 = appl("stem_3d1", stem0)
     s_pp, s_p = stem0, stem1
+    h_pp = h_p = h
     for i in range(8):
-        out = appl(f"cell_3d{i}", s_p, s_pp)
+        name = f"cell_3d{i}"
+        out = appl(name, s_p, s_pp, heights=(h_pp, h_p))
         s_pp, s_p = s_p, out
+        h_pp, h_p = h_p, cell_out_height(specs[name], h_p)
 
-    d, h, w = stem0.shape[1], stem0.shape[3], stem0.shape[4]
+    d, w = stem0.shape[1], stem0.shape[4]
     v = appl("last_12_3d", s_p)
-    v = resize_cf(v, d // 2, h // 2, w // 2, True, variants)
+    v = vol.resize(v, h_p, d // 2, h // 2, w // 2, variants)
     v = appl("last_6_3d", v)
-    v = resize_cf(v, d, h, w, True, variants)
+    v = vol.resize(v, h // 2, d, h, w, variants)
     mat = appl("last_3_3d", v)          # (B, D, 1, h, w)
     return mat[:, :, 0]
 
@@ -241,21 +296,29 @@ def full_fp32():
 def stereo_forward(specs: Mapping[str, Spec], params, stats,
                    left: torch.Tensor, right: torch.Tensor,
                    train_sites=frozenset(), maxdisp: int = MAXDISP,
-                   variants: KernelVariants = DEFAULT):
+                   variants: KernelVariants = DEFAULT, mesh=None):
     """Full pipeline. left/right: (B,H,W,3) NHWC float32 on one device.
     Returns (disp, new_stats): disparity (B,H,W) in pixels, and the stats
     tree after the train-mode BatchNorms of ``train_sites`` (every other
     site's stats carried through). ``variants`` picks the optional kernels
-    of the matching net (all off: kernels A-G)."""
+    of the matching net (all off: kernels A-G). With a ``mesh`` whose
+    model axis is > 1 the disparity is this rank's rows [3 h0, 3 h1) of
+    it (see the module docstring); the caller reduces the feature net's
+    batch statistics over the data axis (``parallel.axis.bn_collective``),
+    and the matching net's reduce over the world here."""
     new_stats: Dict = {}
+    vol = volume_ops(mesh)
     with full_fp32():
         both = torch.cat([left, right], dim=0)
         f = extract_feature(specs, params, stats, both, train_sites,
                             new_stats, halves=2)
         bsz = left.shape[0]
-        mat = run_matching_cf(specs, params, stats, f[:bsz], f[bsz:],
-                              maxdisp // 3, train_sites, new_stats, variants)
-        disp = fused_soft_argmin(mat.contiguous(), maxdisp, 3)
+        with (bn_collective(mesh.group) if vol is not WHOLE
+              else contextlib.nullcontext()):
+            mat = run_matching_cf(specs, params, stats, f[:bsz], f[bsz:],
+                                  maxdisp // 3, train_sites, new_stats,
+                                  variants, vol)
+        disp = vol.soft_argmin(mat, maxdisp, 3)
     for name in stats:
         new_stats.setdefault(name, stats[name])
     return disp, new_stats

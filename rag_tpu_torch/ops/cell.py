@@ -11,6 +11,10 @@ BatchNorm statistics are split back per edge. Cells return
 ``(y, new_stats)`` with new_stats keyed as the stats tree.
 
 Ops: op 0 = skip_connect (identity), op 1 = conv_3x3 (ConvBR, stride 1).
+
+A matching cell runs its 3x3x3 convs and resizes through ``vol``
+(``ops.volume``): ``WHOLE`` by default, or the spatial path's slabs, whose
+whole heights it then takes as ``heights``.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ import torch
 
 from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, init_convbr
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf
-from rag_tpu_torch.ops.resize import resize_cf, resize_linear, scale_dimension
+from rag_tpu_torch.ops.resize import resize_linear, scale_dimension
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
+from rag_tpu_torch.ops.volume import WHOLE
 
 STEPS = 3
 BLOCK_MULTIPLIER = 3
@@ -181,21 +186,33 @@ def apply_cell(spec: CellSpec, params, stats, s0, s1, train: bool = False,
     return _run_dag(spec, s0, s1, run_merged, -1, new_stats)
 
 
+def cell_out_height(spec: CellSpec, h_p: int) -> int:
+    """The whole H of a matching cell's output from its s1 input's."""
+    if spec.downup == 0:
+        return h_p
+    return scale_dimension(h_p, 0.5 if spec.downup == -1 else 2.0)
+
+
 def apply_cell_cf(spec: CellSpec, params, stats, s0, s1, train: bool = False,
-                  variants: KernelVariants = DEFAULT):
-    """3D matching cell on channel-first (B, D, C, H, W) volumes. Returns
-    (y, new_stats). ``variants`` picks the kernels of its resizes and
-    3x3x3 convs."""
+                  variants: KernelVariants = DEFAULT, vol=WHOLE,
+                  heights=None):
+    """3D matching cell on channel-first (B, D, C, H, W) volumes, or on
+    ``vol``'s H slabs of them with their whole heights ``heights`` =
+    (s0's, s1's). Returns (y, new_stats). ``variants`` picks the kernels
+    of its resizes and 3x3x3 convs."""
     assert spec.ndim == 3
-    axes = (1, 3, 4)
+    h_pp, h_p = heights if heights is not None else (s0.shape[3], s1.shape[3])
     new_stats = {"ops": {}}
     if spec.downup != 0:
         scale = 0.5 if spec.downup == -1 else 2.0
-        target = tuple(scale_dimension(s1.shape[a], scale) for a in axes)
-        s1 = resize_cf(s1, *target, True, variants)
-    s1_spatial = tuple(s1.shape[a] for a in axes)
-    if tuple(s0.shape[a] for a in axes) != s1_spatial:
-        s0 = resize_cf(s0, *s1_spatial, True, variants)
+        target = (scale_dimension(s1.shape[1], scale),
+                  cell_out_height(spec, h_p),
+                  scale_dimension(s1.shape[4], scale))
+        s1 = vol.resize(s1, h_p, *target, variants)
+        h_p = target[1]
+    s1_spatial = (s1.shape[1], h_p, s1.shape[4])
+    if (s0.shape[1], h_pp, s0.shape[4]) != s1_spatial:
+        s0 = vol.resize(s0, h_pp, *s1_spatial, variants)
     if spec.c_pp != spec.c_out:
         s0, new_stats["pre"] = apply_convbr_cf(
             ConvBRSpec(3, spec.c_pp, spec.c_out, 1), params["pre"],
@@ -209,7 +226,7 @@ def apply_cell_cf(spec: CellSpec, params, stats, s0, s1, train: bool = False,
         keys = [str(e) for e in edges]
         mp, ms = _merged(params["ops"], stats["ops"], keys)
         out, ns = apply_convbr_cf(ConvBRSpec(3, c, c * len(edges), 3), mp, ms,
-                                  x, train, variants)
+                                  x, train, variants, vol)
         return ({e: out[:, :, i * c:(i + 1) * c] for i, e in enumerate(edges)},
                 _split_stats(ns, keys, c))
 

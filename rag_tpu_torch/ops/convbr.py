@@ -22,7 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from rag_tpu_torch.parallel.axis import all_mean_if, bn_group, world_size
+from rag_tpu_torch.parallel.axis import all_sum_if, bn_group
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -90,18 +90,23 @@ def batch_stats(x: torch.Tensor, dims, n: int):
     them (``E[x^2] - mean^2`` in float32), and the unbiased variance
     ``var * n/(n-1)`` for the running update.
 
-    Under a data-parallel group (``parallel.axis.bn_collective``) the mean
-    and mean-square are averaged over the ranks in one all-reduce and n
-    counts every rank's elements, so that the ranks' slices together give
+    Under a group (``parallel.axis.bn_collective``) the ranks' sums, sums
+    of squares and element counts add up in one all-reduce, so that the
+    ranks' pieces, equal batch slices or unequal H slabs, together give
     the global batch's statistics."""
-    mean = x.mean(dim=dims)
-    msq = (x * x).mean(dim=dims)
     group = bn_group()
-    if group is not None:
-        mean, msq = all_mean_if(torch.stack([mean, msq]), group).unbind(0)
-        n *= world_size(group)
-    var = msq - mean * mean
-    return mean, var, var.detach() * (n / max(n - 1, 1))
+    if group is None:
+        mean = x.mean(dim=dims)
+        var = (x * x).mean(dim=dims) - mean * mean
+        return mean, var, var.detach() * (n / max(n - 1, 1))
+    s = x.sum(dim=dims)
+    s, ss, cnt = all_sum_if(torch.stack(
+        [s, (x * x).sum(dim=dims), torch.full_like(s.detach(), float(n))]),
+        group).unbind(0)
+    cnt = cnt.detach()
+    mean = s / cnt
+    var = ss / cnt - mean * mean
+    return mean, var, var.detach() * (cnt / (cnt - 1).clamp(min=1))
 
 
 def ema(stats, mean, unbiased, momentum: float):

@@ -6,13 +6,17 @@ same as the channels-last blocks'. The 3x3x3 convs run through kernel A
 (ops.conv3d): frozen BN folds into its affine; with BN in train mode the
 kernel runs at identity affine and BatchNorm follows. The 1x1x1 convs are
 channel contractions. Every block returns ``(y, new_stats)``.
+
+The 3x3x3 conv runs through ``vol`` (``ops.volume``): ``WHOLE`` by
+default, or the spatial path's slab of the volume; the 1x1x1 convs and
+BatchNorm read their own rows only (train-mode statistics reduce over
+the caller's ``bn_collective`` group).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rag_tpu_torch.ops.conv3d import conv3d_brc_cf
 from rag_tpu_torch.ops.convbr import (
     BN_EPS,
     BN_MOMENTUM,
@@ -22,6 +26,7 @@ from rag_tpu_torch.ops.convbr import (
     ema,
 )
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
+from rag_tpu_torch.ops.volume import WHOLE
 
 
 def batch_norm_cf(x: torch.Tensor, params, stats, train: bool = False,
@@ -41,22 +46,23 @@ def batch_norm_cf(x: torch.Tensor, params, stats, train: bool = False,
 
 
 def apply_convbr_cf(spec: ConvBRSpec, params, stats, x: torch.Tensor,
-                    train: bool = False, variants: KernelVariants = DEFAULT):
-    """conv -> BN -> ReLU on a (B, D, C, H, W) volume. Returns
-    (y, new_stats). ``variants`` picks the 3x3x3 conv's kernel."""
+                    train: bool = False, variants: KernelVariants = DEFAULT,
+                    vol=WHOLE):
+    """conv -> BN -> ReLU on a (B, D, C, H, W) volume (``vol``'s rows of
+    it). Returns (y, new_stats). ``variants`` picks the 3x3x3 conv's
+    kernel."""
     assert spec.ndim == 3
     if spec.kernel == 3 and spec.stride == 1:
+        def conv(a, b, relu):
+            return vol.conv(x, params["w"], a, b, relu, variants)
+
         if spec.bn and not train:
-            a, b = bn_fold(params, stats)
-            return conv3d_brc_cf(x.contiguous(), params["w"], a, b,
-                                 spec.relu, variants), stats
+            return conv(*bn_fold(params, stats), spec.relu), stats
         ones = torch.ones(spec.cout, device=x.device)
         zeros = torch.zeros(spec.cout, device=x.device)
         if not spec.bn:
-            return conv3d_brc_cf(x.contiguous(), params["w"], ones, zeros,
-                                 spec.relu, variants), stats
-        y = conv3d_brc_cf(x.contiguous(), params["w"], ones, zeros, False,
-                          variants)
+            return conv(ones, zeros, spec.relu), stats
+        y = conv(ones, zeros, False)
     elif spec.kernel == 1 and spec.stride == 1:
         y = torch.einsum("bdihw,io->bdohw", x, params["w"][0, 0, 0])
     else:

@@ -1,12 +1,16 @@
-"""Cross-rank reductions for the data-parallel steps.
+"""Cross-rank reductions for the data- and spatially-parallel steps.
 
 Counterpart of rag_tpu/parallel/axis.py. With a mesh, every rank runs the
-same step body on its slice of the global batch, and every batch-wide
-statistic reduces across the ranks explicitly, so that the step gives the
+same step body on its slice of the global batch (and, with a model axis,
+on its H slab of the matching volumes), and every batch-wide statistic
+reduces across the ranks explicitly, so that the step gives the
 single-process result:
 
-  * BatchNorm batch statistics: the mean of the ranks' per-channel mean
-    and mean-square (``ops.convbr.batch_stats`` reads ``bn_group()``);
+  * BatchNorm batch statistics: the ranks' per-channel sums, sums of
+    squares and counts (``ops.convbr.batch_stats`` reads ``bn_group()``),
+    exact for equal batch slices and unequal H slabs alike: the matching
+    net's sites reduce over the whole world, the feature net's, which
+    every model rank computes whole, over the data axis only;
   * masked losses and metrics: sums of their numerators and denominators
     (the losses and metrics take ``group=``);
   * gradients: one flattened sum (``all_sum_tree``).
@@ -52,7 +56,7 @@ def bn_group():
 @contextlib.contextmanager
 def bn_collective(group):
     """Batch statistics of train-mode BatchNorms run inside the block
-    average over ``group`` (nothing changes with None)."""
+    reduce over ``group`` (nothing changes with None)."""
     prev = getattr(_STATE, "group", None)
     _STATE.group = group
     try:
@@ -122,9 +126,8 @@ def all_sum_tree(grads: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tenso
 
 
 def data_group(mesh) -> Optional[object]:
-    """The process group a step builder reduces over (rag_tpu's
-    ``data_axis``): None without a mesh. A mesh of any size gives its
-    group, so a world of one issues the same collectives as a larger one.
-    (A mesh with a model axis > 1 cannot be built: ``parallel.mesh.Mesh``
-    raises.)"""
+    """The process group a step builder reduces its loss, metrics and
+    gradients over (rag_tpu's ``data_axis``; with a model axis the whole
+    world): None without a mesh. A mesh of any size gives its group, so a
+    world of one issues the same collectives as a larger one."""
     return None if mesh is None else mesh.group

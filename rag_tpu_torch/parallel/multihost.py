@@ -79,15 +79,17 @@ def host_local_indices(n_items: int,
 
 @torch.no_grad()
 def global_batch(local: Dict[str, torch.Tensor], mesh) -> Dict:
-    """The global batch from each rank's local batch: the ranks' batches
-    in rank order along the leading axis, on every rank (an all-gather
-    per tensor). Every rank's local batch must have the same shape."""
+    """The global batch from each rank's local batch: the data indices'
+    batches in order along the leading axis, on every rank (an all-gather
+    per tensor over the world; the model ranks of a data index read the
+    same shard, and one of them is kept). Every rank's local batch must
+    have the same shape."""
     out = {}
     for k, v in local.items():
         v = v.to(mesh.device).contiguous()
-        parts = [torch.empty_like(v) for _ in range(mesh.data)]
+        parts = [torch.empty_like(v) for _ in range(mesh.size)]
         dist.all_gather(parts, v, group=mesh.group)
-        out[k] = torch.cat(parts)
+        out[k] = torch.cat(parts[::mesh.model])
     return out
 
 
@@ -103,7 +105,7 @@ class MultihostBatcher:
                  process_count: Optional[int] = None):
         self.dataset = dataset
         self.mesh = mesh
-        self.pi = mesh.rank if process_index is None else process_index
+        self.pi = mesh.d if process_index is None else process_index
         self.pc = mesh.data if process_count is None else process_count
 
     def __len__(self):

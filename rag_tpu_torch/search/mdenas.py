@@ -57,12 +57,17 @@ from rag_tpu_torch.search.genotype import Genotype, parse_genotype
 from rag_tpu_torch.train.trainer import (
     clone_tree,
     cosine_lr,
+    dp_only,
     local_batch,
     make_optimizer,
     supervised_loss,
     train_update,
 )
 from rag_tpu_torch.train.losses import silog_loss
+
+# what CellSearch.steps yields: after each step it enqueues, and at an
+# epoch's end before it reads the epoch's scalars back
+BATCH, EPOCH = "batch", "epoch"
 
 
 def mdenas_update(p: np.ndarray, h_e: np.ndarray, h_a: np.ndarray,
@@ -102,7 +107,7 @@ def make_supernet_train_step(optimizer, maxdisp: int,
     zero; weight decay and momentum still move it, as under optax).
     ``params`` and ``opt_state`` update in place. mesh: data parallelism
     over its ranks, as in train.trainer."""
-    group = data_group(mesh)
+    group = data_group(dp_only(mesh, "make_supernet_train_step"))
 
     def step(params, stats, opt_state, lr, left, right, disp_gt, fea_ops,
              mat_ops):
@@ -121,7 +126,7 @@ def make_supernet_train_step(optimizer, maxdisp: int,
         with torch.no_grad():
             mask = (disp_gt > 0) & (disp_gt < maxdisp)
             scalars = {"loss": loss,
-                       **stereo_metrics(disp, disp_gt, mask, group)}
+                       **stereo_metrics(disp, disp_gt, mask, mesh)}
         return params, new_stats, opt_state, scalars
 
     return step
@@ -131,7 +136,7 @@ def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT,
                             mesh=None):
     """step(params, stats, left, right, disp_gt, fea_ops, mat_ops) ->
     scalars, with every BatchNorm frozen."""
-    group = data_group(mesh)
+    group = data_group(dp_only(mesh, "make_supernet_eval_step"))
 
     @torch.inference_mode()
     def step(params, stats, left, right, disp_gt, fea_ops, mat_ops):
@@ -140,7 +145,7 @@ def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT,
                                    mat_ops, train=False, maxdisp=maxdisp,
                                    variants=variants)
         loss, mask = supervised_loss(disp, disp_gt, maxdisp, group)
-        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask, group)}
+        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask, mesh)}
 
     return step
 
@@ -294,6 +299,21 @@ class CellSearch:
         file's write and without the best-epoch restore (a simulated
         kill). writes=False: resume from the state file, write none (a
         data-parallel run's ranks other than 0)."""
+        for _ in self.steps(train_data, writer, task, checkpoint_path,
+                            checkpoint_every, resume, stop_after, writes):
+            pass
+        return self.genotype()
+
+    def steps(self, train_data, writer=None, task: int = 0,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_every: int = 10, resume: bool = False,
+              stop_after: Optional[int] = None, writes: bool = True):
+        """``search`` as a generator, with its arguments: it yields BATCH
+        after it enqueues each train or held-out step, and EPOCH at each
+        epoch's end, before it reads the epoch's scalars back (the epoch's
+        one wait for the device). Run to its end, it leaves the search
+        where ``search`` does (``search.scene_parallel`` interleaves the
+        scenes' generators)."""
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed + 1000 * task)
         train_idx, valid_idx = split_half(len(train_data),
@@ -314,7 +334,7 @@ class CellSearch:
                              for e in range(NUM_EDGES)], np.int32)
                 for k in self.p
             }
-            outs = []
+            outs, valid_outs = [], []
             for b in train_data.batches(cfg.batch, True, seed=epoch,
                                         indices=train_idx):
                 self.params, self.stats, self.opt_state, scalars = \
@@ -322,13 +342,16 @@ class CellSearch:
                                      lr, *self._batch_args(b), ops["normal"],
                                      ops["reduce"])
                 outs.append(scalars)
+                yield BATCH
+            for b in train_data.batches(cfg.batch, False, seed=0,
+                                        indices=valid_idx):
+                valid_outs.append(self._eval_step(
+                    self.params, self.stats, *self._batch_args(b),
+                    ops["normal"], ops["reduce"]))
+                yield BATCH
+            yield EPOCH
             train_m = AverageMeterDict().update_batched(outs)
-            valid_m = AverageMeterDict().update_batched(
-                [self._eval_step(self.params, self.stats,
-                                 *self._batch_args(b), ops["normal"],
-                                 ops["reduce"])
-                 for b in train_data.batches(cfg.batch, False, seed=0,
-                                             indices=valid_idx)])
+            valid_m = AverageMeterDict().update_batched(valid_outs)
 
             tm, vm = train_m.mean(), valid_m.mean()
             quality = self._quality(vm)
@@ -359,15 +382,13 @@ class CellSearch:
                 self.save_state(checkpoint_path, epoch, h_e, h_a, rng,
                                 best_loss, best_p, best_params)
             if stop_after is not None and epoch + 1 >= stop_after:
-                return self.genotype()
+                return
 
         if best_p is not None:
             self.p = best_p
         if best_params is not None:
             self.params = best_params
-        geno = self.genotype()
-        self.log(f"[cell-search t{task}] best genotype: {geno}")
-        return geno
+        self.log(f"[cell-search t{task}] best genotype: {self.genotype()}")
 
 
 class DepthCellSearch(CellSearch):

@@ -29,6 +29,19 @@ the metrics' sums; ``parallel.axis``), differentiates the global loss
 divided by the world size and sums the gradients over the ranks before
 the SGD tail, so that every rank ends the step with the single-process
 params, statistics and optimizer state.
+
+Spatial sharding: the supervised ``make_train_step`` and
+``make_eval_step`` also take a mesh whose model axis is > 1 (the
+counterpart of rag_tpu/parallel/sharded.py's GSPMD steps). Each rank then
+runs the forward on its data index's images and its H slab of the
+matching volumes (``models.stereo``), and its share of the loss is the
+masked smooth-L1 sum over its rows of the disparity over the
+world-summed mask count; the world-summed loss is differentiated through
+the all-reduce's transpose exactly as above, and every parameter's
+gradient is summed over the world once. The feature net's BatchNorm
+statistics reduce over the data axis only, the matching net's over the
+world, and the metrics add up each image's pieces over the world. The
+other builders take a data-parallel mesh only.
 """
 
 from __future__ import annotations
@@ -41,7 +54,12 @@ import torch
 from rag_tpu_torch.metrics.depth import depth_metrics
 from rag_tpu_torch.metrics.stereo import stereo_metrics
 from rag_tpu_torch.models.depth import depth_forward
-from rag_tpu_torch.models.stereo import MAXDISP, full_fp32, stereo_forward
+from rag_tpu_torch.models.stereo import (
+    MAXDISP,
+    disparity_rows,
+    full_fp32,
+    stereo_forward,
+)
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.parallel.axis import (
     all_sum_tree,
@@ -180,16 +198,32 @@ def local_batch(mesh, *tensors):
     return tuple(rank_slice(t, mesh) for t in tensors)
 
 
+def dp_only(mesh, what: str):
+    """mesh, where it has no model axis; ValueError otherwise."""
+    if mesh is not None and mesh.spatial:
+        raise ValueError(f"{what}: a model axis of {mesh.model} is taken by "
+                         "the supervised stereo steps only")
+    return mesh
+
+
+def slab_target(disp_gt: torch.Tensor, mesh) -> torch.Tensor:
+    """The rows of a (B, H, W) target that this rank's disparity covers
+    (all of them without a model axis)."""
+    r0, r1 = disparity_rows(disp_gt.shape[1], mesh)
+    return disp_gt[:, r0:r1]
+
+
 def train_update(params, sites, optimizer: SGDMomentum, opt_state, lr: float,
-                 group, forward):
+                 group, forward, bn_group=None):
     """The train steps' shared body. ``forward(p_diff)`` -> (loss, output,
     new_stats) runs with the trainable ``sites``' leaves differentiable and
-    BatchNorm reducing over ``group``; then the gradients of loss / world,
-    summed over the ranks, take the masked SGD step in place. Returns the
-    detached (loss, output) and new_stats."""
+    BatchNorm reducing over ``bn_group`` (default ``group``); then the
+    gradients of loss / world, summed over the ranks of ``group``, take
+    the masked SGD step in place. Returns the detached (loss, output) and
+    new_stats."""
     handles, p_diff = differentiable(params, sites)
     with torch.enable_grad():
-        with bn_collective(group):
+        with bn_collective(group if bn_group is None else bn_group):
             loss, out, new_stats = forward(p_diff)
         grads = grads_of(loss / world_size(group), handles)
     grads = all_sum_tree(grads, group)
@@ -234,22 +268,23 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
 
     def step(params, stats, opt_state, lr: float, left, right, disp_gt):
         left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
+        disp_gt = slab_target(disp_gt, mesh)
 
         def forward(p):
             disp, new_stats = stereo_forward(specs, p, stats, left, right,
                                              train_sites=bn_sites,
                                              maxdisp=maxdisp,
-                                             variants=variants)
+                                             variants=variants, mesh=mesh)
             loss, _ = supervised_loss(disp, disp_gt, maxdisp, group)
             return loss, disp, new_stats
 
-        loss, disp, new_stats = train_update(params, trainable_sites,
-                                             optimizer, opt_state, lr, group,
-                                             forward)
+        loss, disp, new_stats = train_update(
+            params, trainable_sites, optimizer, opt_state, lr, group, forward,
+            None if mesh is None else mesh.data_group)
         with torch.no_grad():
             mask = (disp_gt > 0) & (disp_gt < maxdisp)
             scalars = {"loss": loss,
-                       **stereo_metrics(disp, disp_gt, mask, group)}
+                       **stereo_metrics(disp, disp_gt, mask, mesh)}
         return params, new_stats, opt_state, scalars
 
     return step
@@ -265,10 +300,13 @@ def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
     @torch.inference_mode()
     def step(params, stats, left, right, disp_gt):
         left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
+        disp_gt = slab_target(disp_gt, mesh)
         disp, _ = stereo_forward(specs, params, stats, left, right,
-                                 maxdisp=maxdisp, variants=variants)
+                                 maxdisp=maxdisp, variants=variants,
+                                 mesh=mesh)
         loss, mask = supervised_loss(disp, disp_gt, maxdisp, group)
-        return {"loss": loss, **stereo_metrics(disp, disp_gt, mask, group)}
+        return {"loss": loss,
+                **stereo_metrics(disp, disp_gt, mask, mesh)}
 
     return step
 
@@ -284,7 +322,7 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
     monitoring over 0 < gt < maxdisp only; the loss never sees it."""
     if trainable_sites is None:
         trainable_sites = bn_sites
-    group = data_group(mesh)
+    group = data_group(dp_only(mesh, "make_selfsup_train_step"))
 
     def step(params, stats, opt_state, lr: float, left, right, disp_gt):
         left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
@@ -302,7 +340,7 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
         with torch.no_grad():
             mask = (disp_gt > 0) & (disp_gt < maxdisp)
             scalars = {"loss": loss,
-                       **stereo_metrics(disp, disp_gt, mask, group)}
+                       **stereo_metrics(disp, disp_gt, mask, mesh)}
         return params, new_stats, opt_state, scalars
 
     return step
@@ -317,7 +355,7 @@ def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
     and the depth metrics."""
     if trainable_sites is None:
         trainable_sites = bn_sites
-    group = data_group(mesh)
+    group = data_group(dp_only(mesh, "make_depth_train_step"))
 
     def step(params, stats, opt_state, lr: float, image, depth_gt):
         image, depth_gt = local_batch(mesh, image, depth_gt)
@@ -343,7 +381,7 @@ def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
 def make_depth_eval_step(specs: Mapping, mesh=None):
     """step(params, stats, image, depth_gt) -> dict of 0-d tensors: the
     frozen-BN depth forward, silog and the depth metrics."""
-    group = data_group(mesh)
+    group = data_group(dp_only(mesh, "make_depth_eval_step"))
 
     @torch.inference_mode()
     def step(params, stats, image, depth_gt):

@@ -56,9 +56,8 @@ def test_cli_mesh_too_large_raises(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mesh", "2", "2"], "7b"), (["--scene-parallel-search"], "7b"),
-    (["--bf16"], "11")])
+# the id the case had beside the parts that the port now runs
+@pytest.mark.parametrize("argv,item", [(["--bf16"], "11")], ids=["argv2-11"])
 def test_cli_unported_parts_name_their_items(tmp_path, argv, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}\\)"):
@@ -175,3 +174,30 @@ def test_cli_mesh2_matches_single_process(tmp_path, variant, keys):
     files = sorted(os.listdir(tmp_path / "w2" / "ckpt"))
     assert not [f for f in files if f.endswith(".npz")
                 and f.startswith(("cellsearch", "opsearch", "finetune"))]
+
+
+def test_spatial_mesh_driver_matches_single_process(tmp_path):
+    """Two gloo ranks run two tasks over a 1x2 mesh
+    (tests/torch_spatial_driver_worker.py): the fine-tune takes the
+    spatial steps, cell search and op search fall back to single-device
+    steps on each rank (rag_tpu's dp_only rule), every rank ends with the
+    same net to the bit, and the forgetting matrix is the run's without
+    a mesh (float32: within the slow CLI runs' bounds)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_spatial_driver_worker as worker
+
+    r0, r1 = launch(Path(worker.__file__), 2, tmp_path)
+    log = json.loads(str(r0["log"]))
+    assert "[mesh] 1-way dp x 2-way spatial over 2 ranks" in log
+    for stage in ("cell-search", "op-search"):
+        assert (f"[mesh] {stage}: stage supports dp only; mesh_model=2 -> "
+                "single-device steps") in log
+    assert not [ln for ln in log if ln.startswith("[mesh] fine-tune")]
+    keys = sorted(k for k in r0 if k.startswith("net/"))
+    assert keys and keys == sorted(k for k in r1 if k.startswith("net/"))
+    for k in keys:
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    matrix, _, _ = worker.run(None)
+    for k in ("D1", "EPE", "loss"):
+        a, b = matrix[k], r0[f"matrix/{k}"]
+        assert np.allclose(a, b, rtol=1e-3, atol=2e-3), (k, a, b)

@@ -60,7 +60,8 @@ def test_single_process_defaults():
 
 
 def test_mesh_model_axis_raises():
-    with pytest.raises(NotImplementedError, match="7b"):
+    # a model axis needs its data and model groups (make_mesh builds them)
+    with pytest.raises(ValueError, match="process groups"):
         Mesh(data=2, rank=0, device=torch.device("cpu"), group=None, model=2)
 
 

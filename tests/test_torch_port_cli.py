@@ -4,9 +4,9 @@
   for an empty argv and for a full one.
 - ``main``'s configuration: for the same argv, the ExperimentConfig (cell,
   op and fine-tune stages), the stage-file cadence and the resume flag the
-  driver gets equal rag_tpu's field by field, the mesh's included
-  (rag_tpu's field for a part not ported, the scene-parallel search, at
-  its default). Both drivers are stopped before any work.
+  driver gets equal rag_tpu's field by field, the mesh's and the
+  scene-parallel search's included. Both drivers are stopped before any
+  work.
 - ``make_datasets``: equal batches, for styled synthetic scenes and for
   filename lists (``--filenames-dir`` of generated DrivingStereo lists;
   rag_tpu's native switch off, the port's datasets ``native=False``, so
@@ -20,10 +20,11 @@
   the CPU writes a finite ``result.json`` with zero forgetting;
   ``--eval-only`` of the committed depth checkpoint reports rag_tpu's
   depth metrics.
-- The flags of parts not ported (``--mesh`` with a spatial axis,
-  ``--scene-parallel-search``, ``--bf16``) raise NotImplementedError
-  before any work, and without CUDA ``main`` raises unless asked for the
-  CPU.
+- The flag of the part not ported (``--bf16``) raises
+  NotImplementedError before any work, the spatial ``--mesh D M`` and
+  ``--scene-parallel-search`` pass the check into the config as
+  rag_tpu's parser gives them, and without CUDA ``main`` raises unless
+  asked for the CPU.
 """
 
 import dataclasses
@@ -114,7 +115,6 @@ def test_config_matches(tmp_path, monkeypatch, extra):
     for stage in ("cell", "train"):
         assert tc.pop(stage) == jc.pop(stage), stage
     assert tc.pop("op") == jc.pop("op")
-    assert jc.pop("scene_parallel_search") is False
     assert tc == jc
     assert (t["every"], t["resume"]) == (j["every"], j["resume"])
     for td, jd in zip(t["data"], j["data"]):
@@ -241,15 +241,28 @@ def test_real_file_run_and_eval_only(tmp_path):
             matrix.m[k][0, 0], rel=1e-6, abs=0), k
 
 
-# the ids the cases had beside the variant cases that the port now runs;
-# a data axis alone (--mesh 2) runs now, so argv2 gives it a spatial axis
-@pytest.mark.parametrize("argv", [
-    ["--mesh", "2", "2"], ["--mesh", "1", "2"], ["--scene-parallel-search"],
-    ["--bf16"]], ids=["argv2", "argv3", "argv4", "argv5"])
+# the ids the cases had beside the variant cases that the port now runs
+@pytest.mark.parametrize("argv", [["--bf16"]], ids=["argv5"])
 def test_unported_flags_raise(tmp_path, argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         tcli.main(argv + ["--output", str(tmp_path)], device="cpu")
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "2", "2"], ["--mesh", "1", "2"], ["--scene-parallel-search"]],
+    ids=["argv2", "argv3", "argv4"])
+def test_spatial_and_scene_parallel_flags_pass(argv):
+    """The spatial axis and the scene-parallel search are ported: the check
+    lets them through, and the config carries rag_tpu's mesh and search
+    fields."""
+    args = tcli.build_parser().parse_args(argv)
+    tcli.check_ported(args)
+    jargs = jcli.build_parser().parse_args(argv)
+    cfg = tcli.make_config(args)
+    mesh = (jargs.mesh + [1])[:2] if jargs.mesh else [1, 1]
+    assert [cfg.mesh_data, cfg.mesh_model] == mesh
+    assert cfg.scene_parallel_search == jargs.scene_parallel_search
 
 
 VARIANT_ARGV = ["--synthetic", "--synthetic-size", "4", "--synthetic-hw",
@@ -291,7 +304,6 @@ def test_variant_config_matches(tmp_path, monkeypatch, variant):
         jcli.main(argv)
     tc, jc = dataclasses.asdict(t["cfg"]), dataclasses.asdict(j["cfg"])
     assert type(t["cfg"]).__name__ == type(j["cfg"]).__name__
-    assert jc.pop("scene_parallel_search") is False
     assert tc == jc
     for td, jd in zip(t["data"], j["data"]):
         assert [len(d) for d in td] == [len(d) for d in jd]
