@@ -7,7 +7,11 @@ Two paths run through every phase but learn and cli: the default path (kernels
 A-G) and the variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
 on, where kernel H (kernel A's engine with four output planes a block)
 takes kernel A's place, kernel I the matrix resizes, and the shear stem
-(tap maps + kernels J and K) kernels B, E and F.
+(tap maps + kernels J and K) kernels B, E and F. Kernels A, B, D-F, H,
+J and K each have a bf16
+instance (bf16 at rest, ops.precision.Precision(torch.bfloat16)), which
+the bf16 phase drives and the kernels phase checks; its launches count
+apart (the wrapper's launches_bf16) and its report entry is its own.
 
 Phases, in order; any failure exits non-zero and no phase swallows an
 exception:
@@ -28,7 +32,10 @@ exception:
                    the first train step of the learn phase's supernet
                    (batch 8, 192x384), recording its calls of kernels A and
                    D (no other kernel may run there), and the selfsup
-                   phase's photometric step, recording its calls;
+                   phase's photometric step, recording its calls; then
+                   per path one bf16 request (task 0's path) and one bf16
+                   step of task 0's configuration, recording the bf16
+                   instances' calls (their keys carry "[bf16]");
   5. kernels       hold all eleven kernels (A-C, H-J forward, D-G, K
                    backward) against their plain versions on the card, at
                    every recorded shape and at small shapes, and time kernel,
@@ -48,6 +55,13 @@ exception:
                    launches of kernels C, D, F, G, J and K on the same
                    inputs against each other, and J and K against their
                    plain versions bit for bit on integer-valued inputs;
+                   the bf16 instances at their recorded shapes (each timed
+                   beside its float32 instance on the upcast arguments,
+                   "f32_ms") and at the small shapes, a bf16 output held
+                   to one bf16 ulp of its largest value beyond the float32
+                   tolerance; B's line also times the shear-collapsed
+                   stem in plain PyTorch (ops.fused_stem.cost_stem_z) at
+                   B's arguments;
   6. serve         per path, in turns (default, variants, variants,
                    default): set every launch count to 0, answer 3 requests
                    per task path through RoutedInference.predict, read the
@@ -82,6 +96,21 @@ exception:
                    every updated leaf finite and the first step against the
                    path's plain step of phase 4; print ms/step, training
                    pairs/s and peak memory;
+     bf16          per path, in turns (float32, bf16, bf16, float32): 3
+                   requests per task path through RoutedInference and 3
+                   steps of task 0's configuration, precision=
+                   Precision(torch.bfloat16) or float32, every launch
+                   count (both instances) at 0 first. Gates: bf16 serving
+                   launches A, B, C (default) or H, J, C (variants) and
+                   training A-G or H, J, K, C, D, G, their bf16 instances
+                   where they have one and kernel I at 0, no float32
+                   instance of those; each task path's bf16 disparity
+                   against the float32 one within tests/test_bf16.py's
+                   bounds (|mean difference| < 1 px, mean |difference| <
+                   5 px); the first bf16 step's loss within 5 % of the
+                   float32 one's; every parameter, statistic and momentum
+                   leaf float32 and finite. ms/request, ms/step and peak
+                   memory beside float32's;
                    then the float32 probe, default path: both TF32
                    switches on, as a CLI user has them, one step of each
                    train builder (make_train_step, make_selfsup_train_step
@@ -179,7 +208,8 @@ exception:
                    general instance): A, B and C only, one frame of each
                    list through the kernels within SERVE_ATOL of the plain
                    path, and every kernel call of those frames against its
-                   plain version;
+                   plain version; and with --bf16 at maxdisp 192: the
+                   bf16 instances of A and B, and C, only;
  11. selfsup       the self-supervised variant, default path: (a) the
                    committed logs/canonical_selfsup_r5 restored, one
                    photometric step of task 2's fine-tune stage (batch 3,
@@ -204,7 +234,12 @@ exception:
                    card, each task path on 4 styled SyntheticDepthDataset
                    frames of 480x960 (depth metrics, ms/frame), one frame a
                    path against the CPU (DEPTH_ATOL), the 16 frames routed
-                   on the card and the CPU (ids equal); (b)
+                   on the card and the CPU (ids equal); a legacy reference
+                   checkpoint (torch's non-zip format, the reference's
+                   keys, OIHW weights, dormant BatchNorms) written from
+                   its task-0 tensors and imported by
+                   compat.torch_import onto the card and the CPU, task
+                   0's metrics on 4 frames card vs CPU (DEPTH_ATOL); (b)
                    DepthContinualDriver.run over two styled depth scenes
                    (384x768 crops; batches 16 / 12 / 8 for cell search, op
                    search and fine-tune; epochs cut to 2, router 1), staged
@@ -218,19 +253,23 @@ exception:
                    the selfsup phase ("selfsup"), one of the depth phase
                    ("depth"), one of the dp phase and the float32 probe
                    ("dp"), one of the sp phase ("sp"), one of the scenes
-                   phase ("scenes"), one of kernels (launches: the serve,
-                   route, train, dp, sp, learn, scenes, cli and selfsup
-                   runs), the card's name and
+                   phase ("scenes"), one of the bf16 phase ("bf16"), one
+                   of kernels (launches:
+                   the serve, route, train, dp, sp, learn, scenes, cli and
+                   selfsup runs; a bf16 instance's: the bf16 phase and
+                   the cli's --bf16 evaluation), the card's name and
                    power limit, and as the last line {"ok": true,
                    "device": {...}}.
 
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
 build-and-check) and prints no report.
 
-Float32 throughout: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
+Float32 throughout but the bf16 runs: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
 products are 3xTF32, which keeps float32 accuracy (its lines also carry
-bound_tf32x3_ms, the bound of those products at the TF32 peak, beside the
-float32 bound_ms; so do kernel B's, which runs A's engine). Kernel A's,
+bound_tf32_ms, the bound of those products at the TF32 peak, beside
+bound_ms; so do kernel B's, which runs A's engine). bound_ms takes the
+float32 peak for float32 activations and the bf16 tensor-core peak for
+bf16 ones (flop_s). Kernel A's,
 B's, D's, E's, F's, H's and I's lines carry their plan: A's tile, splits
 and blocks per launch; B's and H's the same, with A's plan for the call
 beside it; D's and F's blocks, tile, row groups, planes per block, channel
@@ -289,6 +328,7 @@ from rag_tpu_torch.data.synthetic import (  # noqa: E402
     SyntheticStereoDataset,
 )
 from rag_tpu_torch import cli  # noqa: E402
+from rag_tpu_torch.compat import torch_import  # noqa: E402
 from rag_tpu_torch.data.manifests import (  # noqa: E402
     DISP_DIR,
     LEFT_DIR,
@@ -328,6 +368,8 @@ from rag_tpu_torch.ops import disparity as disparity_mod  # noqa: E402
 from rag_tpu_torch.ops import resize as resize_mod  # noqa: E402
 from rag_tpu_torch.ops import shear as shear_mod  # noqa: E402
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf  # noqa: E402
+from rag_tpu_torch.ops.fused_stem import cost_stem_z  # noqa: E402
+from rag_tpu_torch.ops.precision import Precision  # noqa: E402
 from rag_tpu_torch.ops.resize import _interp_matrix_np  # noqa: E402
 from rag_tpu_torch.ops.variants import KernelVariants  # noqa: E402
 from rag_tpu_torch.parallel.axis import ALL_REDUCES, all_sum_if  # noqa: E402
@@ -386,6 +428,11 @@ PATHS = {"default": KernelVariants(),
          "variants": KernelVariants(conv3d_dblock=True, resize_kernel=True,
                                     shear_stem=True)}
 TURNS = ("default", "variants", "variants", "default")  # serve, route, train
+# the paths under Precision(torch.bfloat16): kernel I takes float32 only, so
+# the variant path leaves resize_kernel off (KernelVariants.check refuses it)
+BF16_PATHS = {"default": PATHS["default"],
+              "variants": dataclasses.replace(PATHS["variants"],
+                                              resize_kernel=False)}
 # the route phase: the canonical run's four styled test scenes (scene t
 # styled WEATHER_STYLES[t], seed 30 + t, disparity up to 64 px;
 # rag_tpu/cli.py:260-267) and its router training (rag_tpu's driver
@@ -485,6 +532,7 @@ DEPTH_ATOL = 1e-2  # m, a restored path's 480x960 frame, card vs CPU float32:
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12       # TF32 on the tensor cores
+PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances, with their reasons:
@@ -521,10 +569,26 @@ ROUTER_STEP_RTOL = 1e-4  # the router's first Adam step, card vs CPU: relative
                    # reductions summed in another order (~1e-6)
 SERVE_ATOL = 1e-2  # px, whole request: ~25 float32 layers summed in another
                    # order, amplified by the softmin; 1% of the 1-px Thres1
+BF16_RTOL = 2.0 ** -7  # a bf16 output, kernel vs plain: one bf16 ulp of the
+                   # largest |value| (8 significant bits), added to the
+                   # float32 tolerance: the same float32 sums in another
+                   # order, each rounded once to bf16
+BF16_MEAN_PX, BF16_ABS_PX = 1.0, 5.0  # a bf16 request vs the float32 one:
+                   # |mean difference| and mean |difference| of the
+                   # disparity (tests/test_bf16.py's bounds)
+BF16_LOSS_RTOL = 0.05  # a bf16 train step's loss vs the float32 step's
+                   # (tests/test_bf16.py's bound)
+BF16 = Precision(torch.bfloat16)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def cfg_dict(cfg) -> dict:
+    """A config dataclass as JSON-ready values (its Precision's dtype as
+    its name)."""
+    return json.loads(json.dumps(dataclasses.asdict(cfg), default=str))
 
 
 def nvidia_smi_line() -> str:
@@ -541,22 +605,47 @@ def _taps(n: int) -> int:
     return 3 * n - 2 if n > 1 else 1
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def flop_s(eb: int, f32_operand: bool) -> float:
+    """Seconds a flop of a sum of products takes at the card's peak for
+    its operands. Float32 activations (eb 4): the float32 peak. bf16
+    activations (eb 2) go to the bf16 tensor cores, whose products are
+    exact in their float32 accumulator: one product a multiply-add where
+    the other operand is bf16 too, three where it is a float32 weight
+    (split into three bf16 pieces of 8 significant bits, float32's 24)."""
+    if eb == 4:
+        return 1.0 / PEAK_FP32_FLOPS
+    return (3.0 if f32_operand else 1.0) / PEAK_BF16_FLOPS
+
+
+def _bound(flops: float, nbytes: float, per_flop=1.0 / PEAK_FP32_FLOPS):
+    t_ops = flops * per_flop * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def conv_bound(x_shape, cout, tf32x3=False):
+def tf32_bound(flops: float, nbytes: float, eb: int) -> float:
+    """Kernel A's engine (A, B, H) on the tensor cores: the TF32 products
+    it needs at the TF32 peak, three a multiply-add for float32
+    activations (3xTF32) and two for bf16 ones (x exact in TF32, so its
+    low part's product is zero), or the bytes' time where that is
+    longer."""
+    products = 3 if eb == 4 else 2
+    return max(products * flops / PEAK_TF32_FLOPS,
+               nbytes / PEAK_HBM_BYTES) * 1e3
+
+
+def conv_bound(x_shape, cout, tf32=False, eb=4):
     """Multiply-adds that read an in-range voxel (padding zeros excluded);
     bytes: input, weights, affine read once, output written once. With
-    tf32x3: kernel A's three TF32 products of each on the tensor cores."""
+    tf32: the bound of kernel A's TF32 products (tf32_bound). eb: bytes
+    an activation element (2 for bf16); weights are float32."""
     b, d, cin, h, w = x_shape
     flops = 2.0 * b * _taps(d) * _taps(h) * _taps(w) * cin * cout
-    nbytes = 4.0 * (b * d * h * w * (cin + cout) + 27 * cin * cout + 2 * cout)
-    if tf32x3:
-        return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    return _bound(flops, nbytes)
+    nbytes = (eb * b * d * h * w * (cin + cout)
+              + 4.0 * (27 * cin * cout + 2 * cout))
+    if tf32:
+        return tf32_bound(flops, nbytes, eb)
+    return _bound(flops, nbytes, flop_s(eb, True))
 
 
 def _stem_products(nd, w, dv_needed=False):
@@ -575,18 +664,19 @@ def _stem_products(nd, w, dv_needed=False):
     return int(inside.sum())
 
 
-def cvstem_bound(x_shape, nd, cout, flops_only=False):
+def cvstem_bound(x_shape, nd, cout, tf32=False, eb=4):
     """Multiply-adds that read a voxel of the cost volume that is not a
     structural zero (outside the planes, left of the diagonal, or padding);
     bytes: the two feature maps, weights, affine in, the output out. With
-    flops_only: the time of those operations alone at the float32 peak."""
+    tf32: the bound of kernel A's TF32 products (tf32_bound). eb: bytes
+    an activation element."""
     b, c, h, w = x_shape
     flops = 2.0 * b * _stem_products(nd, w) * _taps(h) * 2 * c * cout
-    if flops_only:
-        return flops / PEAK_FP32_FLOPS * 1e3
-    nbytes = 4.0 * (2 * b * c * h * w + b * nd * cout * h * w
-                    + 27 * 2 * c * cout + 2 * cout)
-    return _bound(flops, nbytes)
+    nbytes = (eb * (2 * b * c * h * w + b * nd * cout * h * w)
+              + 4.0 * (27 * 2 * c * cout + 2 * cout))
+    if tf32:
+        return tf32_bound(flops, nbytes, eb)
+    return _bound(flops, nbytes, flop_s(eb, True))
 
 
 def disp_bound(x_shape, maxdisp, scale):
@@ -600,35 +690,36 @@ def disp_bound(x_shape, maxdisp, scale):
     return _bound(flops, nbytes)
 
 
-def dw_bound(x_shape, cout):
+def dw_bound(x_shape, cout, eb=4):
     """Kernel D: the forward's multiply-adds that read an in-range voxel;
-    bytes: x and dz in, dW out."""
+    bytes: x and dz in (eb bytes an element), dW out."""
     b, d, cin, h, w = x_shape
     flops = 2.0 * b * _taps(d) * _taps(h) * _taps(w) * cin * cout
-    nbytes = 4.0 * (b * d * h * w * (cin + cout) + 27 * cin * cout)
-    return _bound(flops, nbytes)
+    nbytes = eb * b * d * h * w * (cin + cout) + 4.0 * 27 * cin * cout
+    return _bound(flops, nbytes, flop_s(eb, False))
 
 
-def cvstem_dxy_bound(dz_shape, c2, nd):
+def cvstem_dxy_bound(dz_shape, c2, nd, eb=4):
     """Kernel E: for every volume voxel the adjoint keeps, the in-range
     products of the dx conv over 27 taps and Cout; bytes: dz and weights
-    in, dX and dY out."""
+    in, dX and dY out (dz, dX, dY eb bytes an element)."""
     b, _, cout, h, w = dz_shape
     flops = 2.0 * b * _stem_products(nd, w, dv_needed=True) * _taps(h) \
         * c2 * cout
-    nbytes = 4.0 * (b * nd * cout * h * w + 27 * c2 * cout + b * c2 * h * w)
-    return _bound(flops, nbytes)
+    nbytes = (eb * (b * nd * cout * h * w + b * c2 * h * w)
+              + 4.0 * 27 * c2 * cout)
+    return _bound(flops, nbytes, flop_s(eb, True))
 
 
-def cvstem_dw_bound(x_shape, dz_shape, nd):
+def cvstem_dw_bound(x_shape, dz_shape, nd, eb=4):
     """Kernel F: the forward's products (the same (voxel, tap) pairs);
-    bytes: X, Y and dz in, dW out."""
+    bytes: X, Y and dz in (eb bytes an element), dW out."""
     b, c, h, w = x_shape
     cout = dz_shape[2]
     flops = 2.0 * b * _stem_products(nd, w) * _taps(h) * 2 * c * cout
-    nbytes = 4.0 * (2 * b * c * h * w + b * nd * cout * h * w
-                    + 27 * 2 * c * cout)
-    return _bound(flops, nbytes)
+    nbytes = (eb * (2 * b * c * h * w + b * nd * cout * h * w)
+              + 4.0 * 27 * 2 * c * cout)
+    return _bound(flops, nbytes, flop_s(eb, False))
 
 
 def disp_bwd_bound(x_shape, maxdisp, scale):
@@ -680,21 +771,23 @@ def _shear_terms(nd, w):
     return n
 
 
-def shear_bound(px_shape, nd, relu=False):
+def shear_bound(px_shape, nd, relu=False, eb=4):
     """Kernel J: the kept adds plus the affine (2) and ReLU (1) per output;
-    bytes: the two tap-map stacks and the affine in, the output out."""
+    bytes: the two tap-map stacks and the affine in, the output out (maps
+    and output eb bytes an element)."""
     b, _, co, h, w = px_shape
     flops = b * co * h * (_shear_terms(nd, w) + (3.0 if relu else 2.0) * nd * w)
-    nbytes = 4.0 * (2 * b * 9 * co * h * w + b * nd * co * h * w + 2 * co)
+    nbytes = (eb * (2 * b * 9 * co * h * w + b * nd * co * h * w)
+              + 4.0 * 2 * co)
     return _bound(flops, nbytes)
 
 
-def shear_adj_bound(dz_shape, nd):
-    """Kernel K: the same kept adds, taken back; bytes: dz in, the two
-    tap-map gradients out."""
+def shear_adj_bound(dz_shape, nd, eb=4):
+    """Kernel K: the same kept adds, taken back; bytes: dz in (eb bytes an
+    element), the two float32 tap-map gradients out."""
     b, _, co, h, w = dz_shape
     flops = float(b * co * h * _shear_terms(nd, w))
-    nbytes = 4.0 * (b * nd * co * h * w + 2 * b * 9 * co * h * w)
+    nbytes = eb * b * nd * co * h * w + 4.0 * 2 * b * 9 * co * h * w
     return _bound(flops, nbytes)
 
 
@@ -708,7 +801,8 @@ def _conv_library(x, w, scale, bias, relu):
     """cuDNN F.conv3d on NCDHW with the affine folded into weights and
     bias, then ReLU (the layout change is made once, outside the timing)."""
     x_n = _ncdhw(x)
-    w_n = (w * scale).permute(4, 3, 0, 1, 2).contiguous()
+    w_n = (w * scale).permute(4, 3, 0, 1, 2).contiguous().to(x.dtype)
+    bias = bias.to(x.dtype)
 
     def run():
         y = F.conv3d(x_n, w_n, bias, padding=1)
@@ -720,7 +814,8 @@ def _cvstem_library(x_cf, y_cf, w3, scale, bias, nd, relu):
     """The materialized cost volume, then cuDNN F.conv3d as above."""
     x = x_cf.permute(0, 2, 3, 1).contiguous()
     y = y_cf.permute(0, 2, 3, 1).contiguous()
-    w_n = (w3 * scale).permute(4, 3, 0, 1, 2).contiguous()
+    w_n = (w3 * scale).permute(4, 3, 0, 1, 2).contiguous().to(x.dtype)
+    bias = bias.to(x.dtype)
 
     def run():
         vol = cost_volume_cf(x, y, nd).permute(0, 2, 1, 3, 4)
@@ -744,9 +839,10 @@ def _dxy_library(dz, w3, nd):
     c2 = w3.shape[3]
     c = c2 // 2
     dz_n = _ncdhw(dz)
-    w_n = w3.permute(4, 3, 0, 1, 2).contiguous()
+    w_n = w3.permute(4, 3, 0, 1, 2).contiguous().to(dz.dtype)
     j = torch.arange(w, device=dz.device)
-    mask = (j[None, :] >= torch.arange(nd, device=dz.device)[:, None]).float()
+    mask = (j[None, :] >= torch.arange(nd, device=dz.device)[:, None]).to(
+        dz.dtype)
 
     def run():
         dv = torch.nn.grad.conv3d_input((b, c2, nd, h, w), w_n, dz_n,
@@ -861,11 +957,12 @@ def _dxy_beside(dz, w3, nd):
 
 def _conv_plan(x, w, scale, bias, relu):
     """Kernel A's plan for the call: its tile, splits, planes per block and
-    blocks, and the 3xTF32 tensor-core bound beside the float32 one."""
+    blocks, and the bound of its TF32 products beside bound_ms."""
     p = conv3d_mod.conv_plan(*x.shape, w.shape[4])
     return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
             "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db,
-            "bound_tf32x3_ms": conv_bound(x.shape, w.shape[4], True)}
+            "bound_tf32_ms": conv_bound(x.shape, w.shape[4], True,
+                                        eb=x.element_size())}
 
 
 def _dw_beside(x, dz):
@@ -879,24 +976,27 @@ def _dw_beside(x, dz):
 
 def _cvstem_beside(x_cf, y_cf, w3, scale, bias, nd, relu=True):
     """Kernel A on the materialized cost volume (made once, outside the
-    timing): the same engine with the volume's bytes."""
+    timing): the same engine with the volume's bytes; and the shear-
+    collapsed stem in plain PyTorch, ops.fused_stem.cost_stem_z (rag_tpu's
+    RAG_TPU_FUSED_STEM path, pre-affine), at the same features."""
     vol = cvstem_mod._volume(x_cf, y_cf, nd).contiguous()
     return {"kernel_a_on_volume_ms": lambda: conv3d_mod.conv3d_affine_cf(
-        vol, w3, scale, bias, relu)}
+        vol, w3, scale, bias, relu),
+            "fused_stem_ms": lambda: cost_stem_z(x_cf, y_cf, w3, nd)}
 
 
 def _cvstem_plan(x_cf, y_cf, w3, scale, bias, nd, relu=True):
     """Kernel B's plan (kernel A's engine on the cost volume), kernel A's
-    plan for the materialized volume beside it, and the 3xTF32 bound."""
+    plan for the materialized volume beside it, and the bound of its TF32
+    products."""
     b, c, h, w = x_cf.shape
     p = cvstem_mod.cvstem_plan(b, nd, c, h, w, w3.shape[4])
     a = conv3d_mod.conv_plan(b, nd, 2 * c, h, w, w3.shape[4])
     return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
             "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db,
             "kernel_a_plan": f"{a.mt},{a.nt},{a.db} {a.th}x{a.tw}",
-            "bound_tf32x3_ms": 3 * cvstem_bound(x_cf.shape, nd, w3.shape[4],
-                                                flops_only=True)
-            * PEAK_FP32_FLOPS / PEAK_TF32_FLOPS}
+            "bound_tf32_ms": cvstem_bound(x_cf.shape, nd, w3.shape[4], True,
+                                          eb=x_cf.element_size())}
 
 
 def _cvstem_dw_beside(x_cf, y_cf, dz, nd):
@@ -1041,7 +1141,8 @@ KERNELS = {
         source="rag_tpu_torch/csrc/conv3d.cu",
         replaces="rag_tpu/ops/pallas_conv3d.py:257",
         sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
-        bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
+        bound=lambda x, w, scale, bias, relu: conv_bound(
+            x.shape, w.shape[4], eb=x.element_size()),
         library=_conv_library, beside=_conv_beside, plan=_conv_plan,
         tol="conv", path="default", serving=True),
     "cvstem_brc": dict(
@@ -1052,7 +1153,7 @@ KERNELS = {
         sig=lambda x, y, w3, scale, bias, nd, relu=True:
             (tuple(x.shape), w3.shape[4], nd, relu),
         bound=lambda x, y, w3, scale, bias, nd, relu=True:
-            cvstem_bound(x.shape, nd, w3.shape[4]),
+            cvstem_bound(x.shape, nd, w3.shape[4], eb=x.element_size()),
         library=_cvstem_library, beside=_cvstem_beside, plan=_cvstem_plan,
         tol="conv", path="default", serving=True),
     "fused_soft_argmin": dict(
@@ -1070,7 +1171,8 @@ KERNELS = {
         source="rag_tpu_torch/csrc/conv3d_dw.cu",
         replaces="rag_tpu/ops/pallas_conv3d.py:561",
         sig=lambda x, dz: (tuple(x.shape), dz.shape[2]),
-        bound=lambda x, dz: dw_bound(x.shape, dz.shape[2]),
+        bound=lambda x, dz: dw_bound(x.shape, dz.shape[2],
+                                     eb=x.element_size()),
         magnitude=lambda x, dz: (x.abs(), dz.abs()),
         library=_dw_library, beside=_dw_beside, plan=_dw_plan, tol="bwd",
         path="default", serving=False, bitwise=True, per_shape=True),
@@ -1080,7 +1182,8 @@ KERNELS = {
         source="rag_tpu_torch/csrc/cvstem_dxy.cu",
         replaces="rag_tpu/ops/pallas_cvstem.py:384",
         sig=lambda dz, w3, nd: (tuple(dz.shape), w3.shape[3], nd),
-        bound=lambda dz, w3, nd: cvstem_dxy_bound(dz.shape, w3.shape[3], nd),
+        bound=lambda dz, w3, nd: cvstem_dxy_bound(dz.shape, w3.shape[3], nd,
+                                                  eb=dz.element_size()),
         magnitude=lambda dz, w3, nd: (dz.abs(), w3.abs(), nd),
         library=_dxy_library, beside=_dxy_beside, plan=_dxy_plan, tol="bwd",
         path="default",
@@ -1091,7 +1194,8 @@ KERNELS = {
         source="rag_tpu_torch/csrc/cvstem_bwd.cu",
         replaces="rag_tpu/ops/pallas_cvstem.py:476",
         sig=lambda x, y, dz, nd: (tuple(x.shape), dz.shape[2], nd),
-        bound=lambda x, y, dz, nd: cvstem_dw_bound(x.shape, dz.shape, nd),
+        bound=lambda x, y, dz, nd: cvstem_dw_bound(x.shape, dz.shape, nd,
+                                                   eb=x.element_size()),
         magnitude=lambda x, y, dz, nd: (x.abs(), y.abs(), dz.abs(), nd),
         library=_cvstem_dw_library, beside=_cvstem_dw_beside,
         plan=_cvstem_dw_plan, tol="bwd", path="default", serving=False,
@@ -1113,7 +1217,8 @@ KERNELS = {
         source="rag_tpu_torch/csrc/conv3d.cu",
         replaces="rag_tpu/ops/pallas_conv3d.py:314",
         sig=lambda x, w, scale, bias, relu: (tuple(x.shape), w.shape[4], relu),
-        bound=lambda x, w, scale, bias, relu: conv_bound(x.shape, w.shape[4]),
+        bound=lambda x, w, scale, bias, relu: conv_bound(
+            x.shape, w.shape[4], eb=x.element_size()),
         library=_conv_library, beside=_dblock_beside, plan=_dblock_plan,
         tol="conv", path="variants", serving=True),
     "resize_taps_cf": dict(
@@ -1134,7 +1239,7 @@ KERNELS = {
         sig=lambda px, py, scale, bias, nd, relu=False:
             (tuple(px.shape), nd, relu),
         bound=lambda px, py, scale, bias, nd, relu=False:
-            shear_bound(px.shape, nd, relu),
+            shear_bound(px.shape, nd, relu, eb=px.element_size()),
         library=None, beside=_shear_beside, plan=_shear_plan, tol="conv",
         path="variants", serving=True, bitwise=True),
     "shear_adjoint": dict(
@@ -1143,13 +1248,70 @@ KERNELS = {
         source="rag_tpu_torch/csrc/shear.cu",
         replaces="rag_tpu/ops/pallas_shear.py:173",
         sig=lambda dz, nd: (tuple(dz.shape), nd),
-        bound=lambda dz, nd: shear_adj_bound(dz.shape, nd),
+        bound=lambda dz, nd: shear_adj_bound(dz.shape, nd,
+                                             eb=dz.element_size()),
         magnitude=lambda dz, nd: (dz.abs(), nd),
         library=None, beside=_shear_adj_beside, plan=_shear_adj_plan,
         tol="bwd", path="variants", serving=False, bitwise=True),
 }
 for _k in KERNELS.values():
     _k["wrapper"] = getattr(*_k["site"])
+
+# The bf16 instances (bf16 at rest, rag_tpu_torch/ops/precision.py): the
+# same wrappers and plain versions on bf16 activations, counted on the
+# wrapper's launches_bf16. name -> (positions of the activation arguments,
+# the rest float32; whether the output is bf16: D's, F's and K's are
+# float32). Each is timed beside its float32 instance on the upcast
+# arguments ("f32_ms").
+BF16_OF = {"conv3d_brc_cf": ((0,), True), "conv3d_dblock_cf": ((0,), True),
+           "cvstem_brc": ((0, 1), True), "conv3d_dw_cf": ((0, 1), False),
+           "cvstem_dxy": ((0,), True), "cvstem_dw": ((0, 1, 2), False),
+           "shear_forward": ((0, 1), True), "shear_adjoint": ((0,), False)}
+
+
+def bf16_name(name: str) -> str:
+    return f"{name}[bf16]"
+
+
+def cast_acts(name, args, dtype):
+    """The arguments of kernel ``name`` with its activations in dtype."""
+    acts = BF16_OF[name][0]
+    return tuple(a.to(dtype) if i in acts else a for i, a in enumerate(args))
+
+
+def _f32_beside(name):
+    wrapper = KERNELS[name]["wrapper"]
+
+    def beside(*args, **kw):
+        a32 = cast_acts(name, args, torch.float32)
+        return {"f32_ms": lambda: wrapper(*a32, **kw)}
+    return beside
+
+
+BF16_KERNELS = {
+    bf16_name(n): {**{k: v for k, v in KERNELS[n].items()
+                      if k not in ("beside", "beside_graph", "max_err")},
+                   "base": n, "count": "launches_bf16", "bf16_out": out,
+                   "beside": _f32_beside(n)}
+    for n, (_, out) in BF16_OF.items()}
+ALL_KERNELS = {**KERNELS, **BF16_KERNELS}
+
+
+def launch_count(name: str) -> int:
+    k = ALL_KERNELS[name]
+    return getattr(k["wrapper"], k.get("count", "launches"))
+
+
+def zero_launches() -> None:
+    """Every launch count, each instance's, set to 0."""
+    for k in ALL_KERNELS.values():
+        setattr(k["wrapper"], k.get("count", "launches"), 0)
+
+
+def read_launches() -> dict:
+    """Each kernel instance's launch count."""
+    return {n: launch_count(n) for n in ALL_KERNELS}
+
 # the kernels each path must run, serving and training (F only where
 # stem_3d0 trains); every other kernel must not run on that path
 SERVE_KERNELS = {
@@ -1161,6 +1323,15 @@ TRAIN_KERNELS = {
         "conv3d_dw_cf", "cvstem_dxy", "cvstem_dw", "soft_argmin_bwd"),
     "variants": SERVE_KERNELS["variants"] + (
         "shear_adjoint", "conv3d_dw_cf", "soft_argmin_bwd")}
+# under Precision(torch.bfloat16) (BF16_PATHS): every kernel that takes bf16
+# runs its bf16 instance; the head (C, G) stays float32 and kernel I, which
+# takes float32 only, does not run (the matrix resize does)
+SERVE_BF16 = {p: tuple(bf16_name(k) if k in BF16_OF else k
+                       for k in SERVE_KERNELS[p] if k != "resize_taps_cf")
+              for p in PATHS}
+TRAIN_BF16 = {p: tuple(bf16_name(k) if k in BF16_OF else k
+                       for k in TRAIN_KERNELS[p] if k != "resize_taps_cf")
+              for p in PATHS}
 
 
 def small_cases(dev, rng):
@@ -1316,15 +1487,17 @@ def recording(calls, args_of):
     def recorder(name):
         def run(*args, **kw):
             sig = KERNELS[name]["sig"](*args, **kw)
-            calls.append((name, sig))
-            if (name, sig) not in args_of:
-                args_of[(name, sig)] = (
+            key = (bf16_name(name) if name in BF16_OF
+                   and args[0].dtype == torch.bfloat16 else name)
+            calls.append((key, sig))
+            if (key, sig) not in args_of:
+                args_of[(key, sig)] = (
                     tuple(a.detach().clone() if isinstance(a, torch.Tensor)
                           else a for a in args), dict(kw))
             return KERNELS[name]["plain"](*args, **kw)
         return run
 
-    launches0 = {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    launches0 = read_launches()
     try:
         for n, k in KERNELS.items():
             setattr(*k["site"], recorder(n))
@@ -1332,14 +1505,13 @@ def recording(calls, args_of):
     finally:
         for k in KERNELS.values():
             setattr(*k["site"], k["wrapper"])
-    launched = {n: k["wrapper"].launches - launches0[n]
-                for n, k in KERNELS.items()}
+    launched = {n: c - launches0[n] for n, c in read_launches().items()}
     if any(launched.values()):
         raise SystemExit(f"chip_smoke: the plain path launched {launched}")
 
 
 def count_calls(calls):
-    return {k: sum(1 for n, _ in calls if n == k) for k in KERNELS}
+    return {k: sum(1 for n, _ in calls if n == k) for k in ALL_KERNELS}
 
 
 def check_called(what, counts, expected, optional=()):
@@ -1409,10 +1581,12 @@ def train_batch(dev):
                  for a in (lefts, rights, gts))
 
 
-def train_step(cfg, params, stats, opt_state, lr, batch, path):
+def train_step(cfg, params, stats, opt_state, lr, batch, path,
+               precision=Precision()):
     specs, _, _, sites = cfg
     step = make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP,
-                           variants=PATHS[path])
+                           variants=(BF16_PATHS if precision.mixed()
+                                     else PATHS)[path], precision=precision)
     return step(params, stats, opt_state, lr, *batch)
 
 
@@ -1449,15 +1623,18 @@ def phase_record_train(dev, args_of, path):
 def _max_err(out, ref):
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
-    return err, max(float(r.abs().max()) for r in refs)
+    err = max(float((o.float() - r.float()).abs().max())
+              for o, r in zip(outs, refs))
+    return err, max(float(r.float().abs().max()) for r in refs)
 
 
 def check_kernel(name, args, kw, reps, beside, exact=False):
     """Kernel vs plain on one set of arguments (with exact: bit for bit);
     times of kernel, plain, library and (with beside) the calls timed
-    beside it. Returns a result dict (no assertion here)."""
-    k = KERNELS[name]
+    beside it. Returns a result dict (no assertion here). A bf16 instance
+    whose output is bf16 is held to one bf16 ulp of its largest value
+    beyond its float32 instance's tolerance."""
+    k = ALL_KERNELS[name]
     with torch.inference_mode():
         out = k["wrapper"](*args, **kw)
         ref = k["plain"](*args, **kw)
@@ -1471,6 +1648,7 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
             del again
         torch.cuda.synchronize()
         err, ref_max = _max_err(out, ref)
+        out_max = ref_max
         del out, ref
         if k["tol"] == "bwd" and "magnitude" in k:
             mags = k["plain"](*k["magnitude"](*args), **kw)
@@ -1479,6 +1657,8 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
         tol = 0.0 if exact else {"conv": CONV_RTOL * max(1.0, ref_max),
                                  "disp": DISP_ATOL,
                                  "bwd": BWD_RTOL * ref_max}[k["tol"]]
+        if k.get("bf16_out") and not exact:
+            tol += BF16_RTOL * out_max
         ms = cuda_ms(lambda: k["wrapper"](*args, **kw), reps)
         plain_ms = cuda_ms(lambda: k["plain"](*args, **kw), max(1, reps // 2))
         lib_ms = (cuda_ms(k["library"](*args, **kw), reps)
@@ -1542,8 +1722,12 @@ def phase_kernels(args_of, dev, extra_args=None):
             if key not in seen:
                 seen.add(key)
                 todo.append((tag, *key, args, kw))
-    todo += [(where, name, KERNELS[name]["sig"](*args), args, {})
-             for where, cases in (("small", small_cases(dev, rng)),
+    small = small_cases(dev, rng)
+    # the bf16 instances at the same small shapes
+    small += [(bf16_name(n), cast_acts(n, args, torch.bfloat16))
+              for n, args in small if n in BF16_OF]
+    todo += [(where, name, ALL_KERNELS[name]["sig"](*args), args, {})
+             for where, cases in (("small", small),
                                   ("exact", exact_cases(dev, rng)))
              for name, args in cases]
     for where, name, sig, args, kw in todo:
@@ -1558,15 +1742,16 @@ def phase_kernels(args_of, dev, extra_args=None):
                 "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 **r["beside"], **r["plan"]}
-        if KERNELS[name].get("bitwise"):
+        if ALL_KERNELS[name].get("bitwise"):
             line["repeat_bit_identical"] = r["same"]
         log(f"[kernels] {json.dumps(line)}")
         if not r["ok"]:
             failures.append(f"{name} {where} {sig}: max_abs_err {r['err']:.3g}"
                             f" (tolerance {r['tol']:.3g}), two launches "
                             f"bit-identical: {r['same']}")
-        KERNELS[name].setdefault("max_err", 0.0)
-        KERNELS[name]["max_err"] = max(KERNELS[name]["max_err"], r["err"])
+        ALL_KERNELS[name].setdefault("max_err", 0.0)
+        ALL_KERNELS[name]["max_err"] = max(ALL_KERNELS[name]["max_err"],
+                                           r["err"])
     if failures:
         raise SystemExit("chip_smoke: kernels disagree with their plain "
                          "versions:\n  " + "\n  ".join(failures))
@@ -2043,6 +2228,180 @@ def phase_train(dev, plain, path):
     return launches, per_cfg
 
 
+# -- bf16 at rest ------------------------------------------------------------
+
+def phase_record_bf16(dev, args_of, requests, path):
+    """One bf16 request (task 0's path) and one bf16 step of task 0's
+    configuration on one path, with the plain versions in the wrappers'
+    places: the shapes and arguments of the bf16 instances' calls (their
+    keys carry "[bf16]"; the head's calls are float32). Returns the calls
+    ({"request": ...}, {"task0": ...})."""
+    net, _ = load_checkpoint(str(CKPT), 3, device=dev)
+    ri = RoutedInference(net, maxdisp=MAXDISP, device=dev,
+                         variants=BF16_PATHS[path], precision=BF16)
+    req, step = [], []
+    with recording(req, args_of):
+        ri.predict(*requests[0][0], task=0)
+    check_called(f"bf16 {path} request", count_calls(req), SERVE_BF16[path])
+    cfg = train_configs(dev)["task0"]
+    _, params, stats, _ = cfg
+    with recording(step, args_of):
+        train_step(cfg, params, stats, make_optimizer(WD).init(params),
+                   cosine_lr(LR, TRAIN_EPOCHS, 0), train_batch(dev), path,
+                   BF16)
+    check_called(f"bf16 {path} task0 step", count_calls(step),
+                 TRAIN_BF16[path])
+    log(f"[record] bf16 {path}: request calls "
+        f"{ {k: c for k, c in count_calls(req).items() if c} }, task 0 step "
+        f"calls { {k: c for k, c in count_calls(step).items() if c} }")
+    return {"request": req}, {"task0": step}
+
+
+def serve_run(ri, requests):
+    """REQUESTS requests per task path through ri, every launch count (both
+    instances) set to 0 first: (disparities, ms/request past the first of
+    each path, peak GB, launches)."""
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, times = {}, []
+    for t, reqs in requests.items():
+        outs[t] = []
+        for i, (left, right) in enumerate(reqs):
+            t0 = time.perf_counter()
+            outs[t].append(ri.predict(left, right, task=t))
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+    return (outs, float(np.mean(times)),
+            torch.cuda.max_memory_allocated() / 1e9, read_launches())
+
+
+def train_run(dev, path, precision):
+    """TRAIN_STEPS steps of task 0's configuration on a fresh copy of the
+    checkpoint, every launch count set to 0 first: (losses, ms/step past
+    the first, peak GB, launches, failures: non-finite or non-float32
+    leaves of params, statistics or momentum)."""
+    cfg = train_configs(dev)["task0"]
+    _, params, stats, _ = cfg
+    opt_state = make_optimizer(WD).init(params)
+    batch = train_batch(dev)
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, stats, opt_state, sc = train_step(
+            cfg, params, stats, opt_state, cosine_lr(LR, TRAIN_EPOCHS, i),
+            batch, path, precision)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(sc["loss"]))
+    bad = [f"{k} {v.dtype}" for tree in (params, stats, opt_state)
+           for k, v in leaves(tree)
+           if v.dtype != torch.float32 or not bool(torch.isfinite(v).all())]
+    return (losses, float(np.mean(times)),
+            torch.cuda.max_memory_allocated() / 1e9, read_launches(),
+            bad)
+
+
+def phase_bf16(dev, net, requests):
+    """bf16 at rest against float32, per path in turns (float32, bf16, bf16,
+    float32): REQUESTS requests per task path through RoutedInference and
+    TRAIN_STEPS steps of task 0's configuration through make_train_step,
+    with precision=Precision(torch.bfloat16) or float32 (the bf16 runs on
+    BF16_PATHS; RoutedInference and make_train_step must refuse bf16 with
+    resize_kernel). Gates: each run launches its kernels' instances and no
+    other (bf16: A, B, C serving and A-G training on the default path, H,
+    J, C and H, J, K, C, D, G on the variant path, kernel I at 0); every
+    disparity finite in [0, 191];
+    each task path's bf16 disparity against the float32 one within
+    tests/test_bf16.py's bounds; the bf16 first step's loss within
+    BF16_LOSS_RTOL of the float32 one's; every leaf float32 and finite.
+    Prints ms/request, ms/step and peak memory beside float32's. Returns
+    (bf16 launches summed over the runs, report)."""
+    t_phase = time.perf_counter()
+    failures, report = [], {}
+    for build in (lambda: RoutedInference(net, device=dev, precision=BF16,
+                                          variants=PATHS["variants"]),
+                  lambda: make_train_step({}, frozenset(), make_optimizer(WD),
+                                          variants=PATHS["variants"],
+                                          precision=BF16)):
+        try:
+            build()
+            failures.append("bf16 with resize_kernel was not refused")
+        except ValueError:
+            pass
+    launches = dict.fromkeys(BF16_KERNELS, 0)
+    turns = ("float32", "bfloat16", "bfloat16", "float32")
+    for p in PATHS:
+        ris = {"float32": RoutedInference(net, maxdisp=MAXDISP, device=dev,
+                                          variants=PATHS[p]),
+               "bfloat16": RoutedInference(net, maxdisp=MAXDISP, device=dev,
+                                           variants=BF16_PATHS[p],
+                                           precision=BF16)}
+        serve = {prec: [] for prec in ris}
+        first = {}
+        for prec in turns:
+            outs, ms, gb, n = serve_run(ris[prec], requests)
+            must = SERVE_BF16[p] if prec == "bfloat16" else SERVE_KERNELS[p]
+            failures += launch_failures(f"bf16 phase {p} {prec} serving", n,
+                                        must)
+            for t, ds in outs.items():
+                for i, d in enumerate(ds):
+                    failures += check_disparity(f"{p} {prec} task {t} "
+                                                f"request {i}", d)
+            first.setdefault(prec, {t: ds[0] for t, ds in outs.items()})
+            serve[prec].append({"ms_per_request": ms, "peak_gb": gb})
+            if prec == "bfloat16":
+                for k in launches:
+                    launches[k] += n[k]
+        vs = {}
+        for t in requests:
+            a, b = first["float32"][t], first["bfloat16"][t]
+            vs[t] = {"mean_diff_px": float(a.mean() - b.mean()),
+                     "mean_abs_diff_px": float(np.abs(a - b).mean()),
+                     "max_abs_diff_px": float(np.abs(a - b).max())}
+            if not (abs(vs[t]["mean_diff_px"]) < BF16_MEAN_PX
+                    and vs[t]["mean_abs_diff_px"] < BF16_ABS_PX):
+                failures.append(f"bf16 {p} task {t}: disparity vs float32 "
+                                f"{vs[t]} (bounds {BF16_MEAN_PX}, "
+                                f"{BF16_ABS_PX} px)")
+        train = {prec: [] for prec in ris}
+        for prec in turns:
+            losses, ms, gb, n, bad = train_run(
+                dev, p, BF16 if prec == "bfloat16" else Precision())
+            must = TRAIN_BF16[p] if prec == "bfloat16" else TRAIN_KERNELS[p]
+            failures += launch_failures(f"bf16 phase {p} {prec} training", n,
+                                        must)
+            failures += [f"bf16 {p} {prec} step: leaf {b}" for b in bad]
+            if not all(np.isfinite(losses)):
+                failures.append(f"bf16 {p} {prec}: losses {losses}")
+            train[prec].append({"loss": losses, "ms_per_step": ms,
+                                "pairs_per_s": TRAIN_B / (ms / 1e3),
+                                "peak_gb": gb})
+            if prec == "bfloat16":
+                for k in launches:
+                    launches[k] += n[k]
+        l32, l16 = train["float32"][0]["loss"][0], train["bfloat16"][0]["loss"][0]
+        rel = abs(l16 - l32) / max(abs(l32), 1e-12)
+        if not rel <= BF16_LOSS_RTOL:
+            failures.append(f"bf16 {p}: first-step loss {l16} vs float32 "
+                            f"{l32} ({rel:.3g} relative > {BF16_LOSS_RTOL})")
+        report[p] = {"serve": serve, "vs_float32": vs, "train": train,
+                     "first_step_loss_rel": rel}
+        log(f"[bf16] {p}: {json.dumps(report[p])}")
+    report["launches"] = {k: c for k, c in launches.items() if c}
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[bf16] launches of the bf16 instances: "
+        f"{json.dumps(report['launches'])}; phase wall time "
+        f"{report['wall_s']:.1f} s")
+    if failures:
+        raise SystemExit("chip_smoke: bf16 failed:\n  " + "\n  ".join(failures))
+    return launches, report
+
+
 # -- the float32 probe and the dp phase --------------------------------------
 
 def _tf32_flags():
@@ -2473,13 +2832,6 @@ def phase_record_learn(dev, args_of):
     return delta, stats
 
 
-def zero_launches():
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
-
-
-def read_launches():
-    return {n: k["wrapper"].launches for n, k in KERNELS.items()}
 
 
 def launch_failures(what, n, must):
@@ -2519,7 +2871,7 @@ class StagedDriver(ContinualDriver):
         self.stages, self.cell_searches, self.op_p = [], [], {}
         self.cell_ops = []
         self._trainable = None
-        self.outside = dict.fromkeys(KERNELS, 0)
+        self.outside = dict.fromkeys(ALL_KERNELS, 0)
 
     def read_outside(self):
         """The launches of the last run outside its stages."""
@@ -2640,7 +2992,7 @@ def phase_learn(dev, plain_step, smi):
     five gates: stage launches, the first supernet step vs plain, search
     state and growth, zero forgetting, the checkpoint round trip."""
     t_phase = time.perf_counter()
-    log(f"[learn] configuration: {json.dumps(dataclasses.asdict(LEARN_CFG))}")
+    log(f"[learn] configuration: {json.dumps(cfg_dict(LEARN_CFG))}")
     log(f"[learn] cut from the canonical run: {'; '.join(LEARN_CUTS)}; "
         f"widths and crops unchanged")
     counts = {"trained": 0, "evaluated": 0}
@@ -2737,7 +3089,7 @@ def phase_learn(dev, plain_step, smi):
             f"{manifest['task']} reloaded: worst relative difference per task"
             f" {roundtrip}; routed D1 {routed_d1}, router accuracy {acc:.4f}")
     report = {
-        "device": smi, "config": dataclasses.asdict(LEARN_CFG),
+        "device": smi, "config": cfg_dict(LEARN_CFG),
         "cuts": LEARN_CUTS, "run_s": run_s,
         "wall_s": time.perf_counter() - t_phase,
         "supernet_step_ms": step_ms, "supernet_step_vs_plain": cmp,
@@ -2757,7 +3109,7 @@ def phase_learn(dev, plain_step, smi):
         f"{run_s:.1f} s)")
     if failures:
         raise SystemExit("chip_smoke: learn failed:\n  " + "\n  ".join(failures))
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
     for rec in drv.stages:
         for k, c in rec["launches"].items():
             launches[k] += c
@@ -3306,12 +3658,12 @@ def eval_only_check(dev, lists, maxdisp, failures):
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "library_ms": r["lib_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], **r["plan"]}
-        if KERNELS[name].get("bitwise"):
+        if ALL_KERNELS[name].get("bitwise"):
             line["repeat_bit_identical"] = r["same"]
         log(f"[kernels] {json.dumps(line)}")
         kernels.append(line)
-        KERNELS[name]["max_err"] = max(KERNELS[name].get("max_err", 0.0),
-                                       r["err"])
+        ALL_KERNELS[name]["max_err"] = max(
+            ALL_KERNELS[name].get("max_err", 0.0), r["err"])
         if not r["ok"]:
             failures.append(f"{what}: {name} {sig} max_abs_err {r['err']:.3g}"
                             f" (tolerance {r['tol']:.3g}), bit-identical "
@@ -3326,11 +3678,12 @@ def phase_cli(dev, smi):
     """python -m rag_tpu_torch.cli's path on files: a DrivingStereo tree
     and its lists, a full 2-task run, the same run killed in task 1's
     fine-tune and resumed, and --eval-only of the committed checkpoint on
-    KITTI-size and wide frames at maxdisp 192 and 190."""
+    KITTI-size and wide frames at maxdisp 192 and 190, and with --bf16 at
+    maxdisp 192."""
     t_phase = time.perf_counter()
     failures, report = [], {"device": smi, "cuts": CLI_CUTS,
                             "hyperparameters": " ".join(CLI_HYPER)}
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
 
     def add(counts):
         for k, c in counts.items():
@@ -3468,6 +3821,31 @@ def phase_cli(dev, smi):
             n, report["eval_only"][maxdisp] = eval_only_check(
                 dev, eval_lists, maxdisp, failures)
             add(n)
+        # --bf16 --eval-only: the bf16 instances of A and B, and C
+        zero_launches()
+        t0 = time.perf_counter()
+        res = cli.main(["--eval-only", "--bf16", "--checkpoint-dir",
+                        str(CKPT), "--use-router", "--eval-lists",
+                        *eval_lists.values(), "--maxdisp", str(MAXDISP)],
+                       device=dev)
+        torch.cuda.synchronize()
+        n = read_launches()
+        failures += launch_failures("cli --bf16 --eval-only", n,
+                                    (bf16_name(KA), bf16_name(KB), KC))
+        add(n)
+        f32 = report["eval_only"][MAXDISP]["lists"]
+        lists16 = {name: {k: res[lst][k] for k in ("D1", "EPE", "loss")}
+                   for name, lst in eval_lists.items()}
+        for name, m in lists16.items():
+            if not all(np.isfinite(v) for v in m.values()):
+                failures.append(f"cli --bf16 --eval-only: {name} {m}")
+        report["eval_only_bf16"] = {
+            "s": time.perf_counter() - t0, "lists": lists16,
+            "epe_minus_float32": {name: lists16[name]["EPE"] - f32[name]["EPE"]
+                                  for name in lists16},
+            "launches": {k: c for k, c in n.items() if c}}
+        log(f"[cli] --bf16 --eval-only maxdisp {MAXDISP}: "
+            f"{json.dumps(report['eval_only_bf16'])}")
     report["launches"] = {k: c for k, c in launches.items() if c}
     report["wall_s"] = time.perf_counter() - t_phase
     log(f"[cli] phase wall time {report['wall_s']:.1f} s")
@@ -3556,7 +3934,7 @@ def run_checks(drv, matrix, writer, what, depth=False):
     tracked metric. Returns (failures, forgetting, the stages' launches
     summed, the launches outside them)."""
     failures = []
-    stages = dict.fromkeys(KERNELS, 0)
+    stages = dict.fromkeys(ALL_KERNELS, 0)
     for rec in drv.stages:
         failures += stage_failures(rec, depth)
         for n, c in rec["launches"].items():
@@ -3629,7 +4007,7 @@ def phase_selfsup(dev, plain_step, smi):
         cache=cache), counts) for n, seed in ((SELF_PRETRAIN_PAIRS, 777),
                                              (SELF_PROXY_PAIRS, 888))]
     writer = Scalars()
-    log(f"[selfsup] configuration: {json.dumps(dataclasses.asdict(SELF_CFG))};"
+    log(f"[selfsup] configuration: {json.dumps(cfg_dict(SELF_CFG))};"
         f" cut from the canonical run: {'; '.join(SELF_CUTS)}")
     with tempfile.TemporaryDirectory() as ckpt:
         drv = StagedSelfSup(SELF_CFG, pretrain_data=aux[0],
@@ -3670,7 +4048,7 @@ def phase_selfsup(dev, plain_step, smi):
     log(f"[selfsup] launches by segment: " + json.dumps(
         {part: {k: c for k, c in n.items() if c} for part, n in segments.items()}))
     report = {"device": smi, "step": step_report,
-              "config": dataclasses.asdict(SELF_CFG), "cuts": SELF_CUTS,
+              "config": cfg_dict(SELF_CFG), "cuts": SELF_CUTS,
               "run_s": run_s, "stages": drv.stages,
               "genotypes": [str(g) for g in drv.net.genotypes],
               "archis": drv.net.archis,
@@ -3748,6 +4126,91 @@ def depth_restored(dev, failures):
     return {"task": manifest["task"], "paths": paths, "router": route}
 
 
+def write_legacy_depth(net, path) -> None:
+    """Task 0's path of a depth net as the reference saves a checkpoint
+    (rag_depth/src/run.py:204-206): candidate 0 of every site and head
+    under the reference's keys, OIHW weights, a dormant BatchNorm on each
+    bn=False block and num_batches_tracked on every BatchNorm, in torch's
+    legacy (non-zip) format."""
+    from collections import OrderedDict
+
+    sd = OrderedDict()
+    stem_key = {v: k for k, v in torch_import._STEM_MAP.items()}
+
+    def convbr(prefix, params, stats, bn_off=False):
+        w = params["w"].detach().cpu()
+        sd[f"{prefix}.conv.weight"] = w.permute(3, 2, 0, 1).contiguous()
+        ones, zeros = torch.ones(w.shape[-1]), torch.zeros(w.shape[-1])
+        bn = ({"weight": ones, "bias": zeros, "running_mean": zeros,
+               "running_var": ones} if bn_off else
+              {"weight": params["scale"], "bias": params["bias"],
+               "running_mean": stats["mean"], "running_var": stats["var"]})
+        for k, v in bn.items():
+            sd[f"{prefix}.bn.{k}"] = v.detach().cpu().clone()
+        sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+
+    arch = net.archis[0]
+    for site in SITE_NAMES:
+        u = net.units[site][arch[site]]
+        if site.startswith("cell_"):
+            prefix = f"cells_{site[5:7]}.{site[7:]}.0"
+            convbr(f"{prefix}.pre_preprocess", u.params["pre"],
+                   u.stats["pre"])
+            convbr(f"{prefix}.preprocess", u.params["prep"], u.stats["prep"])
+            for row, (edge, op) in enumerate(u.spec.gene):
+                if op == 1:
+                    convbr(f"{prefix}._ops.{row}", u.params["ops"][str(edge)],
+                           u.stats["ops"][str(edge)])
+        else:
+            convbr(f"{stem_key[site]}.0", u.params, u.stats,
+                   bn_off=not u.spec.bn)
+    for h in net.heads:
+        u = net.heads[h][arch[h]]
+        convbr(f"{h}.0", u.params, u.stats, bn_off=not u.spec.bn)
+    hp = net.depth_head.params
+    sd["depth_head.conv1.weight"] = hp["w"].detach().cpu().permute(
+        3, 2, 0, 1).contiguous()
+    sd["depth_head.conv1.bias"] = hp["bias1"].detach().cpu().clone()
+    torch.save({"task": 0, "model": sd, "optimizer": {}}, path,
+               _use_new_zipfile_serialization=False)
+
+
+def depth_legacy_import(dev, failures):
+    """A legacy reference checkpoint written from the committed depth
+    checkpoint's task-0 tensors, imported onto the card and onto the CPU
+    (compat.torch_import): task 0's depth metrics on DEPTH_FRAMES frames of
+    480x960, card vs CPU within DEPTH_ATOL."""
+    net, _ = load_checkpoint(str(DEPTH_CKPT), device="cpu")
+    scene = depth_scene("cpu", 0, DEPTH_FRAMES, H, W, DeviceCache(), 30)
+    batches = list(scene.batches(1, False, drop_last=False))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "checkpoint_task0.ckpt")
+        write_legacy_depth(net, path)
+        t0 = time.perf_counter()
+        gnet, info = torch_import.import_depth_checkpoint(path, dev)
+        out["import_s"] = time.perf_counter() - t0
+        cnet, _ = torch_import.import_depth_checkpoint(path, "cpu")
+    metrics = {}
+    for name, inet, d in (("card", gnet, dev), ("cpu", cnet, "cpu")):
+        specs, params, stats = inet.path(inet.archis[0])
+        step = make_depth_eval_step(specs)
+        metrics[name] = AverageMeterDict().update_batched(
+            [step(params, stats, b["image"].to(d), b["depth"].to(d))
+             for b in batches]).mean()
+    diff = max(abs(metrics["card"][k] - metrics["cpu"][k])
+               for k in metrics["cpu"])
+    out.update(info={k: v for k, v in info.items() if k != "candidates"},
+               metrics=metrics["card"], vs_cpu_max=diff,
+               size_m=gnet.size_m())
+    if not (diff <= DEPTH_ATOL and info["unused"] == []
+            and all(np.isfinite(v) for v in metrics["card"].values())):
+        failures.append(f"depth legacy import: card vs CPU {diff:.3g} "
+                        f"(tolerance {DEPTH_ATOL}) or {out}")
+    log(f"[depth] legacy checkpoint of task 0 imported: {json.dumps(out)}")
+    return out
+
+
 def phase_depth(dev, smi):
     """(a) the committed depth checkpoint and router on the card; (b)
     DepthContinualDriver.run over two styled depth scenes, every stage
@@ -3761,6 +4224,10 @@ def phase_depth(dev, smi):
     restored = depth_restored(dev, failures)
     torch.cuda.synchronize()
     segments["restored"] = read_launches()
+    zero_launches()
+    legacy = depth_legacy_import(dev, failures)
+    torch.cuda.synchronize()
+    segments["legacy_import"] = read_launches()
 
     counts = {"trained": 0, "evaluated": 0}
     cache = DeviceCache()
@@ -3771,7 +4238,7 @@ def phase_depth(dev, smi):
     train, valid, test = (mk(n_tr, hh, ww, 10), mk(n_va, hh, ww, 20),
                           mk(n_te, H, W, 30))
     writer = Scalars()
-    log(f"[depth] configuration: {json.dumps(dataclasses.asdict(DEPTH_CFG))};"
+    log(f"[depth] configuration: {json.dumps(cfg_dict(DEPTH_CFG))};"
         f" cut from the canonical run: {'; '.join(DEPTH_CUTS)}")
     with tempfile.TemporaryDirectory() as ckpt:
         drv = StagedDepth(DEPTH_CFG, writer=writer, log=log,
@@ -3822,8 +4289,8 @@ def phase_depth(dev, smi):
     launches = {n: sum(seg[n] for seg in segments.values()) for n in KERNELS}
     log(f"[depth] launches by segment: " + json.dumps(
         {part: {k: c for k, c in n.items() if c} for part, n in segments.items()}))
-    report = {"device": smi, "restored": restored,
-              "config": dataclasses.asdict(DEPTH_CFG), "cuts": DEPTH_CUTS,
+    report = {"device": smi, "restored": restored, "legacy_import": legacy,
+              "config": cfg_dict(DEPTH_CFG), "cuts": DEPTH_CUTS,
               "run_s": run_s, "stages": drv.stages,
               "genotypes": [str(g) for g in drv.net.genotypes],
               "archis": drv.net.archis,
@@ -3869,10 +4336,9 @@ def kernel_numbers(results, calls, name):
     besides = {key: r["beside"] for key, r in results.items()}
     for field in first["beside"]:
         out[field] = per_key(besides, calls, name, field)
-    if "bound_tf32x3_ms" in first["plan"]:
+    if "bound_tf32_ms" in first["plan"]:
         plans = {key: r["plan"] for key, r in results.items()}
-        out["bound_tf32x3_ms"] = per_key(plans, calls, name,
-                                         "bound_tf32x3_ms")
+        out["bound_tf32_ms"] = per_key(plans, calls, name, "bound_tf32_ms")
     return out
 
 
@@ -3939,6 +4405,10 @@ def main() -> int:
     for p in PATHS:
         plain[p], calls[p] = phase_record(ris[p], requests, args_of, p)
         plain_train[p], train_calls[p] = phase_record_train(dev, args_of, p)
+    bf16_calls, bf16_train_calls = {}, {}
+    for p in PATHS:
+        bf16_calls[p], bf16_train_calls[p] = phase_record_bf16(
+            dev, args_of, requests, p)
     learn_args, self_args = {}, {}
     plain_learn = phase_record_learn(dev, learn_args)
     plain_self = phase_record_selfsup(dev, self_args)
@@ -3950,8 +4420,9 @@ def main() -> int:
     del args_of, learn_args, self_args
     torch.cuda.empty_cache()
     log(f"[kernels] done ({time.perf_counter() - t_start:.0f} s)")
-    # launches summed over a kernel's runs; times kept per turn
-    launches = dict.fromkeys(KERNELS, 0)
+    # launches summed over a kernel's runs (each instance); times kept per
+    # turn
+    launches = dict.fromkeys(ALL_KERNELS, 0)
     per_task, per_cfg, outs = ({p: [] for p in PATHS} for _ in range(3))
     for p in TURNS:
         n, tasks, o = phase_serve(ris[p], requests, plain[p], p,
@@ -3959,7 +4430,7 @@ def main() -> int:
                                   else None)
         per_task[p].append(tasks)
         outs[p].append(o)
-        launches = {k: launches[k] + n[k] for k in KERNELS}
+        launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     t_route = time.perf_counter()
     scene_cache = DeviceCache()
     router, scenes, ids, route = phase_route_setup(dev, scene_cache)
@@ -3970,7 +4441,7 @@ def main() -> int:
     for p in TURNS:
         n, res = phase_route(routed_ris[p], scenes, ids, p)
         per_route[p].append(res)
-        launches = {k: launches[k] + n[k] for k in KERNELS}
+        launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     route["router_alone"] = router_time(router, scenes)
     route["router_training"] = phase_router_train(dev, scenes)
     del routed_ris, router, scenes, scene_cache
@@ -3980,29 +4451,32 @@ def main() -> int:
     for p in TURNS:
         n, cfgs = phase_train(dev, plain_train[p], p)
         per_cfg[p].append(cfgs)
-        launches = {k: launches[k] + n[k] for k in KERNELS}
+        launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
+    n, bf16_report = phase_bf16(dev, net, requests)
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
+    torch.cuda.empty_cache()
     fp32_probe = phase_fp32_probe(dev)
     torch.cuda.empty_cache()
     n, dp = phase_dp(dev, plain_train["default"], per_cfg["default"], smi,
                      opts.profile)
     dp["fp32_probe"] = fp32_probe
-    launches = {k: launches[k] + n[k] for k in KERNELS}
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     torch.cuda.empty_cache()
     n, sp = phase_sp(dev, plain_train["default"], per_cfg["default"], smi)
-    launches = {k: launches[k] + n[k] for k in KERNELS}
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     torch.cuda.empty_cache()
     n, learn = phase_learn(dev, plain_learn, smi)
-    launches = {k: launches[k] + n[k] for k in KERNELS}
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     del plain_learn
     torch.cuda.empty_cache()
     n, scenes = phase_scenes(dev, learn, smi)
-    launches = {k: launches[k] + n[k] for k in KERNELS}
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     torch.cuda.empty_cache()
     n, cli_report = phase_cli(dev, smi)
-    launches = {k: launches[k] + n[k] for k in KERNELS}
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     torch.cuda.empty_cache()
     n, self_report = phase_selfsup(dev, plain_self, smi)
-    launches = {k: launches[k] + n[k] for k in KERNELS}
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
     del plain_self
     torch.cuda.empty_cache()
     depth_report = phase_depth(dev, smi)
@@ -4013,17 +4487,23 @@ def main() -> int:
     # serving kernels report per request over the task paths of their path
     # (and carry their training numbers apart); backward kernels per
     # training step of task 0's stage, the configuration that runs them all
+    # the bf16 instances: per bf16 request (task 0's path) and per bf16
+    # step of task 0's stage
     report = []
-    for name, k in KERNELS.items():
+    for name, k in ALL_KERNELS.items():
         p = k["path"]
-        train0 = {"task0": train_calls[p]["task0"]}
+        bf = name in BF16_KERNELS
+        train0 = {"task0": (bf16_train_calls if bf else train_calls)[p][
+            "task0"]}
+        serving = bf16_calls[p] if bf else calls[p]
         entry = {"name": name, "route": "cuda", "source": k["source"],
                  "replaces": k["replaces"],
                  "launches": launches[name],
                  "max_abs_err": k["max_err"],
-                 **kernel_numbers(results, calls[p] if k["serving"]
+                 **kernel_numbers(results, serving if k["serving"]
                                   else train0, name),
-                 "path": p, "status": "ok"}
+                 "path": p, "dtype": "bfloat16" if bf else "float32",
+                 "status": "ok"}
         if k["serving"]:
             entry["train_step"] = kernel_numbers(results, train0, name)
         if k.get("per_shape"):
@@ -4059,6 +4539,7 @@ def main() -> int:
     print(json.dumps({"dp": dp}))
     print(json.dumps({"sp": sp}))
     print(json.dumps({"scenes": scenes}))
+    print(json.dumps({"bf16": bf16_report}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,9 +29,10 @@ the mesh; rank 0 logs and writes the checkpoints and result.json. Where
 a process group is already initialized (a launcher started the ranks),
 ``main`` runs as its rank instead. A mesh beyond the visible devices
 raises ValueError. ``--scene-parallel-search`` runs every scene's cell
-search at once before the task loop (search.scene_parallel). The flag of
-the part not ported yet, ``--bf16``, raises NotImplementedError before
-any work.
+search at once before the task loop (search.scene_parallel). ``--bf16``
+stores the activations in bfloat16 (``ops.precision.Precision(
+torch.bfloat16)`` in the config, and for ``--eval-only``), as rag_tpu's
+flag sets its compute dtype.
 
 The styled synthetic scenes take WEATHER_STYLES[t % 4], as in rag_tpu, so
 scenes t and t + 4 share a style.
@@ -46,8 +47,6 @@ import time
 
 import numpy as np
 import torch
-
-UNPORTED = "not ported yet (ROADMAP.md Queue 1 item {})"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -163,14 +162,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fixed task path for --eval-only (default: task 0; "
                         "with --use-router: per-frame routed)")
     p.add_argument("--use-router", action="store_true")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16-at-rest mixed precision for the activations "
+                        "(float32 accumulation, parameters and statistics; "
+                        "rag_tpu_torch.ops.precision)")
     return p
 
 
-def check_ported(args) -> None:
-    """NotImplementedError for a flag whose part is not ported yet."""
-    if args.bf16:
-        raise NotImplementedError("--bf16: " + UNPORTED.format(11))
+def precision_of(args):
+    """The run's ops.precision.Precision: bfloat16 activations with
+    --bf16, else float32."""
+    from rag_tpu_torch.ops.precision import Precision
+
+    return Precision(torch.bfloat16) if args.bf16 else Precision()
 
 
 def visible_devices(device) -> int:
@@ -227,7 +231,8 @@ def eval_only(args, device="cuda"):
                   "Falling back to task-0 paths.")
         else:
             print(f"loaded Scene Router ({router.num_tasks} tasks)")
-    engine = RoutedInference(net, router, maxdisp=args.maxdisp, device=device)
+    engine = RoutedInference(net, router, maxdisp=args.maxdisp, device=device,
+                             precision=precision_of(args))
 
     if args.eval_lists:
         from rag_tpu_torch.data.stereo_dataset import StereoDataset
@@ -277,7 +282,7 @@ def depth_eval_only(args, net, device="cuda"):
             args.synthetic_size, h, w, seed=123, device=device))]
 
     specs, params, stats = net.path(net.archis[args.eval_task or 0])
-    step = make_depth_eval_step(specs)
+    step = make_depth_eval_step(specs, precision=precision_of(args))
     results = {}
     for name, ds in datasets:
         v = AverageMeterDict().update_batched(
@@ -423,6 +428,7 @@ def make_config(args):
         mesh_data=mesh_shape(args)[0],
         mesh_model=mesh_shape(args)[1],
         scene_parallel_search=args.scene_parallel_search,
+        precision=precision_of(args),
         **extra,
     )
 
@@ -497,7 +503,6 @@ def main(argv=None, device="cuda", driver_cls=None, log=print):
     import torch.distributed as dist
 
     args = build_parser().parse_args(argv)
-    check_ported(args)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("rag_tpu_torch.cli runs on a CUDA device and none "
                            "is available; main(argv, device='cpu') runs it "

@@ -93,11 +93,13 @@ class DepthContinualDriver(ContinualDriver):
 
     def _ft_steps(self, specs, trainable, optimizer):
         mesh = self._mesh_for(self.cfg.train.batch, "fine-tune")
-        return (make_depth_train_step(specs, trainable, optimizer, mesh=mesh),
-                make_depth_eval_step(specs, mesh=mesh))
+        return (make_depth_train_step(specs, trainable, optimizer, mesh=mesh,
+                                      precision=self.cfg.precision),
+                make_depth_eval_step(specs, mesh=mesh,
+                                     precision=self.cfg.precision))
 
     def _eval_step_for(self, specs):
-        return make_depth_eval_step(specs)
+        return make_depth_eval_step(specs, precision=self.cfg.precision)
 
     @staticmethod
     def _batch_args(b):

@@ -101,6 +101,7 @@ from rag_tpu_torch.continual.state import (
 from rag_tpu_torch.metrics.meters import AverageMeterDict, ForgettingMatrix
 from rag_tpu_torch.models.growable import GrowableStereoNet
 from rag_tpu_torch.models.router import SceneRouter
+from rag_tpu_torch.ops.precision import Precision
 from rag_tpu_torch.ops.variants import KernelVariants
 from rag_tpu_torch.parallel.mesh import barrier, make_mesh, replicate
 from rag_tpu_torch.search.genotype import Genotype, default_genotype
@@ -146,6 +147,8 @@ class ExperimentConfig:
     mesh_model: int = 1
     # every scene's cell search at once, before the task loop
     scene_parallel_search: bool = False
+    # the activations' storage dtypes of every step (ops.precision; --bf16)
+    precision: Precision = Precision()
 
 
 def _arch_key(specs):
@@ -348,13 +351,16 @@ class ContinualDriver:
                               dp_only=False)
         return (make_train_step(specs, trainable, optimizer,
                                 maxdisp=self.cfg.maxdisp,
-                                variants=self.variants, mesh=mesh),
+                                variants=self.variants, mesh=mesh,
+                                precision=self.cfg.precision),
                 make_eval_step(specs, maxdisp=self.cfg.maxdisp,
-                               variants=self.variants, mesh=mesh))
+                               variants=self.variants, mesh=mesh,
+                               precision=self.cfg.precision))
 
     def _eval_step_for(self, specs):
         return make_eval_step(specs, maxdisp=self.cfg.maxdisp,
-                              variants=self.variants)
+                              variants=self.variants,
+                              precision=self.cfg.precision)
 
     @staticmethod
     def _batch_args(b):
@@ -387,13 +393,15 @@ class ContinualDriver:
                                   maxdisp=self.cfg.maxdisp)
         return self._cell_search_cls()(
             cfg, log=self.log, device=self.device, variants=self.variants,
-            mesh=self._mesh_for(cfg.batch, "cell-search"))
+            mesh=self._mesh_for(cfg.batch, "cell-search"),
+            precision=self.cfg.precision)
 
     def _op_search(self) -> OpSearch:
         cfg = self._op_search_cfg()
         return OpSearch(self.net, cfg, log=self.log, variants=self.variants,
                         variant=self._op_search_variant(),
-                        mesh=self._mesh_for(cfg.batch, "op-search"))
+                        mesh=self._mesh_for(cfg.batch, "op-search"),
+                        precision=self.cfg.precision)
 
     def _grow(self, t: int, genotype) -> None:
         """Task 0: a new net; t > 0: expand it. Drawn from seed + 31 t."""
@@ -423,7 +431,7 @@ class ContinualDriver:
             num_scenes=n, log=self.log,
             scene_seeds=[self.cfg.cell.seed + t for t in range(n)],
             device=self.device, variants=self.variants,
-            search_cls=self._cell_search_cls())
+            search_cls=self._cell_search_cls(), precision=self.cfg.precision)
         genos = self._replicate(sp.search(list(train_datasets[:n]),
                                           writer=self.writer))
         self._pre_genotypes = dict(enumerate(genos))

@@ -18,6 +18,7 @@ from rag_tpu_torch.metrics.meters import AverageMeterDict
 from rag_tpu_torch.models.growable import GrowableStereoNet
 from rag_tpu_torch.models.router import SceneRouter
 from rag_tpu_torch.models.stereo import stereo_forward
+from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.train.trainer import make_eval_step
 
@@ -28,16 +29,20 @@ class RoutedInference:
     The net's and the router's tensors are moved to ``device``; inputs are
     numpy arrays or tensors (B,H,W,3) and go to the same device once.
     ``variants`` picks the optional kernels every request runs (see
-    ops.variants)."""
+    ops.variants), ``precision`` the activations' dtypes (ops.precision;
+    the router and the disparity stay float32)."""
 
     def __init__(self, net: GrowableStereoNet,
                  router: Optional[SceneRouter] = None, maxdisp: int = 192,
-                 device="cuda", variants: KernelVariants = DEFAULT):
+                 device="cuda", variants: KernelVariants = DEFAULT,
+                 precision: Precision = FP32):
+        variants.check(precision)
         self.device = torch.device(device)
         self.net = net.to(self.device)
         self.router = None if router is None else router.to(self.device)
         self.maxdisp = maxdisp
         self.variants = variants
+        self.precision = precision
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
@@ -63,7 +68,8 @@ class RoutedInference:
     def _predict_task(self, t: int, left, right) -> np.ndarray:
         specs, params, stats = self.net.path(self.net.archis[t])
         disp, _ = stereo_forward(specs, params, stats, left, right,
-                                 maxdisp=self.maxdisp, variants=self.variants)
+                                 maxdisp=self.maxdisp, variants=self.variants,
+                                 precision=self.precision)
         return disp.cpu().numpy()
 
     def predict(self, left, right, task: Optional[int] = None) -> np.ndarray:
@@ -91,6 +97,7 @@ class RoutedInference:
             for t, _, (left, right, gt) in self._groups(tasks, *frames):
                 specs, params, stats = self.net.path(self.net.archis[t])
                 step = make_eval_step(specs, maxdisp=self.maxdisp,
-                                      variants=self.variants)
+                                      variants=self.variants,
+                                      precision=self.precision)
                 outs.append(step(params, stats, left, right, gt))
         return AverageMeterDict().update_batched(outs).mean()

@@ -80,9 +80,11 @@ class SelfSupContinualDriver(ContinualDriver):
         mesh = self._mesh_for(self.cfg.train.batch, "fine-tune")
         return (make_selfsup_train_step(specs, trainable, optimizer,
                                         maxdisp=self.cfg.maxdisp,
-                                        variants=self.variants, mesh=mesh),
+                                        variants=self.variants, mesh=mesh,
+                                        precision=self.cfg.precision),
                 make_eval_step(specs, maxdisp=self.cfg.maxdisp,
-                               variants=self.variants, mesh=mesh))
+                               variants=self.variants, mesh=mesh,
+                               precision=self.cfg.precision))
 
     def _ft_tag(self) -> str:
         return "selfsup"
@@ -121,7 +123,8 @@ class SelfSupContinualDriver(ContinualDriver):
         step = make_train_step(specs, trainable, optimizer,
                                maxdisp=cfg.maxdisp, variants=self.variants,
                                mesh=self._mesh_for(cfg.pretrain_batch,
-                                                   "pretrain"))
+                                                   "pretrain"),
+                               precision=cfg.precision)
         opt_state = optimizer.init(params)
         for epoch in range(cfg.pretrain_epochs):
             lr = cosine_lr(cfg.pretrain_lr, cfg.pretrain_epochs, epoch)

@@ -1,7 +1,8 @@
 // Kernel A: 3x3x3 stride-1 conv + per-channel affine + optional ReLU on a
-// stored channel-first (B, D, Cin, H, W) fp32 volume, on the engine of
-// conv3d.cuh (a 3xTF32 implicit GEMM on the tensor cores), and kernel H,
-// the same engine with four output planes a block.
+// stored channel-first (B, D, Cin, H, W) volume, float32 or bf16 (the
+// output in the input's type), on the engine of conv3d.cuh (a 3xTF32
+// implicit GEMM on the tensor cores), and kernel H, the same engine with
+// four output planes a block.
 //
 // Replaces the TPU kernel rag_tpu/ops/pallas_conv3d.py::_conv3d_pallas_cf
 // (bodies _conv3d_kernel through _conv3d_v2_pre, and the H-tiled
@@ -13,16 +14,18 @@
 // Bound: operations (conv3d.cuh).
 #include "conv3d.cuh"
 
-// x (B, D, Cin, H, W), w (3, 3, 3, Cin, Cout), scale and bias (Cout,), out
-// (B, D, Cout, H, W); the plan's integers and frag as conv_setup says.
-extern "C" int rag_conv3d_brc_cf(const void* x, const void* w, void* frag,
-                                 const void* scale, const void* bias,
-                                 void* out, int B, int D, int Cin, int H,
-                                 int W, int Cout, int relu, int mt, int nt,
-                                 int tw, int n_split, int cc, int db,
-                                 void* stream) {
-  const rag::VolumeSrc src{static_cast<const float*>(x), W};
-  ConvArgs<rag::VolumeSrc> a;
+namespace {
+
+// x (B, D, Cin, H, W) and out (B, D, Cout, H, W) of element type Elem, w
+// (3, 3, 3, Cin, Cout), scale and bias (Cout,) float32; the plan's integers
+// and frag as conv_setup says.
+template <class Elem>
+int conv3d_entry(const void* x, const void* w, void* frag, const void* scale,
+                 const void* bias, void* out, int B, int D, int Cin, int H,
+                 int W, int Cout, int relu, int mt, int nt, int tw,
+                 int n_split, int cc, int db, void* stream) {
+  const rag::VolumeSrc<Elem> src{static_cast<const Elem*>(x), W};
+  ConvArgs<rag::VolumeSrc<Elem>> a;
   dim3 grid;
   int smem = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -48,6 +51,31 @@ extern "C" int rag_conv3d_brc_cf(const void* x, const void* w, void* frag,
   RAG_CONV_CASE(2, 3, 4)
 #undef RAG_CONV_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int rag_conv3d_brc_cf(const void* x, const void* w, void* frag,
+                                 const void* scale, const void* bias,
+                                 void* out, int B, int D, int Cin, int H,
+                                 int W, int Cout, int relu, int mt, int nt,
+                                 int tw, int n_split, int cc, int db,
+                                 void* stream) {
+  return conv3d_entry<float>(x, w, frag, scale, bias, out, B, D, Cin, H, W,
+                             Cout, relu, mt, nt, tw, n_split, cc, db, stream);
+}
+
+// The same with x and out bf16.
+extern "C" int rag_conv3d_brc_cf_bf16(const void* x, const void* w,
+                                      void* frag, const void* scale,
+                                      const void* bias, void* out, int B,
+                                      int D, int Cin, int H, int W, int Cout,
+                                      int relu, int mt, int nt, int tw,
+                                      int n_split, int cc, int db,
+                                      void* stream) {
+  return conv3d_entry<rag::bf16>(x, w, frag, scale, bias, out, B, D, Cin, H,
+                                 W, Cout, relu, mt, nt, tw, n_split, cc, db,
+                                 stream);
 }
 
 // Kernel A's first pass alone, for holding it against pack_weights_tf32.

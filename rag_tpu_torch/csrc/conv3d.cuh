@@ -71,6 +71,16 @@
 //     a time. A block skips the stages of planes p > w0 + tw, which are
 //     zero under its whole tile and halo (their products are zeros: the
 //     sums are the same bits).
+//   * bf16 at rest (rag_tpu_torch/ops/precision.py): the input volume (or
+//     the two feature maps) and the output may be bf16 (the policy's Elem).
+//     A bf16 slab is staged widened to float32 by register loads, 4 bytes
+//     of shared memory per element (cp.async copies bytes and cannot
+//     widen), so the split, the 3xTF32 products and the sums are the
+//     float32 path's (a bf16 value is exact in TF32: its lo part is 0); the
+//     epilogue rounds to bf16 (__float2bfloat16_rn). The packed weights,
+//     scale and bias stay float32, as rag_tpu/ops/pallas_conv3d.py keeps
+//     them. Giving up cp.async for bf16 is the simple form; a fast one
+//     would copy the half-size slab and widen it in shared memory.
 // The tensor cores' mma.sync TF32 rate, not the float32 FMA rate, bounds
 // the design (3 products per multiply-add); wgmma, which reaches the full
 // TF32 rate, is later work.
@@ -100,7 +110,7 @@ struct ConvArgs {
   const float4* wfrag;  // (n_split, 3 * n_cc, ksteps, NT, 32) fragments
   const float* scale;
   const float* bias;
-  float* out;
+  typename Src::T* out;  // in the input's element type
   int D, Cin, H, W, Cout;
   int tw, th, n_wt, n_split, cc, n_cc, ksteps, cs, relu;
   int vec;  // rows copied in 16-byte pieces
@@ -197,6 +207,7 @@ int launch_pack(const float* w, float4* frag, long long n_frag, int Cin,
 template <int MT, int NT, int DB, class Src>
 __global__ void __launch_bounds__(kThreads)
 conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
+  using Elem = typename Src::T;
   extern __shared__ __align__(16) float smem[];
   const int sw = slab_width(a.tw), sh = a.th + 2;
   const int buf_floats = a.cc * a.cs;
@@ -231,12 +242,14 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
   }
 
   // 16-byte copies where every staged row starts on a 16-byte boundary
-  const float* x = a.src.x;  // the stored volume, or X (and a global
-                             // address for zero fills)
-  const bool vec = Src::kCostVolume
-                       ? a.vec != 0
-                       : a.W % 4 == 0 &&
-                             (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // (float32 only)
+  const Elem* x = a.src.x;  // the stored volume, or X (and a global
+                            // address for zero fills)
+  const bool vec = rag::kF32<Elem> &&
+                   (Src::kCostVolume
+                        ? a.vec != 0
+                        : a.W % 4 == 0 &&
+                              (reinterpret_cast<uintptr_t>(x) & 15) == 0);
   const int cpr = sw / 4;    // 16-byte chunks per row
   const int rpi = 32 / cpr;  // rows per warp pass (vec)
   const int lane_row = lane / cpr, lane_q = lane % cpr;
@@ -256,58 +269,62 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
     const int n_rows = a.cc * sh;
     if constexpr (Src::kCostVolume) {
       // the policy's rows (volume_src.cuh)
+      if constexpr (rag::kF32<Elem>) {
+        if (vec) {
+          if (lane_row >= rpi) return;
+          const int step = kWarps * rpi;
+          int row = warp * rpi + lane_row;
+          int ci = row / sh, r = row - ci * sh;
+          for (; row < n_rows; row += step) {
+            rag::stage_piece(dst + ci * a.cs + r * sw + 4 * lane_q,
+                             a.src.row(b, p, c0 + ci, h0 - 1 + r),
+                             w0 - 4 + 4 * lane_q, x);
+            for (r += step; r >= sh; r -= sh) ++ci;
+          }
+          return;
+        }
+      }
+      for (int row = warp; row < n_rows; row += kWarps) {
+        const int ci = row / sh, r = row - ci * sh;
+        const rag::SrcRow<Elem> src = a.src.row(b, p, c0 + ci, h0 - 1 + r);
+        float* dst_row = dst + ci * a.cs + r * sw;
+        for (int col = lane; col < sw; col += 32)
+          rag::stage_col(dst_row + col, src, w0 - 4 + col, x);
+      }
+      return;
+    }
+    const size_t plane = ((size_t)b * a.D + p) * a.Cin;
+    if constexpr (rag::kF32<Elem>) {
       if (vec) {
         if (lane_row >= rpi) return;
         const int step = kWarps * rpi;
         int row = warp * rpi + lane_row;
         int ci = row / sh, r = row - ci * sh;
         for (; row < n_rows; row += step) {
-          rag::stage_piece(dst + ci * a.cs + r * sw + 4 * lane_q,
-                           a.src.row(b, p, c0 + ci, h0 - 1 + r),
-                           w0 - 4 + 4 * lane_q, x);
+          const int h = h0 - 1 + r;
+          const int w = w0 - 4 + 4 * lane_q;
+          const bool ok = c0 + ci < a.Cin && h >= 0 && h < a.H && w >= 0 &&
+                          w < a.W;
+          const float* src =
+              ok ? x + ((plane + c0 + ci) * a.H + h) * (size_t)a.W + w : x;
+          cp_async16(dst + ci * a.cs + r * sw + 4 * lane_q, src, ok);
           for (r += step; r >= sh; r -= sh) ++ci;
         }
-      } else {
-        for (int row = warp; row < n_rows; row += kWarps) {
-          const int ci = row / sh, r = row - ci * sh;
-          const rag::SrcRow src = a.src.row(b, p, c0 + ci, h0 - 1 + r);
-          float* dst_row = dst + ci * a.cs + r * sw;
-          for (int col = lane; col < sw; col += 32)
-            rag::stage_col(dst_row + col, src, w0 - 4 + col, x);
-        }
+        return;
       }
-      return;
     }
-    const size_t plane = ((size_t)b * a.D + p) * a.Cin;
-    if (vec) {
-      if (lane_row >= rpi) return;
-      const int step = kWarps * rpi;
-      int row = warp * rpi + lane_row;
-      int ci = row / sh, r = row - ci * sh;
-      for (; row < n_rows; row += step) {
-        const int h = h0 - 1 + r;
-        const int w = w0 - 4 + 4 * lane_q;
-        const bool ok = c0 + ci < a.Cin && h >= 0 && h < a.H && w >= 0 &&
-                        w < a.W;
-        const float* src =
-            ok ? x + ((plane + c0 + ci) * a.H + h) * (size_t)a.W + w : x;
-        cp_async16(dst + ci * a.cs + r * sw + 4 * lane_q, src, ok);
-        for (r += step; r >= sh; r -= sh) ++ci;
-      }
-    } else {
-      for (int row = warp; row < n_rows; row += kWarps) {
-        const int ci = row / sh, r = row - ci * sh;
-        const int h = h0 - 1 + r;
-        const bool row_ok = c0 + ci < a.Cin && h >= 0 && h < a.H;
-        const float* src =
-            x + ((plane + (row_ok ? c0 + ci : 0)) * a.H + (row_ok ? h : 0)) *
-                    (size_t)a.W;
-        float* dst_row = dst + ci * a.cs + r * sw;
-        for (int col = lane; col < sw; col += 32) {
-          const int w = w0 - 4 + col;
-          const bool ok = row_ok && w >= 0 && w < a.W;
-          cp_async4(dst_row + col, ok ? src + w : x, ok);
-        }
+    for (int row = warp; row < n_rows; row += kWarps) {
+      const int ci = row / sh, r = row - ci * sh;
+      const int h = h0 - 1 + r;
+      const bool row_ok = c0 + ci < a.Cin && h >= 0 && h < a.H;
+      const Elem* src =
+          x + ((plane + (row_ok ? c0 + ci : 0)) * a.H + (row_ok ? h : 0)) *
+                  (size_t)a.W;
+      float* dst_row = dst + ci * a.cs + r * sw;
+      for (int col = lane; col < sw; col += 32) {
+        const int w = w0 - 4 + col;
+        const bool ok = row_ok && w >= 0 && w < a.W;
+        rag::stage1(dst_row + col, ok ? src + w : x, ok);
       }
     }
   };
@@ -406,7 +423,7 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
                            __ldg(a.bias + co));
             if (a.relu) y = fmaxf(y, 0.f);
             a.out[((((size_t)b * a.D + d) * a.Cout + co) * a.H + h) * a.W +
-                  w] = y;
+                  w] = rag::to_elem<Elem>(y);
           }
         }
       }
@@ -447,7 +464,7 @@ int conv_setup(ConvArgs<Src>& a, dim3& grid, int& smem, const Src& src,
   a.wfrag = static_cast<const float4*>(frag);
   a.scale = static_cast<const float*>(scale);
   a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
+  a.out = static_cast<typename Src::T*>(out);
   a.D = D, a.Cin = Cin, a.H = H, a.W = W, a.Cout = Cout;
   a.tw = tw, a.th = 64 * mt / tw;
   a.n_wt = (W + tw - 1) / tw;

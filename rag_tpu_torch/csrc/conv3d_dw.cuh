@@ -61,7 +61,12 @@
 //     whole run writes a partial of zeros;
 //   * the sum pass keeps eight loads in flight per thread: each of eight
 //     warps adds one contiguous segment of partials in partial order, then
-//     the segments are added in segment order.
+//     the segments are added in segment order;
+//   * bf16 at rest (rag_tpu_torch/ops/precision.py): x (or the feature
+//     maps) and dz may be bf16 (the policy's Elem). Their rows are staged
+//     widened to float32 by register loads (cp.async cannot widen), so the
+//     products and sums are the float32 path's; dW accumulates and is
+//     stored in float32, as rag_tpu/ops/pallas_conv3d.py's dW kernel does.
 #pragma once
 
 #include <climits>
@@ -85,7 +90,7 @@ constexpr int kSegs = 8;          // DW_SEGS: warps of the sum pass's block
 template <class Src>
 struct DwArgs {
   Src src;  // the (B, D, Cin, H, W) input
-  const float* dz;
+  const typename Src::T* dz;  // in the input's element type
   float* partial;  // (n_pos, 27, Cin, Cout)
   int D, Cin, Cout, H, W;
   int ci, groups, th, tw, db, n_dc, n_ht, n_wt;
@@ -110,11 +115,13 @@ __device__ __forceinline__ float dot4(float a, float b, float c, float d,
 // n_chan channels of rpc rows each, row r of a channel read at h = h_lo + r
 // and columns w_lo .. w_lo + cols - 1, into dst at the given pitches. Zero
 // where the plane, channel (>= chan_limit), row or column lies outside.
-// With vec, 16-byte copies (w_lo % 4 == 0, W % 4 == 0).
+// With vec (float32 only), 16-byte copies (w_lo % 4 == 0, W % 4 == 0);
+// else one element at a time (stage1: widened from bf16).
+template <class Elem>
 __device__ __forceinline__ void stage_rows(
-    float* dst, const float* plane, bool plane_ok, int n_chan, int rpc,
+    float* dst, const Elem* plane, bool plane_ok, int n_chan, int rpc,
     int chan_limit, int h_lo, int w_lo, int cols, int chan_pitch,
-    int row_pitch, int H, int W, bool vec, const float* any) {
+    int row_pitch, int H, int W, bool vec, const Elem* any) {
   const int e = vec ? 4 : 1;
   const int cpr = cols / e;  // copies per row
   const int t = threadIdx.x, n = blockDim.x;
@@ -133,26 +140,31 @@ __device__ __forceinline__ void stage_rows(
     while (chan < n_chan) {
       const int h = h_lo + r;
       const bool ok = w_ok && chan < chan_limit && h >= 0 && h < H;
-      const float* src = ok ? plane + ((size_t)chan * H + h) * W + w : any;
+      const Elem* src = ok ? plane + ((size_t)chan * H + h) * W + w : any;
       float* d = dst + chan * chan_pitch + r * row_pitch + e * q;
-      if (vec)
-        cp_async16(d, src, ok);
-      else
-        cp_async4(d, src, ok);
+      if constexpr (rag::kF32<Elem>) {
+        if (vec) {
+          cp_async16(d, src, ok);
+        } else {
+          cp_async4(d, src, ok);
+        }
+      } else {
+        rag::stage1(d, src, ok);
+      }
       for (r += rstep; r >= rpc; r -= rpc) ++chan;
     }
   }
 }
 
 // The same walk over rows whose source row_of(chan, r) gives (the cost
-// volume's policy, volume_src.cuh), copied by stage_piece with vec, else
-// by stage_col.
-template <class RowOf>
+// volume's policy, volume_src.cuh), copied by stage_piece with vec
+// (float32 only), else by stage_col.
+template <class Elem, class RowOf>
 __device__ __forceinline__ void stage_src_rows(float* dst, RowOf row_of,
                                                int n_chan, int rpc, int w_lo,
                                                int cols, int chan_pitch,
                                                int row_pitch, bool vec,
-                                               const float* any) {
+                                               const Elem* any) {
   const int e = vec ? 4 : 1;
   const int cpr = cols / e;
   const int t = threadIdx.x, n = blockDim.x;
@@ -167,10 +179,15 @@ __device__ __forceinline__ void stage_src_rows(float* dst, RowOf row_of,
     int chan = row0 / rpc, r = row0 - chan * rpc;
     while (chan < n_chan) {
       float* d = dst + chan * chan_pitch + r * row_pitch + e * q;
-      if (vec)
-        rag::stage_piece(d, row_of(chan, r), w, any);
-      else
+      if constexpr (rag::kF32<Elem>) {
+        if (vec) {
+          rag::stage_piece(d, row_of(chan, r), w, any);
+        } else {
+          rag::stage_col(d, row_of(chan, r), w, any);
+        }
+      } else {
         rag::stage_col(d, row_of(chan, r), w, any);
+      }
       for (r += rstep; r >= rpc; r -= rpc) ++chan;
     }
   }
@@ -214,6 +231,7 @@ conv3d_dw_kernel(const DwArgs<Src> a) {
   const int kh0 = KH == 1 ? o_kd % 3 : 0;
   const int rpg = a.th / a.groups;
 
+  using Elem = typename Src::T;
   const bool vec = a.vec != 0;
   const size_t hw = (size_t)a.H * a.W;
   // input plane p (-1 .. D) into slot (p - d0 + 1) mod 4
@@ -226,7 +244,7 @@ conv3d_dw_kernel(const DwArgs<Src> a) {
           a.ci, a.th + 2, w0 - 4, a.tw + 8, a.cs, a.rs, vec, a.dz);
     } else {
       const bool ok = p >= 0 && p < a.D;
-      const float* src =
+      const Elem* src =
           a.src.x + (((size_t)b * a.D + (ok ? p : 0)) * a.Cin + ci0) * hw;
       stage_rows(dst, src, ok, a.ci, a.th + 2, a.Cin - ci0, h0 - 1, w0 - 4,
                  a.tw + 8, a.cs, a.rs, a.H, a.W, vec, a.src.x);
@@ -234,7 +252,7 @@ conv3d_dw_kernel(const DwArgs<Src> a) {
   };
   // dz of output plane d (d0 .. d0 + n_planes - 1) into slot (d - d0) mod 2
   auto stage_dz = [&](int d) {
-    const float* src =
+    const Elem* src =
         a.dz + (((size_t)b * a.D + d) * a.Cout + co0) * hw;
     stage_rows(s_dz + ((d - d0) & 1) * CO_T * dz_chan, src, true, CO_T,
                a.th, a.Cout - co0, h0, w0, a.tw, dz_chan, a.dzp, a.H, a.W,
@@ -398,9 +416,9 @@ int launch_partial(const DwArgs<Src>& a, dim3 grid, int threads, int smem,
 // one written by the first pass. The blocking (ci, co_t, kh_t, groups, th,
 // tw, db) is ops/conv3d.py::DwPlan's. Returns a cudaError_t.
 template <class Src>
-int dw_run(const Src& src, const float* dz, float* partial, float* out, int B,
-           int D, int Cin, int Cout, int H, int W, int ci, int co_t, int kh_t,
-           int groups, int th, int tw, int db, int passes,
+int dw_run(const Src& src, const typename Src::T* dz, float* partial,
+           float* out, int B, int D, int Cin, int Cout, int H, int W, int ci,
+           int co_t, int kh_t, int groups, int th, int tw, int db, int passes,
            cudaStream_t stream) {
   if (B <= 0 || D <= 0 || Cin <= 0 || Cout <= 0 || H <= 0 || W <= 0 ||
       ci <= 0 || ci > kMaxCi || (kh_t != 1 && kh_t != 3) || groups <= 0 ||

@@ -1,5 +1,6 @@
 // Kernel B: the concat cost volume fused into the matching stem's 3x3x3
-// conv + folded BatchNorm affine + ReLU, on kernel A's engine (conv3d.cuh:
+// conv + folded BatchNorm affine + ReLU, features and output float32 or
+// bf16, on kernel A's engine (conv3d.cuh:
 // a 3xTF32 implicit GEMM on the tensor cores) with the cost-volume input
 // policy (volume_src.cuh). The (B, D, 2C, H, W) volume is never stored:
 // each stage's haloed slab of it lands in shared memory straight from the
@@ -19,19 +20,21 @@
 // to two n-tiles (ops/cvstem.py::cvstem_plan).
 #include "conv3d.cuh"
 
-// x, y (B, C, H, W) features, w (3, 3, 3, 2C, Cout), scale and bias
-// (Cout,), out (B, num_disp, Cout, H, W); the plan's integers and frag as
-// conv_setup says, at Cin = 2C.
-extern "C" int rag_cvstem_brc(const void* x, const void* y, const void* w,
-                              void* frag, const void* scale, const void* bias,
-                              void* out, int B, int C, int H, int W,
-                              int num_disp, int Cout, int relu, int mt, int nt,
-                              int tw, int n_split, int cc, int db,
-                              void* stream) {
-  const rag::CostVolumeSrc src{static_cast<const float*>(x),
-                               static_cast<const float*>(y), num_disp, C, H,
-                               W};
-  ConvArgs<rag::CostVolumeSrc> a;
+namespace {
+
+// x, y (B, C, H, W) features and out (B, num_disp, Cout, H, W) of element
+// type Elem (float32 or bf16), w (3, 3, 3, 2C, Cout), scale and bias
+// (Cout,) float32; the plan's integers and frag as conv_setup says, at
+// Cin = 2C.
+template <class Elem>
+int cvstem_entry(const void* x, const void* y, const void* w, void* frag,
+                 const void* scale, const void* bias, void* out, int B, int C,
+                 int H, int W, int num_disp, int Cout, int relu, int mt,
+                 int nt, int tw, int n_split, int cc, int db, void* stream) {
+  const rag::CostVolumeSrc<Elem> src{static_cast<const Elem*>(x),
+                                     static_cast<const Elem*>(y), num_disp, C,
+                                     H, W};
+  ConvArgs<rag::CostVolumeSrc<Elem>> a;
   dim3 grid;
   int smem = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -52,4 +55,30 @@ extern "C" int rag_cvstem_brc(const void* x, const void* y, const void* w,
   RAG_CONV_CASE(4, 1, 4)
 #undef RAG_CONV_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int rag_cvstem_brc(const void* x, const void* y, const void* w,
+                              void* frag, const void* scale, const void* bias,
+                              void* out, int B, int C, int H, int W,
+                              int num_disp, int Cout, int relu, int mt, int nt,
+                              int tw, int n_split, int cc, int db,
+                              void* stream) {
+  return cvstem_entry<float>(x, y, w, frag, scale, bias, out, B, C, H, W,
+                             num_disp, Cout, relu, mt, nt, tw, n_split, cc,
+                             db, stream);
+}
+
+// The same with x, y and out bf16.
+extern "C" int rag_cvstem_brc_bf16(const void* x, const void* y,
+                                   const void* w, void* frag,
+                                   const void* scale, const void* bias,
+                                   void* out, int B, int C, int H, int W,
+                                   int num_disp, int Cout, int relu, int mt,
+                                   int nt, int tw, int n_split, int cc, int db,
+                                   void* stream) {
+  return cvstem_entry<rag::bf16>(x, y, w, frag, scale, bias, out, B, C, H, W,
+                                 num_disp, Cout, relu, mt, nt, tw, n_split,
+                                 cc, db, stream);
 }

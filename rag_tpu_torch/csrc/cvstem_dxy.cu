@@ -42,13 +42,17 @@
 // NVIDIA H100 80GB HBM3 at 700 W, train shape, two runs): 1.134 and 1.097
 // ms, against 1.136 and 1.147 with chunks of 8 and 1.226 and 1.209 with 4
 // (the staged halo planes weigh more); the workspace is then 12.6 MB.
+//
+// bf16 at rest (rag_tpu_torch/ops/precision.py): dz may be bf16, staged
+// widened to float32 by register loads (cp.async cannot widen); the sums
+// and the partials are float32, and dX and dY are stored in dz's type (the
+// features' dtype under the policy), as rag_tpu's VJP casts them.
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
 
 namespace {
 
-using rag::cp_async4;
 using rag::cp_async_commit;
 using rag::cp_async_wait_all_but_one;
 
@@ -65,8 +69,9 @@ constexpr int kPitch = 80;           // row pitch: 80 % 32 == 16 keeps the
 // Issue the copies of dz plane q, channels c0 .. c0+kc-1, rows h0-1 ..
 // h0+kTY, columns col0 .. col0+kSW-1 into one ring slot [kc][kSH][kPitch];
 // what lies outside the volume is zero-filled. Plane q must be in [0, D).
+template <class Elem>
 __device__ __forceinline__ void stage_plane(float* slot,
-                                            const float* __restrict__ dz,
+                                            const Elem* __restrict__ dz,
                                             int b, int q, int c0, int kc,
                                             int D, int Cout, int H, int W,
                                             int h0, int col0) {
@@ -75,14 +80,14 @@ __device__ __forceinline__ void stage_plane(float* slot,
     const int co = row / kSH, r = row % kSH;
     const int h = h0 - 1 + r;
     const bool h_ok = h >= 0 && h < H;
-    const float* src_row =
+    const Elem* src_row =
         dz + ((((size_t)b * D + q) * Cout + c0 + co) * H + (h_ok ? h : 0)) *
                  (size_t)W;
     float* dst_row = slot + (co * kSH + r) * kPitch;
     for (int col = lane; col < kSW; col += 32) {
       const int j = col0 + col;
       const bool ok = h_ok && j >= 0 && j < W;
-      cp_async4(dst_row + col, ok ? src_row + j : dz, ok);
+      rag::stage1(dst_row + col, ok ? src_row + j : dz, ok);
     }
   }
 }
@@ -90,9 +95,9 @@ __device__ __forceinline__ void stage_plane(float* slot,
 // wpk: (2, n_cc, 27, Cout, CT) weights of the X and Y halves, channel chunk
 // cc of each zero-padded to CT. partial: (2, n_chunks, B, C, H, W).
 // Grid: x = n_ht * n_wt, y = n_chunks, z = B * 2 * n_cc.
-template <int CT>
+template <int CT, class Elem>
 __global__ void __launch_bounds__(kThreads)
-cvstem_dxy_partial_kernel(const float* __restrict__ dz,
+cvstem_dxy_partial_kernel(const Elem* __restrict__ dz,
                           const float* __restrict__ wpk,
                           float* __restrict__ partial, int B, int D, int Cout,
                           int C, int H, int W, int n_wt, int chunk,
@@ -207,10 +212,11 @@ cvstem_dxy_partial_kernel(const float* __restrict__ dz,
 }
 
 // dX[i] (i < n) and dY[i - n]: the sum of the half's partials over the
-// chunks, in ascending chunk order.
+// chunks, in ascending chunk order, stored as Elem.
+template <class Elem>
 __global__ void __launch_bounds__(256)
 cvstem_dxy_reduce_kernel(const float* __restrict__ partial,
-                         float* __restrict__ dX, float* __restrict__ dY,
+                         Elem* __restrict__ dX, Elem* __restrict__ dY,
                          long long n, int n_chunks) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= 2 * n) return;
@@ -219,40 +225,39 @@ cvstem_dxy_reduce_kernel(const float* __restrict__ partial,
   const float* p = partial + (size_t)half * n_chunks * n + k;
   float s = 0.f;
   for (int c = 0; c < n_chunks; ++c) s += __ldg(p + (size_t)c * n);
-  (half ? dY : dX)[k] = s;
+  (half ? dY : dX)[k] = rag::to_elem<Elem>(s);
 }
 
-template <int CT>
-int launch(const float* dz, const float* wpk, float* partial, float* dX,
-           float* dY, dim3 grid, int B, int D, int Cout, int C, int H, int W,
+template <int CT, class Elem>
+int launch(const Elem* dz, const float* wpk, float* partial, Elem* dX,
+           Elem* dY, dim3 grid, int B, int D, int Cout, int C, int H, int W,
            int n_wt, int chunk, int n_chunks, int n_cc, int kc,
            cudaStream_t stream) {
   const int smem =
       (27 * kc * CT + 2 * kc * kSH * kPitch) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      cvstem_dxy_partial_kernel<CT>,
+      cvstem_dxy_partial_kernel<CT, Elem>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  cvstem_dxy_partial_kernel<CT><<<grid, kThreads, smem, stream>>>(
+  cvstem_dxy_partial_kernel<CT, Elem><<<grid, kThreads, smem, stream>>>(
       dz, wpk, partial, B, D, Cout, C, H, W, n_wt, chunk, n_chunks, n_cc, kc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long n = (long long)B * C * H * W;
-  cvstem_dxy_reduce_kernel<<<(unsigned)((2 * n + 255) / 256), 256, 0,
-                             stream>>>(partial, dX, dY, n, n_chunks);
+  cvstem_dxy_reduce_kernel<Elem><<<(unsigned)((2 * n + 255) / 256), 256, 0,
+                                   stream>>>(partial, dX, dY, n, n_chunks);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
 
 // The plan's integers (rag_tpu_torch/ops/cvstem.py::dxy_plan): ct channels
 // of the half per block (n_cc blocks cover C), chunk planes per block
 // (n_chunks cover D), kc dz channels staged per pass. partial:
-// 2 * n_chunks * B * C * H * W floats of workspace.
-extern "C" int rag_cvstem_dxy(const void* dz, const void* wpk, void* partial,
-                              void* dX, void* dY, int B, int D, int Cout,
-                              int C, int H, int W, int ct, int n_cc,
-                              int chunk, int n_chunks, int kc, void* stream) {
+// 2 * n_chunks * B * C * H * W floats of workspace. dz, dX and dY of
+// element type Elem.
+template <class Elem>
+int dxy_entry(const void* dz, const void* wpk, void* partial, void* dX,
+              void* dY, int B, int D, int Cout, int C, int H, int W, int ct,
+              int n_cc, int chunk, int n_chunks, int kc, void* stream) {
   if (B <= 0 || D <= 0 || Cout <= 0 || C <= 0 || H <= 0 || W <= 0 ||
       chunk <= 0 || n_chunks <= 0 || kc <= 0 || n_cc <= 0 ||
       (long long)chunk * n_chunks < D || n_cc * ct < C)
@@ -263,11 +268,11 @@ extern "C" int rag_cvstem_dxy(const void* dz, const void* wpk, void* partial,
       (long long)n_wt * n_ht > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n_wt * n_ht, n_chunks, 2 * B * n_cc);
-  const float* zf = static_cast<const float*>(dz);
+  const Elem* zf = static_cast<const Elem*>(dz);
   const float* wf = static_cast<const float*>(wpk);
   float* pf = static_cast<float*>(partial);
-  float* xf = static_cast<float*>(dX);
-  float* yf = static_cast<float*>(dY);
+  Elem* xf = static_cast<Elem*>(dX);
+  Elem* yf = static_cast<Elem*>(dY);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ct) {
 #define RAG_DXY_CASE(N)                                                     \
@@ -281,4 +286,24 @@ extern "C" int rag_cvstem_dxy(const void* dz, const void* wpk, void* partial,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int rag_cvstem_dxy(const void* dz, const void* wpk, void* partial,
+                              void* dX, void* dY, int B, int D, int Cout,
+                              int C, int H, int W, int ct, int n_cc,
+                              int chunk, int n_chunks, int kc, void* stream) {
+  return dxy_entry<float>(dz, wpk, partial, dX, dY, B, D, Cout, C, H, W, ct,
+                          n_cc, chunk, n_chunks, kc, stream);
+}
+
+// The same with dz, dX and dY bf16.
+extern "C" int rag_cvstem_dxy_bf16(const void* dz, const void* wpk,
+                                   void* partial, void* dX, void* dY, int B,
+                                   int D, int Cout, int C, int H, int W,
+                                   int ct, int n_cc, int chunk, int n_chunks,
+                                   int kc, void* stream) {
+  return dxy_entry<rag::bf16>(dz, wpk, partial, dX, dY, B, D, Cout, C, H, W,
+                              ct, n_cc, chunk, n_chunks, kc, stream);
 }

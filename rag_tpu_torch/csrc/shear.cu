@@ -81,6 +81,13 @@
 // that tail. Every output is the sequential ascending-d sum the TPU
 // kernel's d grid computes (its masked adds of 0.0 change nothing); no
 // float atomics, the same bits on every run.
+//
+// bf16 at rest (rag_tpu_torch/ops/precision.py): J takes bf16 tap maps
+// and stores z in bf16 (rounded to nearest even), K takes a bf16 dz and
+// writes dpx and dpy in float32. A bf16 row is staged widened to float32
+// by register loads (cp.async cannot widen), 4 bytes of shared memory an
+// element, so every sum is the float32 path's; J's bf16 instance stores
+// one column at a time (G = 1).
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -173,28 +180,30 @@ __device__ __forceinline__ float shear_elem(const Piece& r, int D, int W,
   return acc;
 }
 
-template <int G>
-__device__ __forceinline__ void store_group(float* dst, const float (&y)[G]) {
+// G columns of an output row (G = 4: float32 only, one 16-byte store).
+template <int G, class Elem>
+__device__ __forceinline__ void store_group(Elem* dst, const float (&y)[G]) {
   if constexpr (G == 4)
     *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
   else
-    *dst = y[0];
+    *dst = rag::to_elem<Elem>(y[0]);
 }
 
 // Stage n columns from `from` of the nine rows at src (one tap map apart)
-// into dst (rows `pitch` apart), 16-byte copies at G = 4.
-template <int G>
+// into dst (rows `pitch` apart), 16-byte copies at G = 4 (float32 only),
+// else one element at a time (widened from bf16).
+template <int G, class Elem>
 __device__ __forceinline__ void stage_rows(float* dst, int pitch,
-                                           const float* src, size_t plane,
+                                           const Elem* src, size_t plane,
                                            int from, int n) {
   const int m = n / G;
   for (int i = threadIdx.x; i < 9 * m; i += blockDim.x) {
     const int r = i / m, q = G * (i - r * m);
-    const float* s = src + r * plane + from + q;
+    const Elem* s = src + r * plane + from + q;
     if constexpr (G == 4)
       rag::cp_async16(dst + r * pitch + q, s, true);
     else
-      rag::cp_async4(dst + r * pitch + q, s, true);
+      rag::stage1(dst + r * pitch + q, s, true);
   }
 }
 
@@ -205,12 +214,13 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch,
 // Two blocks of up to 768 threads stay resident an SM: without the cap the
 // piece loop's indices take J to 56 registers, one 640-thread block an SM
 // at the eval geometry (PERF.md has both times).
-template <int G>
+template <int G, class Elem>
 __global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks)
-shear_fwd_kernel(const float* __restrict__ px, const float* __restrict__ py,
+shear_fwd_kernel(const Elem* __restrict__ px, const Elem* __restrict__ py,
                  const float* __restrict__ scale,
-                 const float* __restrict__ bias, float* __restrict__ out,
+                 const float* __restrict__ bias, Elem* __restrict__ out,
                  int D, int Co, int H, int W, int relu, int tw, int dp) {
+  static_assert(G == 1 || rag::kF32<Elem>, "16-byte groups are float32's");
   extern __shared__ float4 smem4[];
   const FwdLayout lay(W, tw, dp);
   float* xs = reinterpret_cast<float*>(smem4);  // px, 9 rows
@@ -223,9 +233,9 @@ shear_fwd_kernel(const float* __restrict__ px, const float* __restrict__ py,
   const long long row = blockIdx.x;
   const int b = (int)(row / CoH), rem = (int)(row - (long long)b * CoH);
   const int co = rem / H;
-  const float* xrow = px + (size_t)b * 9 * plane + (size_t)rem * W;
-  const float* yrow = py + (size_t)b * 9 * plane + (size_t)rem * W;
-  float* orow = out + (size_t)b * D * plane + (size_t)rem * W;
+  const Elem* xrow = px + (size_t)b * 9 * plane + (size_t)rem * W;
+  const Elem* yrow = py + (size_t)b * 9 * plane + (size_t)rem * W;
+  Elem* orow = out + (size_t)b * D * plane + (size_t)rem * W;
   const float a = __ldg(scale + co), c = __ldg(bias + co);
   const float zero = affine(0.f, a, c, relu);
   const int tiles = (W + tw - 1) / tw;
@@ -351,18 +361,23 @@ __device__ __forceinline__ void adj_snapshot(bool col, int j, int u, int d,
 }
 
 // Stage columns [x0, x1) of planes [c0, c0 + n) of K's row into slab (rows
-// `pitch` apart).
+// `pitch` apart): 16-byte copies with vec (float32 only), else one element
+// at a time (widened from bf16).
+template <class Elem>
 __device__ __forceinline__ void stage_slab(float* slab, int pitch,
-                                           const float* src, size_t plane,
+                                           const Elem* src, size_t plane,
                                            int n, int x0, int x1, int vec) {
   const int m = vec ? (x1 - x0) >> 2 : x1 - x0;
   for (int i = threadIdx.x; i < n * m; i += blockDim.x) {
     const int r = i / m, q = i - r * m;
-    if (vec)
-      rag::cp_async16(slab + r * pitch + 4 * q, src + r * plane + x0 + 4 * q,
-                      true);
-    else
-      rag::cp_async4(slab + r * pitch + q, src + r * plane + x0 + q, true);
+    if constexpr (rag::kF32<Elem>) {
+      if (vec) {
+        rag::cp_async16(slab + r * pitch + 4 * q,
+                        src + r * plane + x0 + 4 * q, true);
+        continue;
+      }
+    }
+    rag::stage1(slab + r * pitch + q, src + r * plane + x0 + q, true);
   }
 }
 
@@ -372,8 +387,9 @@ __device__ __forceinline__ void stage_slab(float* slab, int pitch,
 // the next W + 4 the diagonals, staging every column. Else splits 0 ..
 // ncs-1 walk blockDim.x columns each and the rest blockDim.x diagonals
 // each, staging only the columns their walkers read.
+template <class Elem>
 __global__ void __launch_bounds__(kAdjMaxThreads)
-shear_adj_kernel(const float* __restrict__ dz, float* __restrict__ dpx,
+shear_adj_kernel(const Elem* __restrict__ dz, float* __restrict__ dpx,
                  float* __restrict__ dpy, int D, int Co, int H, int W,
                  int splits, int ncs, int planes, int pitch, int vec) {
   extern __shared__ float4 smem4[];
@@ -383,7 +399,7 @@ shear_adj_kernel(const float* __restrict__ dz, float* __restrict__ dpx,
   const int CoH = Co * H;
   const int b = (int)(row / CoH), rem = (int)(row - (long long)b * CoH);
   const size_t plane = (size_t)CoH * W;  // one d plane of dz, one tap map
-  const float* src = dz + (size_t)b * D * plane + (size_t)rem * W;
+  const Elem* src = dz + (size_t)b * D * plane + (size_t)rem * W;
   float* xout = dpx + (size_t)b * 9 * plane + (size_t)rem * W;
   float* yout = dpy + (size_t)b * 9 * plane + (size_t)rem * W;
 
@@ -498,9 +514,11 @@ struct Plan {
 
 // J: a block a row, pieces of tw columns x dp planes (column tiles and
 // plane chunks of even size), a thread a task (run of kFwdPlanes planes,
-// group of columns) of a piece, at most kFwdMaxThreads.
+// group of columns) of a piece, at most kFwdMaxThreads. 16-byte copies and
+// stores (G = 4) for float32 maps only.
+template <class Elem>
 int fwd_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
-  p->vec = (W % 4 == 0) && aligned;
+  p->vec = rag::kF32<Elem> && (W % 4 == 0) && aligned;
   p->splits = 1, p->ncs = 0;
   const int tiles = (W + kFwdTileCols - 1) / kFwdTileCols;
   int tw = (W + tiles - 1) / tiles;
@@ -514,19 +532,22 @@ int fwd_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
   p->threads = tasks < kFwdMaxThreads ? round32((int)tasks) : kFwdMaxThreads;
   p->blocks = (long long)B * Co * H;
   p->smem = (size_t)FwdLayout(W, tw, dp).floats() * sizeof(float);
-  return p->blocks > 2147483647LL
-             ? (int)cudaErrorInvalidValue
-             : set_smem(p->vec ? (const void*)shear_fwd_kernel<4>
-                               : (const void*)shear_fwd_kernel<1>,
-                        p->smem);
+  if (p->blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if constexpr (rag::kF32<Elem>) {
+    if (p->vec) return set_smem((const void*)shear_fwd_kernel<4, Elem>,
+                                p->smem);
+  }
+  return set_smem((const void*)shear_fwd_kernel<1, Elem>, p->smem);
 }
 
 // K: 2W + 4 walkers a row, one block where they fit kAdjMaxThreads, else
 // ceil(W / kAdjMaxThreads) column blocks and ceil((W + 4) / kAdjMaxThreads)
 // diagonal blocks of equal size; each row's dz staged in runs of planes of
-// equal length, at most kAdjSlabFloats floats a run.
+// equal length, at most kAdjSlabFloats floats a run. 16-byte copies for a
+// float32 dz only.
+template <class Elem>
 int adj_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
-  p->vec = (W % 4 == 0) && aligned;
+  p->vec = rag::kF32<Elem> && (W % 4 == 0) && aligned;
   const int walkers = 2 * W + 4;
   int most;
   if (walkers <= kAdjMaxThreads) {
@@ -553,7 +574,46 @@ int adj_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
   p->smem = (size_t)p->planes * p->cols * sizeof(float);
   return p->blocks > 2147483647LL
              ? (int)cudaErrorInvalidValue
-             : set_smem((const void*)shear_adj_kernel, p->smem);
+             : set_smem((const void*)shear_adj_kernel<Elem>, p->smem);
+}
+
+// px, py and out of element type Elem.
+template <class Elem>
+int fwd_entry(const void* px, const void* py, const void* scale,
+              const void* bias, void* out, int B, int D, int Co, int H,
+              int W, int relu, void* stream) {
+  if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
+  Plan p;
+  if (const int e = fwd_plan<Elem>(
+          B, D, Co, H, W, aligned16(px) && aligned16(py) && aligned16(out),
+          &p))
+    return e;
+  auto kernel = shear_fwd_kernel<1, Elem>;
+  if constexpr (rag::kF32<Elem>) {
+    if (p.vec) kernel = shear_fwd_kernel<4, Elem>;
+  }
+  kernel<<<(unsigned)p.blocks, p.threads, p.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Elem*>(px), static_cast<const Elem*>(py),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<Elem*>(out), D, Co, H, W, relu, p.cols, p.planes);
+  return (int)cudaGetLastError();
+}
+
+// dz of element type Elem.
+template <class Elem>
+int adj_entry(const void* dz, void* dpx, void* dpy, int B, int D, int Co,
+              int H, int W, void* stream) {
+  if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
+  Plan p;
+  if (const int e = adj_plan<Elem>(B, D, Co, H, W, aligned16(dz), &p))
+    return e;
+  shear_adj_kernel<Elem><<<(unsigned)p.blocks, p.threads, p.smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Elem*>(dz), static_cast<float*>(dpx),
+      static_cast<float*>(dpy), D, Co, H, W, p.splits, p.ncs, p.planes,
+      p.cols, p.vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -563,33 +623,29 @@ extern "C" int rag_shear_fwd(const void* px, const void* py,
                              const void* scale, const void* bias, void* out,
                              int B, int D, int Co, int H, int W, int relu,
                              void* stream) {
-  if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
-  Plan p;
-  if (const int e = fwd_plan(B, D, Co, H, W,
-                             aligned16(px) && aligned16(py) && aligned16(out),
-                             &p))
-    return e;
-  const auto kernel = p.vec ? shear_fwd_kernel<4> : shear_fwd_kernel<1>;
-  kernel<<<(unsigned)p.blocks, p.threads, p.smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(px), static_cast<const float*>(py),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<float*>(out), D, Co, H, W, relu, p.cols, p.planes);
-  return (int)cudaGetLastError();
+  return fwd_entry<float>(px, py, scale, bias, out, B, D, Co, H, W, relu,
+                          stream);
+}
+
+// The same with px, py and out bf16.
+extern "C" int rag_shear_fwd_bf16(const void* px, const void* py,
+                                  const void* scale, const void* bias,
+                                  void* out, int B, int D, int Co, int H,
+                                  int W, int relu, void* stream) {
+  return fwd_entry<rag::bf16>(px, py, scale, bias, out, B, D, Co, H, W, relu,
+                              stream);
 }
 
 // dz: (B, D, Co, H, W); dpx, dpy: (B, 9, Co, H, W).
 extern "C" int rag_shear_adj(const void* dz, void* dpx, void* dpy, int B,
                              int D, int Co, int H, int W, void* stream) {
-  if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
-  Plan p;
-  if (const int e = adj_plan(B, D, Co, H, W, aligned16(dz), &p)) return e;
-  shear_adj_kernel<<<(unsigned)p.blocks, p.threads, p.smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dz), static_cast<float*>(dpx),
-      static_cast<float*>(dpy), D, Co, H, W, p.splits, p.ncs, p.planes,
-      p.cols, p.vec);
-  return (int)cudaGetLastError();
+  return adj_entry<float>(dz, dpx, dpy, B, D, Co, H, W, stream);
+}
+
+// The same with dz bf16 (dpx and dpy float32).
+extern "C" int rag_shear_adj_bf16(const void* dz, void* dpx, void* dpy, int B,
+                                  int D, int Co, int H, int W, void* stream) {
+  return adj_entry<rag::bf16>(dz, dpx, dpy, B, D, Co, H, W, stream);
 }
 
 // The launch of J (adjoint = 0; 16-byte aligned maps assumed) or K
@@ -602,8 +658,8 @@ extern "C" int rag_shear_plan(int adjoint, int B, int D, int Co, int H,
                               int W, void* out) {
   if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
   Plan p;
-  if (const int e = adjoint ? adj_plan(B, D, Co, H, W, true, &p)
-                            : fwd_plan(B, D, Co, H, W, true, &p))
+  if (const int e = adjoint ? adj_plan<float>(B, D, Co, H, W, true, &p)
+                            : fwd_plan<float>(B, D, Co, H, W, true, &p))
     return e;
   long long* o = static_cast<long long*>(out);
   o[0] = p.blocks, o[1] = p.threads, o[2] = (long long)p.smem;

@@ -15,7 +15,9 @@
 //     reference clips its source column and then masks, so nothing of Y
 //     leaks into the W halo.
 // The Python form of these rules, which the CPU tests emulate, is
-// rag_tpu_torch/ops/cvstem.py::stage_piece.
+// rag_tpu_torch/ops/cvstem.py::stage_piece. Both policies take float32 or
+// bf16 elements (Elem); a bf16 volume is staged 4 bytes of float32 per
+// element through stage1 (async_copy.cuh), never in 16-byte pieces.
 #pragma once
 
 #include <cstddef>
@@ -29,8 +31,9 @@ namespace rag {
 
 // One row of the input volume as a source: column j is src[j - shift]
 // where lo <= j < hi, and zero elsewhere.
+template <class Elem>
 struct SrcRow {
-  const float* src;
+  const Elem* src;
   int shift, lo, hi;
 };
 
@@ -39,35 +42,42 @@ inline bool aligned16(const void* p) {
 }
 
 // A stored (B, D, Cin, H, W) volume of row length W.
+template <class Elem>
 struct VolumeSrc {
+  using T = Elem;
   static constexpr bool kCostVolume = false;
-  const float* x;
+  const Elem* x;
   int W;
 
-  // whether rows may be copied in 16-byte pieces
-  bool vec() const { return W % 4 == 0 && aligned16(x); }
+  // whether rows may be copied in 16-byte pieces (float32 only)
+  bool vec() const { return kF32<Elem> && W % 4 == 0 && aligned16(x); }
 };
 
 // The concat cost volume of two (B, C, H, W) feature maps, 2C channels
 // and D planes. Row (p, c, h) is X's row h of channel c from column p on,
 // or Y's shifted right by p: both zero left of the diagonal j = p.
+template <class Elem>
 struct CostVolumeSrc {
+  using T = Elem;
   static constexpr bool kCostVolume = true;
-  const float* x;
-  const float* y;
+  const Elem* x;
+  const Elem* y;
   int D, C, H, W;
 
-  __device__ __forceinline__ SrcRow row(int b, int p, int c, int h) const {
+  __device__ __forceinline__ SrcRow<Elem> row(int b, int p, int c,
+                                              int h) const {
     if (p < 0 || p >= D || c >= 2 * C || h < 0 || h >= H) return {x, 0, 0, 0};
     const bool yh = c >= C;
-    const float* base =
+    const Elem* base =
         (yh ? y : x) + (((size_t)b * C + (yh ? c - C : c)) * H + h) * (size_t)W;
     return {base, yh ? p : 0, p, W};
   }
   // the last plane with a nonzero value in some column <= j: plane p is
   // zero at every column j < p
   __device__ __forceinline__ int last_live_plane(int j) const { return j; }
-  bool vec() const { return W % 4 == 0 && aligned16(x) && aligned16(y); }
+  bool vec() const {
+    return kF32<Elem> && W % 4 == 0 && aligned16(x) && aligned16(y);
+  }
 };
 
 // Columns j0 .. j0+3 of a row into dst (16-byte aligned; j0 % 4 == 0 and
@@ -75,9 +85,10 @@ struct CostVolumeSrc {
 // inside and their source is 16-byte aligned (Y's rows at planes p % 4 !=
 // 0 are not), one 16-byte zero fill where none is inside, else four 4-byte
 // copies or fills (the diagonal's piece, unaligned sources). `any` is a
-// global address for the fills.
-__device__ __forceinline__ void stage_piece(float* dst, const SrcRow& r,
-                                            int j0, const float* any) {
+// global address for the fills. float32 rows only (vec()).
+__device__ __forceinline__ void stage_piece(float* dst,
+                                            const SrcRow<float>& r, int j0,
+                                            const float* any) {
   const int s0 = j0 - r.shift;
   if (j0 >= r.lo && j0 + 4 <= r.hi && (s0 & 3) == 0) {
     cp_async16(dst, r.src + s0, true);
@@ -93,11 +104,12 @@ __device__ __forceinline__ void stage_piece(float* dst, const SrcRow& r,
   }
 }
 
-// Column j of a row into dst, 4 bytes.
-__device__ __forceinline__ void stage_col(float* dst, const SrcRow& r, int j,
-                                          const float* any) {
+// Column j of a row into dst, as one float32 (stage1).
+template <class Elem>
+__device__ __forceinline__ void stage_col(float* dst, const SrcRow<Elem>& r,
+                                          int j, const Elem* any) {
   const bool ok = j >= r.lo && j < r.hi;
-  cp_async4(dst, ok ? r.src + (j - r.shift) : any, ok);
+  stage1(dst, ok ? r.src + (j - r.shift) : any, ok);
 }
 
 }  // namespace rag

@@ -32,6 +32,7 @@ from rag_tpu_torch.models.stereo import (
 )
 from rag_tpu_torch.ops.cell import CellSpec
 from rag_tpu_torch.ops.convbr import ConvBRSpec, conv2d_nhwc, init_convbr
+from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.resize import resize_linear
 
 MAX_DEPTH = 80.0
@@ -88,10 +89,12 @@ def depth_head(hp, mat: torch.Tensor, h: int, w: int, conv_spec,
 
 
 def depth_forward(specs: Mapping, params, stats, image: torch.Tensor,
-                  train_sites=frozenset()):
+                  train_sites=frozenset(), precision: Precision = FP32):
     """image (B,H,W,3) -> (depth (B,H,W) in [0, MAX_DEPTH], new_stats):
     sites in ``train_sites`` run BatchNorm in train mode, every other site
-    normalizes with its running statistics."""
+    normalizes with its running statistics. ``precision``: the net's
+    activations ride its feature dtype from the feature net on, as in
+    rag_tpu; the head upcasts to float32."""
     new_stats: Dict[str, Any] = {}
 
     def appl(name, x, *extra):
@@ -100,7 +103,7 @@ def depth_forward(specs: Mapping, params, stats, image: torch.Tensor,
 
     with full_fp32():
         fea = extract_feature(specs, params, stats, image, train_sites,
-                              new_stats)
+                              new_stats, precision=precision)
         stem0 = appl("stem_3d0", fea)
         stem1 = appl("stem_3d1", stem0)
         s_pp, s_p = stem0, stem1

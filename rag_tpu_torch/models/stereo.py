@@ -17,6 +17,9 @@ KernelVariants, all off by default) swaps in the counterparts of rag_tpu's
 off-by-default TPU kernels: kernel H for A (``conv3d_dblock``), kernel I
 for the matrix resizes (``resize_kernel``), and the shear stem, tap maps
 plus kernels J and K, for B, E and F (``shear_stem``).
+``precision`` (ops.precision.Precision, float32 by default) casts the
+feature net's and the matching half's activations to bf16 at rag_tpu's
+boundaries (``--bf16``); the head runs in float32.
 
 Spatial sharding: with a ``mesh`` whose model axis is > 1 (the
 counterpart of rag_tpu's ``cost_constraint``, which constrains the
@@ -55,6 +58,7 @@ from rag_tpu_torch.ops.conv3d import needs_grad
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf, batch_norm_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 from rag_tpu_torch.ops.cvstem import cvstem_brc, cvstem_conv
+from rag_tpu_torch.ops.precision import FP32, Precision, wide
 from rag_tpu_torch.ops.shear import shear_stem_brc, shear_stem_z
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.ops.volume import WHOLE
@@ -156,12 +160,15 @@ def _apply2d(specs, params, stats, name, x, train_sites, new_stats, *extra,
 
 
 def extract_feature(specs, params, stats, image: torch.Tensor, train_sites,
-                    new_stats, halves: int = 1) -> torch.Tensor:
+                    new_stats, halves: int = 1,
+                    precision: Precision = FP32) -> torch.Tensor:
     """2D feature net: image (B,H,W,3) -> features (B,H/3,W/3,12). New
     BatchNorm statistics land in ``new_stats`` (a dict, filled per site).
 
     halves=2: image is left+right stacked along the batch; train-mode
-    BatchNorm takes per-half statistics and two EMA updates."""
+    BatchNorm takes per-half statistics and two EMA updates. The net runs
+    in ``precision``'s compute dtype (BatchNorm statistics in float32)."""
+    image = precision.cast_in(image)
 
     def appl(name, x, *extra):
         return _apply2d(specs, params, stats, name, x, train_sites, new_stats,
@@ -296,7 +303,8 @@ def full_fp32():
 def stereo_forward(specs: Mapping[str, Spec], params, stats,
                    left: torch.Tensor, right: torch.Tensor,
                    train_sites=frozenset(), maxdisp: int = MAXDISP,
-                   variants: KernelVariants = DEFAULT, mesh=None):
+                   variants: KernelVariants = DEFAULT, mesh=None,
+                   precision: Precision = FP32):
     """Full pipeline. left/right: (B,H,W,3) NHWC float32 on one device.
     Returns (disp, new_stats): disparity (B,H,W) in pixels, and the stats
     tree after the train-mode BatchNorms of ``train_sites`` (every other
@@ -305,20 +313,26 @@ def stereo_forward(specs: Mapping[str, Spec], params, stats,
     model axis is > 1 the disparity is this rank's rows [3 h0, 3 h1) of
     it (see the module docstring); the caller reduces the feature net's
     batch statistics over the data axis (``parallel.axis.bn_collective``),
-    and the matching net's reduce over the world here."""
+    and the matching net's reduce over the world here. ``precision``: the
+    feature net and the matching half store their activations in its
+    dtypes (rag_tpu/models/stereo.py's casts); the head runs in float32
+    and the disparity is float32."""
+    variants.check(precision)
     new_stats: Dict = {}
     vol = volume_ops(mesh)
     with full_fp32():
         both = torch.cat([left, right], dim=0)
         f = extract_feature(specs, params, stats, both, train_sites,
-                            new_stats, halves=2)
+                            new_stats, halves=2, precision=precision)
         bsz = left.shape[0]
+        # the matching half's boundary: its volume-sized activations in the
+        # compute dtype
+        x, y = precision.cast_in(f[:bsz]), precision.cast_in(f[bsz:])
         with (bn_collective(mesh.group) if vol is not WHOLE
               else contextlib.nullcontext()):
-            mat = run_matching_cf(specs, params, stats, f[:bsz], f[bsz:],
-                                  maxdisp // 3, train_sites, new_stats,
-                                  variants, vol)
-        disp = vol.soft_argmin(mat, maxdisp, 3)
+            mat = run_matching_cf(specs, params, stats, x, y, maxdisp // 3,
+                                  train_sites, new_stats, variants, vol)
+        disp = vol.soft_argmin(wide(mat), maxdisp, 3)
     for name in stats:
         new_stats.setdefault(name, stats[name])
     return disp, new_stats

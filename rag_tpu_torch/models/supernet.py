@@ -47,6 +47,7 @@ from rag_tpu_torch.ops.convbr import ConvBRSpec, apply_convbr, init_convbr
 from rag_tpu_torch.ops.convbr_cf import apply_convbr_cf
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
 from rag_tpu_torch.ops.disparity import soft_argmin_disparity
+from rag_tpu_torch.ops.precision import FP32, Precision, wide
 from rag_tpu_torch.ops.resize import resize_cf, resize_linear, scale_dimension
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
@@ -275,21 +276,28 @@ def _mat_forward(params, stats, cost, ops, train, new_stats,
 
 def supernet_forward(params, stats, left: torch.Tensor, right: torch.Tensor,
                      fea_ops, mat_ops, train: bool, maxdisp: int = MAXDISP,
-                     variants: KernelVariants = DEFAULT):
+                     variants: KernelVariants = DEFAULT,
+                     precision: Precision = FP32):
     """The whole search supernet. left/right (B,H,W,3); fea_ops, mat_ops: 9
     op indices each (host ints). Returns (disp (B,H,W), new_stats): train
     mode runs every BatchNorm on batch statistics and returns the running
-    statistics after their update; eval mode returns them unchanged."""
+    statistics after their update; eval mode returns them unchanged.
+    ``precision``: the feature and matching halves store their activations
+    in its dtypes, as rag_tpu/models/supernet.py casts them; the head runs
+    in float32."""
+    variants.check(precision)
     new_stats: Dict[str, Any] = {"fea": {}, "mat": {}}
     with full_fp32():
-        both = torch.cat([left, right], dim=0)
+        both = precision.cast_in(torch.cat([left, right], dim=0))
         f = _fea_forward(params, stats, both, fea_ops, train, new_stats,
                          halves=2)
         bsz = left.shape[0]
-        cost = cost_volume_cf(f[:bsz], f[bsz:], maxdisp // 3)
+        x, y = precision.cast_in(f[:bsz]), precision.cast_in(f[bsz:])
+        cost = cost_volume_cf(x, y, maxdisp // 3)
         mat = _mat_forward(params, stats, cost.contiguous(), mat_ops, train,
                            new_stats, variants)
-        disp = soft_argmin_disparity(mat[:, :, 0], maxdisp, 3)
+        disp = soft_argmin_disparity(wide(mat[:, :, 0]),
+                                     maxdisp, 3)
     return disp, new_stats
 
 

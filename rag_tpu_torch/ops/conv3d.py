@@ -57,6 +57,15 @@ matching stem's cost volume, with plans from the same candidates.
 Weights stay in the reference's (3, 3, 3, Cin, Cout) layout; kernel A's
 first pass packs them per call. Each wrapper runs its plain PyTorch version
 for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
+
+Dtypes (the bf16-at-rest policy, ops.precision): x, and the dx conv's
+cotangent, are float32 or bfloat16; weights, scale and bias float32. A
+bf16 volume is staged into shared memory widened to float32 (a register
+load where the float32 path copies with cp.async), the sums run as for
+float32, and A and H store the output in x's dtype; D stores dW in
+float32, as rag_tpu/ops/pallas_conv3d.py's kernels do. The plain versions
+follow the same rule: a float32 computation on the upcast input, the
+output cast to the kernel's output dtype.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from rag_tpu_torch.ops import cuda_lib
+from rag_tpu_torch.ops.precision import wide
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 
@@ -463,29 +473,51 @@ def _shifted(x: torch.Tensor):
 def conv3d_brc_cf_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, relu: bool) -> torch.Tensor:
     """Plain PyTorch version of kernel A: the SAME 3x3x3 conv as a sum of
-    27 shifted channel contractions, then the affine and ReLU."""
+    27 shifted channel contractions, then the affine and ReLU, in float32
+    (or x's float64) on the upcast x; the output in x's dtype."""
     y = None
-    for tap, xs in _shifted(x):
+    for tap, xs in _shifted(wide(x)):
         t = torch.einsum("bdihw,io->bdohw", xs, w[tap])
         y = t if y is None else y + t
     y = y * scale.reshape(1, 1, -1, 1, 1) + bias.reshape(1, 1, -1, 1, 1)
-    return torch.relu(y) if relu else y
+    return (torch.relu(y) if relu else y).to(x.dtype)
 
 
 def conv3d_dw_cf_plain(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel D: 27 shifted contractions over
-    (b, d, h, w). x (B,D,Cin,H,W), dz (B,D,Cout,H,W) -> (3,3,3,Cin,Cout)."""
-    taps = [torch.einsum("bdihw,bdohw->io", xs, dz) for _, xs in _shifted(x)]
+    (b, d, h, w). x (B,D,Cin,H,W), dz (B,D,Cout,H,W) -> (3,3,3,Cin,Cout),
+    in float32 (or float64) whatever the inputs' dtype."""
+    dz = wide(dz)
+    taps = [torch.einsum("bdihw,bdohw->io", xs, dz)
+            for _, xs in _shifted(wide(x))]
     return torch.stack(taps).reshape(3, 3, 3, x.shape[2], dz.shape[2])
 
 
-def check_f32(name, *ts):
-    for t in ts:
-        if (t.device != ts[0].device or t.dtype != torch.float32
+# the dtypes of the activations a kernel of A, B, D-F, H, J or K takes
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtypes(name, acts=(), floats=()):
+    """The wrappers' operand rule: every tensor contiguous and on one
+    device; ``acts`` (volumes, features, cotangents, tap maps) all float32
+    or all bfloat16; ``floats`` (weights, affine) float32. Any other dtype
+    raises."""
+    ts = (*acts, *floats)
+    act = acts[0].dtype if acts and acts[0].dtype in ACT_DTYPES else None
+    for i, t in enumerate(ts):
+        dt = act if i < len(acts) else torch.float32
+        if (t.device != ts[0].device or t.dtype != dt
                 or not t.is_contiguous()):
-            raise ValueError(f"{name}: operands must be contiguous float32 on "
-                             f"one device, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+            raise ValueError(
+                f"{name}: operands must be contiguous, on one device, "
+                f"activations float32 or bfloat16 and weights float32; got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_f32(name, *ts):
+    """The operand rule of kernels C, G and I (and A's weight pass):
+    contiguous float32 on one device."""
+    check_dtypes(name, (), ts)
 
 
 def needs_grad(*ts) -> bool:
@@ -498,13 +530,14 @@ def _check_conv_args(name, x, w, scale, bias):
             or scale.shape != (w.shape[4],) or bias.shape != (w.shape[4],)):
         raise ValueError(f"{name}: unsupported x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
-    check_f32(name, x, w, scale, bias)
+    check_dtypes(name, (x,), (w, scale, bias))
 
 
 def conv3d_affine_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, relu: bool) -> torch.Tensor:
-    """Kernel A: conv + affine (+ReLU), no autograd. x (B,D,Cin,H,W) f32;
-    w (3,3,3,Cin,Cout); scale/bias (Cout,)."""
+    """Kernel A: conv + affine (+ReLU), no autograd. x (B,D,Cin,H,W)
+    float32 or bf16; w (3,3,3,Cin,Cout), scale/bias (Cout,) float32;
+    the output in x's dtype."""
     if not x.is_cuda:
         return conv3d_brc_cf_plain(x, w, scale, bias, relu)
     _check_conv_args("conv3d_affine_cf", x, w, scale, bias)
@@ -517,19 +550,20 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 counter=None) -> torch.Tensor:
     """Launch kernel A's engine (its weight pass, then the conv) on the
     current stream with a given plan. Counts one launch on ``counter``:
-    ``conv3d_affine_cf`` (kernel A) unless another wrapper is given."""
+    ``conv3d_affine_cf`` (kernel A) unless another wrapper is given, on
+    its ``launches_bf16`` for a bf16 x."""
     b, d, cin, h, wd = x.shape
     cout = w.shape[4]
     frag = torch.empty(fragment_floats(plan), device=x.device,
                        dtype=torch.float32)
-    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=torch.float32)
-    rc = cuda_lib.lib().rag_conv3d_brc_cf(
+    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=x.dtype)
+    rc = cuda_lib.entry("rag_conv3d_brc_cf", x.dtype)(
         x.data_ptr(), w.data_ptr(), frag.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, d, cin, h, wd, cout, int(relu),
         plan.mt, plan.nt, plan.tw, plan.n_split, plan.cc, plan.db,
         cuda_lib.stream_ptr(x))
     counter = counter or conv3d_affine_cf
-    counter.launches += 1
+    cuda_lib.count(counter, x.dtype)
     cuda_lib.check(rc, counter.__name__)
     return out
 
@@ -549,7 +583,7 @@ def pack_weights_cuda(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
                         4)
 
 
-conv3d_affine_cf.launches = 0
+conv3d_affine_cf.launches = conv3d_affine_cf.launches_bf16 = 0
 
 
 def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -570,7 +604,7 @@ def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                        conv3d_dblock_cf)
 
 
-conv3d_dblock_cf.launches = 0
+conv3d_dblock_cf.launches = conv3d_dblock_cf.launches_bf16 = 0
 
 
 def _conv_kernel(dblock: bool):
@@ -581,7 +615,8 @@ def _conv_kernel(dblock: bool):
 
 def conv3d_dw_cf(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     """Kernel D: the 3x3x3 conv's weight gradient, no autograd.
-    x (B,D,Cin,H,W), dz (B,D,Cout,H,W) f32 -> (3,3,3,Cin,Cout)."""
+    x (B,D,Cin,H,W), dz (B,D,Cout,H,W), both float32 or both bf16 ->
+    (3,3,3,Cin,Cout) float32."""
     if not x.is_cuda:
         return conv3d_dw_cf_plain(x, dz)
     b, d, cin, h, wd = x.shape
@@ -589,11 +624,11 @@ def conv3d_dw_cf(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     if dz.shape != (b, d, cout, h, wd):
         raise ValueError(f"conv3d_dw_cf: x {tuple(x.shape)} and dz "
                          f"{tuple(dz.shape)} disagree")
-    check_f32("conv3d_dw_cf", x, dz)
+    check_dtypes("conv3d_dw_cf", (x, dz))
     return launch_dw_plan(x, dz, dw_plan(b, d, cin, h, wd, cout))
 
 
-conv3d_dw_cf.launches = 0
+conv3d_dw_cf.launches = conv3d_dw_cf.launches_bf16 = 0
 
 
 def launch_dw_plan(x: torch.Tensor, dz: torch.Tensor, plan: DwPlan,
@@ -608,11 +643,11 @@ def launch_dw_plan(x: torch.Tensor, dz: torch.Tensor, plan: DwPlan,
     partial = torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
     out = torch.empty((3, 3, 3, cin, cout), device=x.device,
                       dtype=torch.float32)
-    rc = cuda_lib.lib().rag_conv3d_dw_cf(
+    rc = cuda_lib.entry("rag_conv3d_dw_cf", x.dtype)(
         x.data_ptr(), dz.data_ptr(), partial.data_ptr(), out.data_ptr(),
         b, d, cin, cout, h, w, plan.ci, plan.co_t, plan.kh_t, plan.groups,
         plan.th, plan.tw, plan.db, passes, cuda_lib.stream_ptr(x))
-    conv3d_dw_cf.launches += 1
+    cuda_lib.count(conv3d_dw_cf, x.dtype)
     cuda_lib.check(rc, "conv3d_dw_cf")
     return out
 
@@ -627,33 +662,35 @@ class _Conv3dBRC(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, scale, bias, relu, dblock):
         cout = w.shape[4]
-        z = _conv_kernel(dblock)(x, w, x.new_ones(cout), x.new_zeros(cout),
+        z = _conv_kernel(dblock)(x, w, w.new_ones(cout), w.new_zeros(cout),
                                  False)
         sh = (1, 1, -1, 1, 1)
-        y = z * scale.reshape(sh) + bias.reshape(sh)
+        y = wide(z) * scale.reshape(sh) + bias.reshape(sh)
         ctx.save_for_backward(x, w, scale, bias, z)
         ctx.relu, ctx.dblock = relu, dblock
-        return torch.relu(y) if relu else y
+        return (torch.relu(y) if relu else y).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, w, scale, bias, z = ctx.saved_tensors
         need_x, need_w, need_scale, need_bias = ctx.needs_input_grad[:4]
         sh = (1, 1, -1, 1, 1)
-        gm = g * ((z * scale.reshape(sh) + bias.reshape(sh)) > 0) \
+        # gm in x's dtype (the output's); the parameter gradients sum in
+        # float32
+        gm = g * ((wide(z) * scale.reshape(sh) + bias.reshape(sh)) > 0) \
             if ctx.relu else g
         gm = gm.contiguous()
         dx = dw = dscale = dbias = None
         if need_bias:
-            dbias = gm.sum(dim=(0, 1, 3, 4))
+            dbias = wide(gm).sum(dim=(0, 1, 3, 4))
         if need_scale:
-            dscale = (gm * z).sum(dim=(0, 1, 3, 4))
+            dscale = (wide(gm) * wide(z)).sum(dim=(0, 1, 3, 4))
         if need_x:
             cin = w.shape[3]
             wf = (w.flip((0, 1, 2)).transpose(3, 4)
                   * scale.reshape(1, 1, 1, -1, 1)).contiguous()
-            dx = _conv_kernel(ctx.dblock)(gm, wf, x.new_ones(cin),
-                                          x.new_zeros(cin), False)
+            dx = _conv_kernel(ctx.dblock)(gm, wf, w.new_ones(cin),
+                                          w.new_zeros(cin), False)
         if need_w:
             dw = conv3d_dw_cf(x, gm) * scale.reshape(1, 1, 1, 1, -1)
         return dx, dw, dscale, dbias, None, None
@@ -663,8 +700,9 @@ def conv3d_brc_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   bias: torch.Tensor, relu: bool,
                   variants: KernelVariants = DEFAULT) -> torch.Tensor:
     """Fused conv + affine (+ReLU), differentiable in x, w, scale, bias.
-    x (B,D,Cin,H,W) f32; w (3,3,3,Cin,Cout); scale/bias (Cout,). Kernel A,
-    or kernel H where ``variants.conv3d_dblock``."""
+    x (B,D,Cin,H,W) float32 or bf16, the output and dx in its dtype;
+    w (3,3,3,Cin,Cout), scale/bias (Cout,) float32, their gradients
+    float32. Kernel A, or kernel H where ``variants.conv3d_dblock``."""
     dblock = variants.conv3d_dblock
     if needs_grad(x, w, scale, bias):
         return _Conv3dBRC.apply(x, w, scale, bias, relu, dblock)

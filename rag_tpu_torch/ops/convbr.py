@@ -12,6 +12,10 @@ statistics and returns the running statistics after the EMA update
 (torch BatchNorm semantics, momentum 0.1, written out because the
 reference's variance, ``E[x^2] - mean^2``, and its per-half statistics of
 the stacked left+right batch are not what ``torch.nn.BatchNorm`` does).
+
+Activations keep their dtype through every op (the bf16-at-rest policy,
+ops.precision): a conv casts its float32 weight to x's dtype, BatchNorm
+takes its statistics and normalizes in float32 and returns x's dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from rag_tpu_torch.ops.precision import wide
 from rag_tpu_torch.parallel.axis import all_sum_if, bn_group
 
 BN_EPS = 1e-5
@@ -72,8 +77,9 @@ def init_convbr(generator: torch.Generator, spec: ConvBRSpec, device="cuda"):
 
 
 def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, spec: ConvBRSpec) -> torch.Tensor:
-    """Zero-padded 2D conv: x (B,H,W,Cin), w (kh,kw,Cin,Cout) -> (B,H',W',Cout)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+    """Zero-padded 2D conv: x (B,H,W,Cin), w (kh,kw,Cin,Cout) -> (B,H',W',Cout),
+    in x's dtype."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(x.dtype),
                  stride=spec.stride, padding=spec.padding)
     return y.permute(0, 2, 3, 1)
 
@@ -122,7 +128,10 @@ def batch_norm(x: torch.Tensor, params, stats, train: bool = False,
     halves > 1 (train mode only): the batch axis stacks ``halves``
     independent passes (left and right feature extraction as one batch);
     each half normalizes by its own batch statistics and the running stats
-    take ``halves`` EMA updates in stacking order."""
+    take ``halves`` EMA updates in stacking order. Statistics and the
+    normalization in float32 (bf16 batch statistics drift); y in x's
+    dtype."""
+    out_dtype, x = x.dtype, wide(x)
     c = x.shape[-1]
     if train and halves > 1:
         xh = x.reshape((halves, x.shape[0] // halves) + tuple(x.shape[1:]))
@@ -134,7 +143,7 @@ def batch_norm(x: torch.Tensor, params, stats, train: bool = False,
         bshape = (halves,) + (1,) * (xh.ndim - 2) + (c,)
         inv = torch.rsqrt(var + BN_EPS).reshape(bshape)
         y = (xh - mean.reshape(bshape)) * (inv * params["scale"]) + params["bias"]
-        return y.reshape(x.shape), new_stats
+        return y.reshape(x.shape).to(out_dtype), new_stats
     if train:
         mean, var, unbiased = batch_stats(x, tuple(range(x.ndim - 1)),
                                           x.numel() // c)
@@ -142,7 +151,8 @@ def batch_norm(x: torch.Tensor, params, stats, train: bool = False,
     else:
         mean, var, new_stats = stats["mean"], stats["var"], stats
     inv = torch.rsqrt(var + BN_EPS)
-    return (x - mean) * (inv * params["scale"]) + params["bias"], new_stats
+    y = (x - mean) * (inv * params["scale"]) + params["bias"]
+    return y.to(out_dtype), new_stats
 
 
 def apply_convbr(spec: ConvBRSpec, params, stats, x: torch.Tensor,

@@ -25,13 +25,16 @@ from rag_tpu_torch.ops.convbr import (
     bn_fold,
     ema,
 )
+from rag_tpu_torch.ops.precision import wide
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.ops.volume import WHOLE
 
 
 def batch_norm_cf(x: torch.Tensor, params, stats, train: bool = False,
                   momentum: float = BN_MOMENTUM):
-    """BatchNorm on channel axis 2. Returns (y, new_stats)."""
+    """BatchNorm on channel axis 2. Returns (y, new_stats). Statistics and
+    the normalization in float32; y in x's dtype."""
+    out_dtype, x = x.dtype, wide(x)
     shape = (1, 1, -1, 1, 1)
     if train:
         mean, var, unbiased = batch_stats(x, (0, 1, 3, 4),
@@ -42,7 +45,7 @@ def batch_norm_cf(x: torch.Tensor, params, stats, train: bool = False,
     inv = torch.rsqrt(var + BN_EPS)
     y = ((x - mean.reshape(shape)) * (inv * params["scale"]).reshape(shape)
          + params["bias"].reshape(shape))
-    return y, new_stats
+    return y.to(out_dtype), new_stats
 
 
 def apply_convbr_cf(spec: ConvBRSpec, params, stats, x: torch.Tensor,
@@ -58,13 +61,16 @@ def apply_convbr_cf(spec: ConvBRSpec, params, stats, x: torch.Tensor,
 
         if spec.bn and not train:
             return conv(*bn_fold(params, stats), spec.relu), stats
-        ones = torch.ones(spec.cout, device=x.device)
-        zeros = torch.zeros(spec.cout, device=x.device)
+        ones = torch.ones(spec.cout, device=x.device,
+                          dtype=params["w"].dtype)
+        zeros = torch.zeros(spec.cout, device=x.device,
+                            dtype=params["w"].dtype)
         if not spec.bn:
             return conv(ones, zeros, spec.relu), stats
         y = conv(ones, zeros, False)
     elif spec.kernel == 1 and spec.stride == 1:
-        y = torch.einsum("bdihw,io->bdohw", x, params["w"][0, 0, 0])
+        y = torch.einsum("bdihw,io->bdohw", x,
+                         params["w"][0, 0, 0].to(x.dtype))
     else:
         raise ValueError(f"no channel-first conv for {spec}")
     if spec.bn:

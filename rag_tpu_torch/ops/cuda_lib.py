@@ -48,6 +48,11 @@ SIGNATURES = {
     "rag_shear_adj": [_P] * 3 + [_I] * 5 + [_P],
     "rag_shear_plan": [_I] * 6 + [_P],
 }
+# the bf16 instances of kernels A/H, B, D, F, E, J and K: the same arguments
+BF16_ENTRIES = ("rag_conv3d_brc_cf", "rag_cvstem_brc", "rag_conv3d_dw_cf",
+                "rag_cvstem_dw", "rag_cvstem_dxy", "rag_shear_fwd",
+                "rag_shear_adj")
+SIGNATURES.update({f"{n}_bf16": SIGNATURES[n] for n in BF16_ENTRIES})
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -135,6 +140,30 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def entry(name: str, dtype):
+    """The C entry point of a kernel for operands of ``dtype``: ``name``
+    for float32, its ``_bf16`` instance for bfloat16."""
+    import torch
+
+    if dtype == torch.bfloat16 and name in BF16_ENTRIES:
+        return getattr(lib(), f"{name}_bf16")
+    if dtype != torch.float32:
+        raise ValueError(f"{name}: no instance for {dtype}")
+    return getattr(lib(), name)
+
+
+def count(wrapper, dtype) -> None:
+    """One launch of a kernel wrapper's instance for ``dtype``: on
+    ``wrapper.launches`` for float32, ``wrapper.launches_bf16`` for the
+    bf16 instance."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def check(rc: int, name: str) -> None:

@@ -45,6 +45,15 @@ rag_tpu/ops/pallas_cvstem.py's two custom VJPs; ``cvstem_brc``'s backward
 recomputes the pre-affine z with one more kernel B pass, as _brc_bwd does.
 Each wrapper runs its plain PyTorch version for CPU tensors only; on a
 CUDA tensor it launches its kernel or raises.
+
+Dtypes (the bf16-at-rest policy, ops.precision): the features and dz are
+float32 or bfloat16, the weights and affine float32. B and F stage the
+volume's bf16 rows widened to float32 (register loads, where the float32
+path copies with cp.async), E stages bf16 dz planes the same way; the sums
+run as for float32. B stores its output and E dX and dY in the
+activations' dtype, F stores dW in float32, as rag_tpu/ops/
+pallas_cvstem.py does. The plain versions compute in float32 on the upcast
+inputs and cast to the kernel's output dtype.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from rag_tpu_torch.ops.conv3d import (
     ConvPlan,
     DwPlan,
     _dw_cost_us,
-    check_f32,
+    check_dtypes,
     conv3d_brc_cf_plain,
     conv3d_dw_cf_plain,
     conv_candidates,
@@ -71,6 +80,7 @@ from rag_tpu_torch.ops.conv3d import (
     needs_grad,
 )
 from rag_tpu_torch.ops.cost_volume import cost_volume_cf
+from rag_tpu_torch.ops.precision import wide
 
 
 # -- the cost volume's load rule (csrc/volume_src.cuh::CostVolumeSrc) --------
@@ -212,7 +222,10 @@ def cvstem_brc_plain(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
 
 def cvstem_dxy_plain(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
     """Plain PyTorch version of kernel E: the dx conv over the whole
-    volume, then the adjoint of the volume build."""
+    volume, then the adjoint of the volume build, in float32 (or float64)
+    on the upcast dz; dX and dY in dz's dtype."""
+    out_dtype = dz.dtype
+    dz = wide(dz)
     c2 = w3.shape[3]
     c = c2 // 2
     dv = conv3d_brc_cf_plain(dz, _flip_io(w3), dz.new_ones(c2),
@@ -224,7 +237,7 @@ def cvstem_dxy_plain(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
     dy = torch.zeros_like(dx)
     for d in range(min(num_disp, w)):
         dy[..., :w - d] += dv[:, d, c:, :, d:]
-    return dx, dy
+    return dx.to(out_dtype), dy.to(out_dtype)
 
 
 def cvstem_dw_plain(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
@@ -329,7 +342,7 @@ def cvstem_affine(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
     if (w3.shape[:4] != (3, 3, 3, 2 * c) or scale.shape != (cout,)
             or bias.shape != (cout,)):
         raise ValueError(f"cvstem_affine: unsupported w {tuple(w3.shape)}")
-    check_f32("cvstem_affine", x_cf, y_cf, w3, scale, bias)
+    check_dtypes("cvstem_affine", (x_cf, y_cf), (w3, scale, bias))
     return launch_cvstem(x_cf, y_cf, w3, scale, bias, num_disp, relu,
                          cvstem_plan(b, num_disp, c, h, w, cout))
 
@@ -345,18 +358,18 @@ def launch_cvstem(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
     frag = torch.empty(fragment_floats(plan), device=x_cf.device,
                        dtype=torch.float32)
     out = torch.empty((b, num_disp, cout, h, w), device=x_cf.device,
-                      dtype=torch.float32)
-    rc = cuda_lib.lib().rag_cvstem_brc(
+                      dtype=x_cf.dtype)
+    rc = cuda_lib.entry("rag_cvstem_brc", x_cf.dtype)(
         x_cf.data_ptr(), y_cf.data_ptr(), w3.data_ptr(), frag.data_ptr(),
         scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w,
         num_disp, cout, int(relu), plan.mt, plan.nt, plan.tw, plan.n_split,
         plan.cc, plan.db, cuda_lib.stream_ptr(x_cf))
-    cvstem_affine.launches += 1
+    cuda_lib.count(cvstem_affine, x_cf.dtype)
     cuda_lib.check(rc, "cvstem_affine")
     return out
 
 
-cvstem_affine.launches = 0
+cvstem_affine.launches = cvstem_affine.launches_bf16 = 0
 
 
 def cvstem_dxy(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
@@ -370,7 +383,7 @@ def cvstem_dxy(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
     if d != num_disp or w3.shape != (3, 3, 3, c2, cout) or c2 != 2 * c:
         raise ValueError(f"cvstem_dxy: unsupported dz {tuple(dz.shape)}, "
                          f"w {tuple(w3.shape)}, num_disp {num_disp}")
-    check_f32("cvstem_dxy", dz, w3)
+    check_dtypes("cvstem_dxy", (dz,), (w3,))
     return launch_dxy(dz, w3, dxy_plan(b, d, cout, c, h, w))
 
 
@@ -383,18 +396,18 @@ def launch_dxy(dz: torch.Tensor, w3: torch.Tensor, plan: DxyPlan):
     wpk = pack_dxy_weights(w3, plan.ct, plan.n_cc)
     partial = torch.empty(plan.workspace, device=dz.device,
                           dtype=torch.float32)
-    dx = torch.empty((b, c, h, w), device=dz.device, dtype=torch.float32)
+    dx = torch.empty((b, c, h, w), device=dz.device, dtype=dz.dtype)
     dy = torch.empty_like(dx)
-    rc = cuda_lib.lib().rag_cvstem_dxy(
+    rc = cuda_lib.entry("rag_cvstem_dxy", dz.dtype)(
         dz.data_ptr(), wpk.data_ptr(), partial.data_ptr(), dx.data_ptr(),
         dy.data_ptr(), b, d, cout, c, h, w, plan.ct, plan.n_cc, plan.chunk,
         plan.n_chunks, plan.kc, cuda_lib.stream_ptr(dz))
-    cvstem_dxy.launches += 1
+    cuda_lib.count(cvstem_dxy, dz.dtype)
     cuda_lib.check(rc, "cvstem_dxy")
     return dx, dy
 
 
-cvstem_dxy.launches = 0
+cvstem_dxy.launches = cvstem_dxy.launches_bf16 = 0
 
 
 def cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
@@ -409,12 +422,12 @@ def cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
             or dz.shape[3:] != (h, w):
         raise ValueError(f"cvstem_dw: x {tuple(x_cf.shape)}, dz "
                          f"{tuple(dz.shape)}")
-    check_f32("cvstem_dw", x_cf, y_cf, dz)
+    check_dtypes("cvstem_dw", (x_cf, y_cf, dz))
     return launch_cvstem_dw(x_cf, y_cf, dz, cvstem_dw_plan(
         b, num_disp, c, h, w, dz.shape[2]))
 
 
-cvstem_dw.launches = 0
+cvstem_dw.launches = cvstem_dw.launches_bf16 = 0
 
 
 def launch_cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
@@ -429,12 +442,12 @@ def launch_cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
                           dtype=torch.float32)
     out = torch.empty((3, 3, 3, 2 * c, cout), device=dz.device,
                       dtype=torch.float32)
-    rc = cuda_lib.lib().rag_cvstem_dw(
+    rc = cuda_lib.entry("rag_cvstem_dw", dz.dtype)(
         x_cf.data_ptr(), y_cf.data_ptr(), dz.data_ptr(), partial.data_ptr(),
         out.data_ptr(), b, d, c, cout, h, w, plan.ci, plan.co_t, plan.kh_t,
         plan.groups, plan.th, plan.tw, plan.db, passes,
         cuda_lib.stream_ptr(dz))
-    cvstem_dw.launches += 1
+    cuda_lib.count(cvstem_dw, dz.dtype)
     cuda_lib.check(rc, "cvstem_dw")
     return out
 
@@ -448,8 +461,8 @@ class _CvstemConv(torch.autograd.Function):
         cout = w3.shape[4]
         ctx.save_for_backward(x_cf, y_cf, w3)
         ctx.num_disp = num_disp
-        return cvstem_affine(x_cf, y_cf, w3, x_cf.new_ones(cout),
-                             x_cf.new_zeros(cout), num_disp, False)
+        return cvstem_affine(x_cf, y_cf, w3, w3.new_ones(cout),
+                             w3.new_zeros(cout), num_disp, False)
 
     @staticmethod
     def backward(ctx, g):
@@ -479,16 +492,17 @@ class _CvstemBRC(torch.autograd.Function):
         x_cf, y_cf, w3, scale, out = ctx.saved_tensors
         need_x, need_y, need_w, need_scale, need_bias = ctx.needs_input_grad[:5]
         nd = ctx.num_disp
-        gm = g * (out > 0) if ctx.relu else g
+        gm = wide(g * (out > 0) if ctx.relu else g)
         dx = dy = dw = dscale = dbias = None
         if need_bias:
             dbias = gm.sum(dim=(0, 1, 3, 4))
         if need_scale:
             cout = w3.shape[4]
-            z = cvstem_affine(x_cf, y_cf, w3, x_cf.new_ones(cout),
-                              x_cf.new_zeros(cout), nd, False)
-            dscale = (gm * z).sum(dim=(0, 1, 3, 4))
-        dz = (gm * scale.reshape(1, 1, -1, 1, 1)).contiguous()
+            z = cvstem_affine(x_cf, y_cf, w3, w3.new_ones(cout),
+                              w3.new_zeros(cout), nd, False)
+            dscale = (gm * wide(z)).sum(dim=(0, 1, 3, 4))
+        # the cotangent of z in the features' dtype (_brc_bwd's cast)
+        dz = (gm * scale.reshape(1, 1, -1, 1, 1)).to(x_cf.dtype).contiguous()
         if need_x or need_y:
             dx, dy = cvstem_dxy(dz, w3, nd)
         if need_w:
@@ -503,8 +517,8 @@ def cvstem_conv(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
     if needs_grad(x_cf, y_cf, w3):
         return _CvstemConv.apply(x_cf, y_cf, w3, num_disp)
     cout = w3.shape[4]
-    return cvstem_affine(x_cf, y_cf, w3, x_cf.new_ones(cout),
-                         x_cf.new_zeros(cout), num_disp, False)
+    return cvstem_affine(x_cf, y_cf, w3, w3.new_ones(cout),
+                         w3.new_zeros(cout), num_disp, False)
 
 
 def cvstem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,

@@ -80,7 +80,9 @@ def interp_matrix(n_in: int, n_out: int, align_corners: bool,
 
 
 def resize_linear(x: torch.Tensor, out_sizes, axes, align_corners: bool) -> torch.Tensor:
-    """Resize ``x`` along ``axes`` to ``out_sizes`` by linear interpolation."""
+    """Resize ``x`` along ``axes`` to ``out_sizes`` by linear interpolation,
+    contracting against a copy of each matrix in x's dtype (a bf16 x
+    against a bf16 matrix, as rag_tpu/ops/resize.py does)."""
     assert len(out_sizes) == len(axes)
     for axis, n_out in zip(axes, out_sizes):
         n_in = x.shape[axis]
@@ -428,9 +430,17 @@ def resize_cf(x: torch.Tensor, d2: int, h2: int, w2: int,
               variants: KernelVariants = DEFAULT) -> torch.Tensor:
     """Trilinear resize of a channel-first volume (B, D, C, H, W) ->
     (B, d2, C, h2, w2): the matrix products, or kernel I where
-    ``variants.resize_kernel``."""
+    ``variants.resize_kernel``. A bf16 x (the bf16-at-rest policy) takes
+    the matrix products, which contract it against a bf16 copy of each
+    matrix; kernel I takes float32 only, so a bf16 x with
+    ``resize_kernel`` raises (the entry points refuse that pairing first,
+    ``KernelVariants.check``), where rag_tpu/ops/pallas_resize.py's gate
+    quietly takes the matrix products."""
     if not variants.resize_kernel:
         return resize_linear(x, (d2, h2, w2), (1, 3, 4), align_corners)
+    if x.dtype == torch.bfloat16:
+        raise ValueError("resize_cf: kernel I takes float32 only, not a "
+                         "bf16 volume")
     x = x.contiguous()
     if needs_grad(x):
         return _ResizeCF.apply(x, d2, h2, w2, align_corners)

@@ -40,10 +40,18 @@ serves 480x960 through them too; the same holds for D == W, ``num_disp``
 past W and any W % 4 (16-byte copies and stores where W % 4 == 0, 4-byte
 ones elsewhere).
 
-Each wrapper runs its plain PyTorch version for CPU tensors only; on a CUDA
-tensor it launches its kernel or raises. The plain versions are masked,
-shifted sums with direct indexing (never a roll that wraps) and keep the
-input dtype.
+Each wrapper runs its plain PyTorch version for CPU tensors only; on a
+CUDA tensor it launches its kernel or raises. The plain versions are masked,
+shifted sums with direct indexing (never a roll that wraps).
+
+Dtypes (the bf16-at-rest policy, ops.precision): the tap maps are built
+in float32 from the upcast features and stored in the features' dtype, as
+rag_tpu/ops/pallas_shear.py::shear_stem_z casts them to the compute
+dtype. J takes float32 or bfloat16 tap maps (bf16 rows staged widened to
+float32 by register loads, where float32 copies with cp.async), sums in
+float32 and stores z in their dtype; K takes a float32 or bf16 dz and
+writes dpx and dpy in float32. The plain versions compute in float32 (or
+float64) on the upcast inputs; J's casts its output to the maps' dtype.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ import torch
 import torch.nn.functional as F
 
 from rag_tpu_torch.ops import cuda_lib
-from rag_tpu_torch.ops.conv3d import check_f32, needs_grad
+from rag_tpu_torch.ops.conv3d import check_dtypes, needs_grad
+from rag_tpu_torch.ops.precision import wide
 
 # term order: t = 3 * dd + dw
 T9 = tuple((dd, dw) for dd in range(3) for dw in range(3))
@@ -83,7 +92,9 @@ def tap_maps(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor):
     """The eighteen per-tap feature maps, stacked (B, 9, co, H, W) x2:
     px[t] = conv31(shift_w(X, dw-1), Wx[dd, :, dw]),
     py[t] = conv31(Y, Wy[dd, :, dw]), t = 3*dd + dw. Four conv2d calls:
-    one per W shift of X (its three D taps at once) and one for Y."""
+    one per W shift of X (its three D taps at once) and one for Y, in
+    float32 (or float64) on the upcast features."""
+    x_cf, y_cf = wide(x_cf), wide(y_cf)
     c = x_cf.shape[1]
     if w3.shape[:3] != (3, 3, 3) or w3.shape[3] != 2 * c:
         raise ValueError(f"tap_maps: w3 {tuple(w3.shape)} for C={c}")
@@ -110,7 +121,10 @@ def shear_forward_plain(px: torch.Tensor, py: torch.Tensor,
                         scale: torch.Tensor, bias: torch.Tensor,
                         num_disp: int, relu: bool = False) -> torch.Tensor:
     """Plain PyTorch version of kernel J: (B, 9, co, H, W) tap maps ->
-    (B, num_disp, co, H, W), terms added in the kernel's order."""
+    (B, num_disp, co, H, W), terms added in the kernel's order, in float32
+    (or float64) on the upcast maps; the output in their dtype."""
+    out_dtype = px.dtype
+    px, py = wide(px), wide(py)
     b, _, co, h, w = px.shape
     j = torch.arange(w, device=px.device)[None, :]
     acc = px.new_zeros((b, num_disp, co, h, w))
@@ -124,13 +138,15 @@ def shear_forward_plain(px: torch.Tensor, py: torch.Tensor,
         acc = acc + torch.where(ym[None, :, None, None, :],
                                 shifted.permute(0, 3, 1, 2, 4), zero)
     y = acc * scale.reshape(1, 1, -1, 1, 1) + bias.reshape(1, 1, -1, 1, 1)
-    return torch.relu(y) if relu else y
+    return (torch.relu(y) if relu else y).to(out_dtype)
 
 
 def shear_adjoint_plain(dz: torch.Tensor, num_disp: int):
     """Plain PyTorch version of kernel K: dz (B, D, co, H, W) -> (dpx, dpy),
     each (B, 9, co, H, W), the sums over d of the forward's masked terms
-    taken back to their sources."""
+    taken back to their sources, in float32 (or float64) on the upcast
+    dz."""
+    dz = wide(dz)
     b, nd, co, h, w = dz.shape
     if nd != num_disp:
         raise ValueError(f"shear_adjoint: dz {tuple(dz.shape)}, num_disp "
@@ -163,42 +179,43 @@ def shear_forward(px: torch.Tensor, py: torch.Tensor, scale: torch.Tensor,
             or bias.shape != (co,) or num_disp < 1):
         raise ValueError(f"shear_forward: px {tuple(px.shape)}, py "
                          f"{tuple(py.shape)}, num_disp {num_disp}")
-    check_f32("shear_forward", px, py, scale, bias)
+    check_dtypes("shear_forward", (px, py), (scale, bias))
     out = torch.empty((b, num_disp, co, h, w), device=px.device,
-                      dtype=torch.float32)
-    rc = cuda_lib.lib().rag_shear_fwd(
+                      dtype=px.dtype)
+    rc = cuda_lib.entry("rag_shear_fwd", px.dtype)(
         px.data_ptr(), py.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, num_disp, co, h, w, int(relu),
         cuda_lib.stream_ptr(px))
-    shear_forward.launches += 1
+    cuda_lib.count(shear_forward, px.dtype)
     cuda_lib.check(rc, "shear_forward")
     return out
 
 
-shear_forward.launches = 0
+shear_forward.launches = shear_forward.launches_bf16 = 0
 
 
 def shear_adjoint(dz: torch.Tensor, num_disp: int):
     """Kernel K, no autograd: dz (B, num_disp, co, H, W) -> (dpx, dpy),
-    both (B, 9, co, H, W)."""
+    both (B, 9, co, H, W) float32 (float64 for a float64 dz on the
+    CPU)."""
     if not dz.is_cuda:
         return shear_adjoint_plain(dz, num_disp)
     b, nd, co, h, w = dz.shape
     if nd != num_disp:
         raise ValueError(f"shear_adjoint: dz {tuple(dz.shape)}, num_disp "
                          f"{num_disp}")
-    check_f32("shear_adjoint", dz)
+    check_dtypes("shear_adjoint", (dz,))
     dpx = torch.empty((b, 9, co, h, w), device=dz.device, dtype=torch.float32)
     dpy = torch.empty_like(dpx)
-    rc = cuda_lib.lib().rag_shear_adj(
+    rc = cuda_lib.entry("rag_shear_adj", dz.dtype)(
         dz.data_ptr(), dpx.data_ptr(), dpy.data_ptr(), b, nd, co, h, w,
         cuda_lib.stream_ptr(dz))
-    shear_adjoint.launches += 1
+    cuda_lib.count(shear_adjoint, dz.dtype)
     cuda_lib.check(rc, "shear_adjoint")
     return dpx, dpy
 
 
-shear_adjoint.launches = 0
+shear_adjoint.launches = shear_adjoint.launches_bf16 = 0
 
 
 class ShearPlan(NamedTuple):
@@ -226,21 +243,26 @@ def shear_plan(adjoint: bool, b: int, num_disp: int, co: int, h: int,
     return ShearPlan(*out)
 
 
+def _identity_affine(px: torch.Tensor):
+    """(ones, zeros) of J's affine for tap maps px: float32, or float64."""
+    co, dt = px.shape[2], torch.promote_types(px.dtype, torch.float32)
+    return (torch.ones(co, device=px.device, dtype=dt),
+            torch.zeros(co, device=px.device, dtype=dt))
+
+
 class _ShearOp(torch.autograd.Function):
     """rag_tpu/ops/pallas_shear.py::_shear_op: J at identity affine
-    forward, K backward."""
+    forward, K backward (the maps' cotangents in their dtype)."""
 
     @staticmethod
     def forward(ctx, px, py, num_disp):
-        co = px.shape[2]
         ctx.num_disp = num_disp
-        return shear_forward(px, py, px.new_ones(co), px.new_zeros(co),
-                             num_disp)
+        return shear_forward(px, py, *_identity_affine(px), num_disp)
 
     @staticmethod
     def backward(ctx, g):
         dpx, dpy = shear_adjoint(g.contiguous(), ctx.num_disp)
-        return dpx, dpy, None
+        return dpx.to(g.dtype), dpy.to(g.dtype), None
 
 
 def shear_op(px: torch.Tensor, py: torch.Tensor,
@@ -250,17 +272,17 @@ def shear_op(px: torch.Tensor, py: torch.Tensor,
     px, py = px.contiguous(), py.contiguous()
     if needs_grad(px, py):
         return _ShearOp.apply(px, py, num_disp)
-    co = px.shape[2]
-    return shear_forward(px, py, px.new_ones(co), px.new_zeros(co), num_disp)
+    return shear_forward(px, py, *_identity_affine(px), num_disp)
 
 
 def shear_stem_z(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
                  num_disp: int) -> torch.Tensor:
     """conv3d(cost_volume_cf(x, y, D), w3) via the shear collapse, pre-BN:
     (B, C, H, W) features -> (B, D, co, H, W), differentiable in x_cf,
-    y_cf and w3 (autograd through the tap-map convs, K for the assembly)."""
+    y_cf and w3 (autograd through the tap-map convs, K for the assembly).
+    The tap maps and z in x_cf's dtype."""
     px, py = tap_maps(x_cf, y_cf, w3)
-    return shear_op(px, py, num_disp)
+    return shear_op(px.to(x_cf.dtype), py.to(x_cf.dtype), num_disp)
 
 
 def shear_stem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
@@ -270,5 +292,6 @@ def shear_stem_brc(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
     folded frozen BatchNorm and the ReLU in its epilogue (as kernel B takes
     them on the default path)."""
     px, py = tap_maps(x_cf, y_cf, w3)
-    return shear_forward(px.contiguous(), py.contiguous(), scale, bias,
+    return shear_forward(px.to(x_cf.dtype).contiguous(),
+                         py.to(x_cf.dtype).contiguous(), scale, bias,
                          num_disp, relu)

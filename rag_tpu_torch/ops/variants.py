@@ -24,11 +24,21 @@ class KernelVariants:
     conv3d_dblock: bool = False
     # RAG_TPU_RESIZE_KERNEL: resize_cf (the matching cells' down/up resizes
     # and the head's two) runs kernel I, forward and adjoint, instead of
-    # the matrix products
+    # the matrix products. Kernel I takes float32 only: with a bf16 policy
+    # (ops.precision) this variant is refused (``check``), where rag_tpu/
+    # ops/pallas_resize.py's gate quietly takes the matrix products
     resize_kernel: bool = False
     # RAG_TPU_CVSTEM_SHEAR: stem_3d0 runs as eighteen (3,1) tap-map convs
     # plus kernel J (backward: kernel K) instead of kernels B, E and F
     shear_stem: bool = False
+
+    def check(self, precision) -> None:
+        """Refuses what no kernel serves, before any work: kernel I under
+        a bf16 policy (an ops.precision.Precision)."""
+        if self.resize_kernel and precision.mixed():
+            raise ValueError(
+                "resize_kernel: kernel I takes float32 volumes only, not "
+                f"{precision.compute_dtype}")
 
 
 DEFAULT = KernelVariants()

@@ -54,6 +54,7 @@ from rag_tpu_torch.data.stereo_dataset import split_half
 from rag_tpu_torch.metrics.meters import AverageMeterDict
 from rag_tpu_torch.models.growable import GrowableStereoNet
 from rag_tpu_torch.models.stereo import HEAD_NAMES, SITE_NAMES
+from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.search.mdenas import mdenas_update
 from rag_tpu_torch.train.trainer import (
@@ -87,13 +88,15 @@ class OpSearchConfig:
     split_frac: float = 0.5
 
 
-def _stereo_steps(specs, trainable, optimizer, maxdisp, variants, mesh):
+def _stereo_steps(specs, trainable, optimizer, maxdisp, variants, mesh,
+                  precision=FP32):
     # bn_sites = {}: every BatchNorm frozen during op search
     return (make_train_step(specs, frozenset(), optimizer,
                             trainable_sites=trainable, maxdisp=maxdisp,
-                            variants=variants, mesh=mesh),
+                            variants=variants, mesh=mesh,
+                            precision=precision),
             make_eval_step(specs, maxdisp=maxdisp, variants=variants,
-                           mesh=mesh))
+                           mesh=mesh, precision=precision))
 
 
 def _stereo_args(batch):
@@ -105,10 +108,12 @@ def _stereo_quality(vm):
     return 1.0 - min(max(vm.get("D1", 1.0), 0.0), 1.0), "D1"
 
 
-def _depth_steps(specs, trainable, optimizer, maxdisp, variants, mesh):
+def _depth_steps(specs, trainable, optimizer, maxdisp, variants, mesh,
+                 precision=FP32):
     return (make_depth_train_step(specs, frozenset(), optimizer,
-                                  trainable_sites=trainable, mesh=mesh),
-            make_depth_eval_step(specs, mesh=mesh))
+                                  trainable_sites=trainable, mesh=mesh,
+                                  precision=precision),
+            make_depth_eval_step(specs, mesh=mesh, precision=precision))
 
 
 def _depth_args(batch):
@@ -146,12 +151,13 @@ class OpSearch:
     def __init__(self, net: GrowableStereoNet, config: OpSearchConfig,
                  log: Optional[Callable] = print,
                  variants: KernelVariants = DEFAULT, variant: str = "stereo",
-                 mesh=None):
+                 mesh=None, precision: Precision = FP32):
         self.net = net
         self.cfg = config
         self.mesh = mesh
         self.log = log or (lambda *_: None)
         self.variants = variants
+        self.precision = precision
         self._step_cache = {}
         self._make_steps, self._batch_args, self._quality = \
             VARIANTS[variant]
@@ -165,7 +171,7 @@ class OpSearch:
                                        self.cfg.grad_clip)
             train_step, eval_step = self._make_steps(
                 specs, trainable, optimizer, self.cfg.maxdisp, self.variants,
-                self.mesh)
+                self.mesh, self.precision)
             self._step_cache[key] = (train_step, eval_step, optimizer)
         return self._step_cache[key]
 

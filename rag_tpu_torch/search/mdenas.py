@@ -51,6 +51,7 @@ from rag_tpu_torch.models.supernet import (
     init_supernet,
     supernet_forward,
 )
+from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.parallel.axis import data_group
 from rag_tpu_torch.search.genotype import Genotype, parse_genotype
@@ -100,7 +101,8 @@ class CellSearchConfig:
 
 
 def make_supernet_train_step(optimizer, maxdisp: int,
-                             variants: KernelVariants = DEFAULT, mesh=None):
+                             variants: KernelVariants = DEFAULT, mesh=None,
+                             precision: Precision = FP32):
     """step(params, stats, opt_state, lr, left, right, disp_gt, fea_ops,
     mat_ops) -> (params, new_stats, opt_state, scalars): every BatchNorm
     in train mode, SGD on every leaf (an unsampled edge's gradient is
@@ -116,7 +118,7 @@ def make_supernet_train_step(optimizer, maxdisp: int,
         def forward(p):
             disp, new_stats = supernet_forward(
                 p, stats, left, right, fea_ops, mat_ops, train=True,
-                maxdisp=maxdisp, variants=variants)
+                maxdisp=maxdisp, variants=variants, precision=precision)
             loss, _ = supervised_loss(disp, disp_gt, maxdisp, group)
             return loss, disp, new_stats
 
@@ -133,7 +135,7 @@ def make_supernet_train_step(optimizer, maxdisp: int,
 
 
 def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT,
-                            mesh=None):
+                            mesh=None, precision: Precision = FP32):
     """step(params, stats, left, right, disp_gt, fea_ops, mat_ops) ->
     scalars, with every BatchNorm frozen."""
     group = data_group(dp_only(mesh, "make_supernet_eval_step"))
@@ -143,7 +145,7 @@ def make_supernet_eval_step(maxdisp: int, variants: KernelVariants = DEFAULT,
         left, right, disp_gt = local_batch(mesh, left, right, disp_gt)
         disp, _ = supernet_forward(params, stats, left, right, fea_ops,
                                    mat_ops, train=False, maxdisp=maxdisp,
-                                   variants=variants)
+                                   variants=variants, precision=precision)
         loss, mask = supervised_loss(disp, disp_gt, maxdisp, group)
         return {"loss": loss, **stereo_metrics(disp, disp_gt, mask, mesh)}
 
@@ -203,7 +205,7 @@ class CellSearch:
     def __init__(self, config: CellSearchConfig,
                  log: Optional[Callable] = print, device="cuda",
                  variants: KernelVariants = DEFAULT, weights=None,
-                 mesh=None):
+                 mesh=None, precision: Precision = FP32):
         self.cfg = config
         self.mesh = mesh
         self.log = log or (lambda *_: None)
@@ -217,13 +219,14 @@ class CellSearch:
             "normal": np.full((NUM_EDGES, config.num_ops), 1.0 / config.num_ops),
             "reduce": np.full((NUM_EDGES, config.num_ops), 1.0 / config.num_ops),
         }
-        self._train_step, self._eval_step = self._make_steps(variants)
+        self._train_step, self._eval_step = self._make_steps(variants,
+                                                             precision)
 
-    def _make_steps(self, variants):
+    def _make_steps(self, variants, precision):
         return (make_supernet_train_step(self.optimizer, self.cfg.maxdisp,
-                                         variants, self.mesh),
+                                         variants, self.mesh, precision),
                 make_supernet_eval_step(self.cfg.maxdisp, variants,
-                                        self.mesh))
+                                        self.mesh, precision))
 
     @staticmethod
     def _batch_args(b):
@@ -394,11 +397,12 @@ class CellSearch:
 class DepthCellSearch(CellSearch):
     """MdeNAS over the depth supernet: monocular input, 2D matching half,
     silog objective, d1 reward quality. It runs no hand-written kernel,
-    so ``variants`` has nothing to pick."""
+    so ``variants`` has nothing to pick, and casts nothing, as rag_tpu's
+    depth supernet does not: ``precision`` has nothing to set."""
 
     _init_net = staticmethod(init_depth_supernet)
 
-    def _make_steps(self, variants):
+    def _make_steps(self, variants, precision):
         return (make_depth_supernet_train_step(self.optimizer, self.mesh),
                 make_depth_supernet_eval_step(self.mesh))
 

@@ -35,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.search.genotype import Genotype
 from rag_tpu_torch.search.mdenas import EPOCH, CellSearch, CellSearchConfig
@@ -77,7 +78,7 @@ class SceneParallelCellSearch:
                  scene_seeds: Optional[Sequence[int]] = None,
                  device="cuda", variants: KernelVariants = DEFAULT,
                  weights: Optional[Sequence] = None,
-                 search_cls=CellSearch):
+                 search_cls=CellSearch, precision: Precision = FP32):
         self.cfg = config
         self.num_scenes = num_scenes
         self.log = log or (lambda *_: None)
@@ -90,7 +91,8 @@ class SceneParallelCellSearch:
         self.searches = [
             search_cls(dataclasses.replace(config, seed=seed), log=self.log,
                        device=dev, variants=variants,
-                       weights=None if weights is None else weights[t])
+                       weights=None if weights is None else weights[t],
+                       precision=precision)
             for t, (seed, dev) in enumerate(zip(self.scene_seeds,
                                                 self.devices))]
         self.streams = [scene_stream(dev, t)

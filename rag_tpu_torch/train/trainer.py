@@ -60,6 +60,7 @@ from rag_tpu_torch.models.stereo import (
     full_fp32,
     stereo_forward,
 )
+from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.parallel.axis import (
     all_sum_tree,
@@ -241,7 +242,8 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
                     optimizer: SGDMomentum,
                     trainable_sites: Optional[frozenset] = None,
                     maxdisp: int = MAXDISP,
-                    variants: KernelVariants = DEFAULT, mesh=None):
+                    variants: KernelVariants = DEFAULT, mesh=None,
+                    precision: Precision = FP32):
     """Returns step(params, stats, opt_state, lr, left, right, disp_gt) ->
     (params, stats, opt_state, scalars).
 
@@ -249,7 +251,9 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
     and a running update). trainable_sites: sites whose params update;
     defaults to bn_sites. variants: the optional kernels the forward and
     its backward run (see ops.variants). mesh: data parallelism over its
-    ranks (see the module docstring).
+    ranks (see the module docstring). precision: the activations' storage
+    dtypes (ops.precision); params, momentum, statistics and gradients
+    stay float32.
 
     The step differentiates the forward (the fused head's loss, through
     kernels A-G on the card) with respect to the trainable sites' leaves
@@ -262,6 +266,7 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
     masked updates never carry them into the params, so the params agree;
     only that unused part of the state differs (it stays zero here).
     """
+    variants.check(precision)
     if trainable_sites is None:
         trainable_sites = bn_sites
     group = data_group(mesh)
@@ -274,7 +279,8 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
             disp, new_stats = stereo_forward(specs, p, stats, left, right,
                                              train_sites=bn_sites,
                                              maxdisp=maxdisp,
-                                             variants=variants, mesh=mesh)
+                                             variants=variants, mesh=mesh,
+                                             precision=precision)
             loss, _ = supervised_loss(disp, disp_gt, maxdisp, group)
             return loss, disp, new_stats
 
@@ -291,7 +297,8 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
 
 
 def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
-                   variants: KernelVariants = DEFAULT, mesh=None):
+                   variants: KernelVariants = DEFAULT, mesh=None,
+                   precision: Precision = FP32):
     """step(params, stats, left, right, disp_gt) -> dict of 0-d tensors:
     the frozen-BN serving forward, the masked loss and the stereo metrics
     (over the ranks' slices with a mesh)."""
@@ -303,7 +310,7 @@ def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
         disp_gt = slab_target(disp_gt, mesh)
         disp, _ = stereo_forward(specs, params, stats, left, right,
                                  maxdisp=maxdisp, variants=variants,
-                                 mesh=mesh)
+                                 mesh=mesh, precision=precision)
         loss, mask = supervised_loss(disp, disp_gt, maxdisp, group)
         return {"loss": loss,
                 **stereo_metrics(disp, disp_gt, mask, mesh)}
@@ -315,7 +322,8 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
                             optimizer: SGDMomentum,
                             trainable_sites: Optional[frozenset] = None,
                             maxdisp: int = MAXDISP,
-                            variants: KernelVariants = DEFAULT, mesh=None):
+                            variants: KernelVariants = DEFAULT, mesh=None,
+                            precision: Precision = FP32):
     """The photometric (self-supervised) step: make_train_step's forward,
     freezing and SGD tail, with ``photometric_loss(disp, left, right)`` in
     place of the supervised loss. ``disp_gt`` serves the D1/EPE
@@ -331,7 +339,8 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
             disp, new_stats = stereo_forward(specs, p, stats, left, right,
                                              train_sites=bn_sites,
                                              maxdisp=maxdisp,
-                                             variants=variants)
+                                             variants=variants,
+                                             precision=precision)
             return photometric_loss(disp, left, right, group), disp, new_stats
 
         loss, disp, new_stats = train_update(params, trainable_sites,
@@ -349,7 +358,7 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
 def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
                           optimizer: SGDMomentum,
                           trainable_sites: Optional[frozenset] = None,
-                          mesh=None):
+                          mesh=None, precision: Precision = FP32):
     """step(params, stats, opt_state, lr, image, depth_gt) -> (params,
     stats, opt_state, scalars): silog over gt > 0 through depth_forward,
     and the depth metrics."""
@@ -363,7 +372,8 @@ def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
 
         def forward(p):
             pred, new_stats = depth_forward(specs, p, stats, image,
-                                            train_sites=bn_sites)
+                                            train_sites=bn_sites,
+                                            precision=precision)
             return silog_loss(pred, depth_gt, mask, group=group), pred, \
                 new_stats
 
@@ -378,7 +388,8 @@ def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
     return step
 
 
-def make_depth_eval_step(specs: Mapping, mesh=None):
+def make_depth_eval_step(specs: Mapping, mesh=None,
+                         precision: Precision = FP32):
     """step(params, stats, image, depth_gt) -> dict of 0-d tensors: the
     frozen-BN depth forward, silog and the depth metrics."""
     group = data_group(dp_only(mesh, "make_depth_eval_step"))
@@ -386,7 +397,8 @@ def make_depth_eval_step(specs: Mapping, mesh=None):
     @torch.inference_mode()
     def step(params, stats, image, depth_gt):
         image, depth_gt = local_batch(mesh, image, depth_gt)
-        pred, _ = depth_forward(specs, params, stats, image)
+        pred, _ = depth_forward(specs, params, stats, image,
+                                precision=precision)
         mask = depth_gt > 0
         return {"loss": silog_loss(pred, depth_gt, mask, group=group),
                 **depth_metrics(pred, depth_gt, mask, group)}

@@ -29,6 +29,7 @@ from rank_worlds import launch
 from rag_tpu.cli import build_parser as jbuild_parser
 from rag_tpu_torch import cli
 from rag_tpu_torch.continual.driver import ContinualDriver, ExperimentConfig
+from rag_tpu_torch.ops.precision import Precision
 from rag_tpu_torch.data.synthetic import SyntheticStereoDataset
 from rag_tpu_torch.parallel.mesh import Mesh
 from rag_tpu_torch.parallel.multihost import MultihostBatcher
@@ -56,12 +57,18 @@ def test_cli_mesh_too_large_raises(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-# the id the case had beside the parts that the port now runs
+# the id the case had when --bf16 (ROADMAP.md Queue 1 item 11) was the
+# part not ported: it now checks that the flag is ported, beside a mesh
 @pytest.mark.parametrize("argv,item", [(["--bf16"], "11")], ids=["argv2-11"])
 def test_cli_unported_parts_name_their_items(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}\\)"):
-        cli.main(argv + ["--output", str(tmp_path)], device="cpu")
+    """``--bf16`` parses as rag_tpu's flag does and reaches the config as
+    ``Precision(torch.bfloat16)``, with ``--mesh 2`` as without it."""
+    for extra in ([], ["--mesh", "2"]):
+        args = cli.build_parser().parse_args(argv + extra)
+        assert args.bf16 and jbuild_parser().parse_args(argv + extra).bf16
+        cfg = cli.make_config(args)
+        assert cfg.precision == Precision(torch.bfloat16)
+        assert cfg.mesh_data == (2 if extra else 1)
 
 
 def test_mesh_without_process_group_raises():

@@ -20,11 +20,11 @@
   the CPU writes a finite ``result.json`` with zero forgetting;
   ``--eval-only`` of the committed depth checkpoint reports rag_tpu's
   depth metrics.
-- The flag of the part not ported (``--bf16``) raises
-  NotImplementedError before any work, the spatial ``--mesh D M`` and
-  ``--scene-parallel-search`` pass the check into the config as
+- ``--bf16`` reaches the config as ``Precision(torch.bfloat16)`` where
+  rag_tpu's flag sets its compute dtype to bfloat16, the spatial
+  ``--mesh D M`` and ``--scene-parallel-search`` reach the config as
   rag_tpu's parser gives them, and without CUDA ``main`` raises unless
-  asked for the CPU.
+  asked for the CPU. The config's ``precision`` is float32 without it.
 """
 
 import dataclasses
@@ -42,6 +42,7 @@ from rag_tpu.continual import driver as jdriver
 from rag_tpu_torch import cli as tcli
 from rag_tpu_torch.continual import driver as tdriver
 from rag_tpu_torch.data import manifests as tman
+from rag_tpu_torch.ops.precision import Precision
 
 KEYS = ("left", "right", "disparity")
 FULL_ARGV = [
@@ -115,6 +116,8 @@ def test_config_matches(tmp_path, monkeypatch, extra):
     for stage in ("cell", "train"):
         assert tc.pop(stage) == jc.pop(stage), stage
     assert tc.pop("op") == jc.pop("op")
+    # rag_tpu keeps its precision in the environment, the port in the config
+    assert tc.pop("precision") == dataclasses.asdict(Precision())
     assert tc == jc
     assert (t["every"], t["resume"]) == (j["every"], j["resume"])
     for td, jd in zip(t["data"], j["data"]):
@@ -241,23 +244,38 @@ def test_real_file_run_and_eval_only(tmp_path):
             matrix.m[k][0, 0], rel=1e-6, abs=0), k
 
 
-# the ids the cases had beside the variant cases that the port now runs
+# the id the case had when --bf16 was the part not ported: it now checks
+# that the flag is ported
 @pytest.mark.parametrize("argv", [["--bf16"]], ids=["argv5"])
-def test_unported_flags_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        tcli.main(argv + ["--output", str(tmp_path)], device="cpu")
-    assert not os.listdir(tmp_path)
+def test_unported_flags_raise(tmp_path, monkeypatch, argv):
+    """``--bf16`` no longer raises: the port's run gets
+    ``Precision(torch.bfloat16)`` in its config where rag_tpu's flag sets
+    its compute dtype to bfloat16. Both drivers are stopped before any
+    work."""
+    argv = argv + ["--synthetic", "--synthetic-size", "2", "--synthetic-hw",
+                   "24", "48", "--output", str(tmp_path / "logs")]
+    tcls, t = _capture(tdriver.ContinualDriver)
+    with pytest.raises(_Stop):
+        tcli.main(argv, device="cpu", driver_cls=tcls)
+    assert t["cfg"].precision == Precision(torch.bfloat16)
+    from rag_tpu.ops.precision import compute_dtype, feature_dtype
+
+    monkeypatch.setenv("RAG_TPU_COMPUTE_DTYPE", "float32")  # restored after
+    jcls, _ = _capture(jdriver.ContinualDriver)
+    monkeypatch.setattr(jdriver, "ContinualDriver", jcls)
+    with pytest.raises(_Stop):
+        jcli.main(argv)
+    # the port's feature net rides its compute dtype, as rag_tpu's does
+    assert str(compute_dtype()) == str(feature_dtype()) == "bfloat16"
 
 
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2", "2"], ["--mesh", "1", "2"], ["--scene-parallel-search"]],
     ids=["argv2", "argv3", "argv4"])
 def test_spatial_and_scene_parallel_flags_pass(argv):
-    """The spatial axis and the scene-parallel search are ported: the check
-    lets them through, and the config carries rag_tpu's mesh and search
-    fields."""
+    """The spatial axis and the scene-parallel search are ported: the
+    config carries rag_tpu's mesh and search fields."""
     args = tcli.build_parser().parse_args(argv)
-    tcli.check_ported(args)
     jargs = jcli.build_parser().parse_args(argv)
     cfg = tcli.make_config(args)
     mesh = (jargs.mesh + [1])[:2] if jargs.mesh else [1, 1]
@@ -304,6 +322,7 @@ def test_variant_config_matches(tmp_path, monkeypatch, variant):
         jcli.main(argv)
     tc, jc = dataclasses.asdict(t["cfg"]), dataclasses.asdict(j["cfg"])
     assert type(t["cfg"]).__name__ == type(j["cfg"]).__name__
+    assert tc.pop("precision") == dataclasses.asdict(Precision())
     assert tc == jc
     for td, jd in zip(t["data"], j["data"]):
         assert [len(d) for d in td] == [len(d) for d in jd]
