@@ -59,7 +59,12 @@ exception:
                    beside its float32 instance on the upcast arguments,
                    "f32_ms") and at the small shapes, a bf16 output held
                    to one bf16 ulp of its largest value beyond the float32
-                   tolerance; B's line also times the shear-collapsed
+                   tolerance; those of A, H, B, D and F also equal to the
+                   float32 instance's output on the upcast arguments at
+                   the same plan, rounded to bf16 (D's and F's dW
+                   outright), under torch.equal ("f32_equal"), with the
+                   copy path taken ("vec", which must hold at every
+                   main-path call); B's line also times the shear-collapsed
                    stem in plain PyTorch (ops.fused_stem.cost_stem_z) at
                    B's arguments;
   6. serve         per path, in turns (default, variants, variants,
@@ -900,7 +905,8 @@ def _dblock_plan(x, w, scale, bias, relu):
     def fields(p):
         return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
                 "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db}
-    return {**fields(conv3d_mod.conv_plan_dblock(*x.shape, w.shape[4])),
+    p = conv3d_mod.conv_plan_dblock(*x.shape, w.shape[4])
+    return {**fields(p), "smem_bytes": p.smem_for(x.element_size()),
             "kernel_a_plan": fields(conv3d_mod.conv_plan(*x.shape,
                                                          w.shape[4]))}
 
@@ -961,6 +967,7 @@ def _conv_plan(x, w, scale, bias, relu):
     p = conv3d_mod.conv_plan(*x.shape, w.shape[4])
     return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
             "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db,
+            "smem_bytes": p.smem_for(x.element_size()),
             "bound_tf32_ms": conv_bound(x.shape, w.shape[4], True,
                                         eb=x.element_size())}
 
@@ -994,6 +1001,7 @@ def _cvstem_plan(x_cf, y_cf, w3, scale, bias, nd, relu=True):
     a = conv3d_mod.conv_plan(b, nd, 2 * c, h, w, w3.shape[4])
     return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "mt": p.mt,
             "nt": p.nt, "n_split": p.n_split, "cc": p.cc, "db": p.db,
+            "smem_bytes": p.smem_for(x_cf.element_size()),
             "kernel_a_plan": f"{a.mt},{a.nt},{a.db} {a.th}x{a.tw}",
             "bound_tf32_ms": cvstem_bound(x_cf.shape, nd, w3.shape[4], True,
                                           eb=x_cf.element_size())}
@@ -1022,24 +1030,26 @@ def _cvstem_dw_plan(x_cf, y_cf, dz, nd):
     b, c, h, w = x_cf.shape
     p = cvstem_mod.cvstem_dw_plan(b, nd, c, h, w, dz.shape[2])
     d = conv3d_mod.dw_plan(b, nd, 2 * c, h, w, dz.shape[2])
-    return {**_dw_fields(p),
+    return {**_dw_fields(p, x_cf.element_size()),
             "live_share": cvstem_mod.cvstem_live_share(p, nd, w),
             "kernel_d_plan": f"{d.th}x{d.tw} db {d.db} co_t {d.co_t} kh_t "
                              f"{d.kh_t}"}
 
 
-def _dw_fields(p):
+def _dw_fields(p, eb):
     return {"blocks": p.blocks, "threads": p.threads,
             "tile": f"{p.th}x{p.tw}", "groups": p.groups, "db": p.db,
             "ci": p.ci, "n_ci": p.n_ci, "co_t": p.co_t, "n_co": p.n_co,
-            "kh_t": p.kh_t, "workspace_bytes": 4 * p.workspace}
+            "kh_t": p.kh_t, "workspace_bytes": 4 * p.workspace,
+            "smem_bytes": p.smem_for(eb)}
 
 
 def _dw_plan(x, dz):
     """Kernel D's plan for the call: blocks, tile (band of rows x columns),
     row groups, output planes per block, input- and output-channel chunks,
     workspace."""
-    return _dw_fields(conv3d_mod.dw_plan(*x.shape, dz.shape[2]))
+    return _dw_fields(conv3d_mod.dw_plan(*x.shape, dz.shape[2]),
+                      x.element_size())
 
 
 def _dxy_plan(dz, w3, nd):
@@ -1144,6 +1154,7 @@ KERNELS = {
         bound=lambda x, w, scale, bias, relu: conv_bound(
             x.shape, w.shape[4], eb=x.element_size()),
         library=_conv_library, beside=_conv_beside, plan=_conv_plan,
+        vec=lambda x, *a: conv3d_mod.stages_in_pieces(x),
         tol="conv", path="default", serving=True),
     "cvstem_brc": dict(
         site=(cvstem_mod, "cvstem_affine"),
@@ -1155,6 +1166,7 @@ KERNELS = {
         bound=lambda x, y, w3, scale, bias, nd, relu=True:
             cvstem_bound(x.shape, nd, w3.shape[4], eb=x.element_size()),
         library=_cvstem_library, beside=_cvstem_beside, plan=_cvstem_plan,
+        vec=lambda x, y, *a, **kw: conv3d_mod.stages_in_pieces(x, y),
         tol="conv", path="default", serving=True),
     "fused_soft_argmin": dict(
         site=(disparity_mod, "soft_argmin_fwd"),
@@ -1175,6 +1187,8 @@ KERNELS = {
                                      eb=x.element_size()),
         magnitude=lambda x, dz: (x.abs(), dz.abs()),
         library=_dw_library, beside=_dw_beside, plan=_dw_plan, tol="bwd",
+        vec=lambda x, dz: conv3d_mod.stages_in_pieces(
+            x, dz, n=conv3d_mod.dw_piece(x.element_size())),
         path="default", serving=False, bitwise=True, per_shape=True),
     "cvstem_dxy": dict(
         site=(cvstem_mod, "cvstem_dxy"),
@@ -1199,6 +1213,8 @@ KERNELS = {
         magnitude=lambda x, y, dz, nd: (x.abs(), y.abs(), dz.abs(), nd),
         library=_cvstem_dw_library, beside=_cvstem_dw_beside,
         plan=_cvstem_dw_plan, tol="bwd", path="default", serving=False,
+        vec=lambda x, y, dz, nd: conv3d_mod.stages_in_pieces(
+            x, y, dz, n=conv3d_mod.dw_piece(x.element_size())),
         bitwise=True),
     "soft_argmin_bwd": dict(
         site=(disparity_mod, "soft_argmin_bwd"),
@@ -1220,6 +1236,7 @@ KERNELS = {
         bound=lambda x, w, scale, bias, relu: conv_bound(
             x.shape, w.shape[4], eb=x.element_size()),
         library=_conv_library, beside=_dblock_beside, plan=_dblock_plan,
+        vec=lambda x, *a: conv3d_mod.stages_in_pieces(x),
         tol="conv", path="variants", serving=True),
     "resize_taps_cf": dict(
         site=(resize_mod, "resize_taps_cf"),
@@ -1262,7 +1279,13 @@ for _k in KERNELS.values():
 # wrapper's launches_bf16. name -> (positions of the activation arguments,
 # the rest float32; whether the output is bf16: D's, F's and K's are
 # float32). Each is timed beside its float32 instance on the upcast
-# arguments ("f32_ms").
+# arguments ("f32_ms"). Those of kernels A, H, B, D and F run the float32
+# instance's sums on the widened values at its plan (plans take shapes
+# only), so their output equals the float32 instance's on the upcast
+# arguments, rounded to bf16 (A, H, B), or outright (D's and F's float32
+# dW), under torch.equal ("f32_equal"); and at every main-path shape they
+# stage with cp.async in pieces ("vec": of four elements in A's engine, of
+# 16 bytes in D's).
 BF16_OF = {"conv3d_brc_cf": ((0,), True), "conv3d_dblock_cf": ((0,), True),
            "cvstem_brc": ((0, 1), True), "conv3d_dw_cf": ((0, 1), False),
            "cvstem_dxy": ((0,), True), "cvstem_dw": ((0, 1, 2), False),
@@ -1288,11 +1311,15 @@ def _f32_beside(name):
     return beside
 
 
+BF16_SAME = ("conv3d_brc_cf", "conv3d_dblock_cf", "cvstem_brc",
+             "conv3d_dw_cf", "cvstem_dw")
+
+
 BF16_KERNELS = {
     bf16_name(n): {**{k: v for k, v in KERNELS[n].items()
                       if k not in ("beside", "beside_graph", "max_err")},
                    "base": n, "count": "launches_bf16", "bf16_out": out,
-                   "beside": _f32_beside(n)}
+                   "beside": _f32_beside(n), "same_as_f32": n in BF16_SAME}
     for n, (_, out) in BF16_OF.items()}
 ALL_KERNELS = {**KERNELS, **BF16_KERNELS}
 
@@ -1633,10 +1660,18 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
     times of kernel, plain, library and (with beside) the calls timed
     beside it. Returns a result dict (no assertion here). A bf16 instance
     whose output is bf16 is held to one bf16 ulp of its largest value
-    beyond its float32 instance's tolerance."""
+    beyond its float32 instance's tolerance; one of BF16_SAME also to its
+    float32 instance on the upcast arguments, rounded to bf16, under
+    torch.equal (f32_equal)."""
     k = ALL_KERNELS[name]
     with torch.inference_mode():
         out = k["wrapper"](*args, **kw)
+        f32_equal = None
+        if k.get("same_as_f32"):
+            out32 = KERNELS[k["base"]]["wrapper"](
+                *cast_acts(k["base"], args, torch.float32), **kw)
+            f32_equal = torch.equal(out, out32.to(out.dtype))
+            del out32
         ref = k["plain"](*args, **kw)
         # a kernel that sums in a fixed order gives the same bits twice
         same = True
@@ -1671,8 +1706,10 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
                  for f, fn in k["beside"](*args, **kw).items()}
     bound_ms, bound_by = k["bound"](*args, **kw)
     plan = k["plan"](*args, **kw) if "plan" in k else {}
-    return dict(err=err, tol=tol, ok=bool(err <= tol) and same, same=same,
-                ms=ms,
+    return dict(err=err, tol=tol,
+                ok=bool(err <= tol) and same and f32_equal is not False,
+                same=same, f32_equal=f32_equal,
+                vec=k["vec"](*args, **kw) if "vec" in k else None, ms=ms,
                 plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
                 bound_ops_ms=bound_ms if bound_by == "operations" else 0.0,
                 bound_by=bound_by, beside=extra, plan=plan)
@@ -1744,11 +1781,19 @@ def phase_kernels(args_of, dev, extra_args=None):
                 **r["beside"], **r["plan"]}
         if ALL_KERNELS[name].get("bitwise"):
             line["repeat_bit_identical"] = r["same"]
+        if r["vec"] is not None:
+            line["vec"] = r["vec"]
+        if r["f32_equal"] is not None:
+            line["f32_equal"] = r["f32_equal"]
         log(f"[kernels] {json.dumps(line)}")
         if not r["ok"]:
             failures.append(f"{name} {where} {sig}: max_abs_err {r['err']:.3g}"
                             f" (tolerance {r['tol']:.3g}), two launches "
-                            f"bit-identical: {r['same']}")
+                            f"bit-identical: {r['same']}, equal to the "
+                            f"float32 instance: {r['f32_equal']}")
+        if main and ALL_KERNELS[name].get("same_as_f32") and not r["vec"]:
+            failures.append(f"{name} {where} {sig}: a main-path bf16 call "
+                            "not staged in pieces (vec false)")
         ALL_KERNELS[name].setdefault("max_err", 0.0)
         ALL_KERNELS[name]["max_err"] = max(ALL_KERNELS[name]["max_err"],
                                            r["err"])

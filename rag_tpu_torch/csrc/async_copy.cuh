@@ -1,16 +1,21 @@
 // cp.async helpers shared by kernels A (conv3d.cu), D (conv3d_dw.cu) and E
-// (cvstem_dxy.cu): 4- and 16-byte global -> shared copies that zero-fill
-// where the source lies outside the volume, committed in groups and waited
-// on group by group. And the element rule of the bf16-at-rest policy
-// (rag_tpu_torch/ops/precision.py): a kernel's activations are float32 or
-// bf16 (Elem); shared memory and every sum are float32, so a bf16 element
-// is widened as it is staged (a register load: cp.async copies bytes and
-// cannot widen) and rounded to nearest even as an output is stored.
+// (cvstem_dxy.cu): 4-, 8- and 16-byte global -> shared copies that
+// zero-fill where the source lies outside the volume, committed in groups
+// and waited on group by group. And the element rule of the bf16-at-rest
+// policy (rag_tpu_torch/ops/precision.py): a kernel's activations are
+// float32 or bf16 (Elem) and every sum is float32. cp.async copies bytes
+// and cannot widen, so the engines of A and D stage a bf16 slab as it is,
+// two bytes an element (A: 8-byte pieces of four; D: 16-byte pieces of
+// eight), and widen it in shared memory (widen_bits: a bf16 is the top
+// half of its float32); kernels E, J and K still widen each element as
+// they stage it (a register load). An output is rounded to nearest even
+// as it is stored.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace rag {
@@ -31,8 +36,18 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-// The same for four floats; dst and src 16-byte aligned.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+// 8 bytes; dst and src 8-byte aligned. (.cg takes 16 bytes only, so
+// these pass through L1.)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// 16 bytes (four floats); dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -58,7 +73,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // One element of a float32 or bf16 source into shared memory as float32,
 // or 0 where !valid (src is then not read): a 4-byte cp.async for float32;
 // for bf16 a register load and widening store, visible to the block after
-// the __syncthreads() that publishes the cp.async copies of the same stage.
+// the __syncthreads() that publishes the cp.async copies of the same stage
+// (kernels E, J, K).
 __device__ __forceinline__ void stage1(float* dst, const float* src,
                                        bool valid) {
   cp_async4(dst, src, valid);
@@ -66,6 +82,33 @@ __device__ __forceinline__ void stage1(float* dst, const float* src,
 __device__ __forceinline__ void stage1(float* dst, const bf16* src,
                                        bool valid) {
   *dst = valid ? __bfloat162float(*src) : 0.f;
+}
+// One bf16 element into a bf16 slab as it is (there is no 2-byte
+// cp.async): a register load and store, published as stage1's.
+__device__ __forceinline__ void stage1(bf16* dst, const bf16* src,
+                                       bool valid) {
+  *dst = valid ? *src : __ushort_as_bfloat16(0);
+}
+
+// A piece of N elements into a slab of the same type, or zeros where
+// !valid: one cp.async of its 8 or 16 bytes (dst and src aligned to the
+// piece). Kernel A's engine copies pieces of four elements (16 bytes of
+// float32, 8 of bf16), kernel D's pieces of 16 bytes (four floats, eight
+// bf16).
+template <int N, class Elem>
+__device__ __forceinline__ void stage_n(Elem* dst, const Elem* src,
+                                        bool valid) {
+  constexpr int bytes = N * (int)sizeof(Elem);
+  static_assert(bytes == 8 || bytes == 16, "a piece is 8 or 16 bytes");
+  if constexpr (bytes == 16)
+    cp_async16(dst, src, valid);
+  else
+    cp_async8(dst, src, valid);
+}
+
+// A bf16 as the bits of its float32 (exact: bf16 is float32's top half).
+__device__ __forceinline__ uint32_t widen_bits(bf16 h) {
+  return (uint32_t)__bfloat16_as_ushort(h) << 16;
 }
 
 // A float32 result as an output element (bf16: rounded to nearest even).

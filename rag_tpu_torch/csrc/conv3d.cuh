@@ -47,10 +47,12 @@
 //     volume) lands with cp.async in one of two buffers while the previous
 //     stage is multiplied: one cp.async.wait_group and two __syncthreads()
 //     per stage. Rows start 4 columns left of the tile, so where W % 4 == 0
-//     and x is 16-byte aligned (every main-path call) they copy in 16-byte
-//     pieces, else in 4-byte ones (chip_smoke.py times both). A channel
-//     block's stride is 8 mod 32 floats, so the four k-columns a warp reads
-//     sit on separate banks.
+//     and x is aligned to a piece of four elements (every main-path call)
+//     they copy in pieces of four (16 bytes of float32, 8 of bf16), else
+//     one element at a time (chip_smoke.py times both). A channel block's
+//     stride is 8 mod 32 words (8 mod 32 floats, 16 mod 64 bf16), so the
+//     four k-columns a warp reads (eight pixels each) sit on separate
+//     banks.
 //   * With DB = 4 each staged input plane feeds the three output planes
 //     that read it (taps kd = 2, 1, 0): the plane is staged and its A
 //     fragments split once instead of three times. It is faster where N
@@ -66,24 +68,30 @@
 //   * The input policy (volume_src.cuh) gives each staged row's source. For
 //     kernel B's cost volume a row of the X half is X's row from the
 //     diagonal on, a row of the Y half Y's row shifted right by the plane:
-//     at Cin = 2C = 24 each stage (cc = 12) is one half. Y's rows at planes
-//     p % 4 != 0 and the piece that straddles the diagonal copy 4 bytes at
-//     a time. A block skips the stages of planes p > w0 + tw, which are
-//     zero under its whole tile and halo (their products are zeros: the
-//     sums are the same bits).
+//     at Cin = 2C = 24 each stage (cc = 12) is one half. In float32, Y's
+//     rows at planes p % 4 != 0 and the piece that straddles the diagonal
+//     copy 4 bytes at a time. A block skips the stages of planes
+//     p > w0 + tw, which are zero under its whole tile and halo (their
+//     products are zeros: the sums are the same bits).
 //   * bf16 at rest (rag_tpu_torch/ops/precision.py): the input volume (or
 //     the two feature maps) and the output may be bf16 (the policy's Elem).
-//     A bf16 slab is staged widened to float32 by register loads, 4 bytes
-//     of shared memory per element (cp.async copies bytes and cannot
-//     widen), so the split, the 3xTF32 products and the sums are the
-//     float32 path's (a bf16 value is exact in TF32: its lo part is 0); the
-//     epilogue rounds to bf16 (__float2bfloat16_rn). The packed weights,
-//     scale and bias stay float32, as rag_tpu/ops/pallas_conv3d.py keeps
-//     them. Giving up cp.async for bf16 is the simple form; a fast one
-//     would copy the half-size slab and widen it in shared memory.
+//     A bf16 slab is staged as it is, 2 bytes an element, by the same
+//     cp.async double buffer in 8-byte pieces. A stage of the cost volume
+//     that is all Y sits col_offset = p % 4 columns right (volume_src.cuh),
+//     so Y's pieces copy whole at every plane and the fragment loads read
+//     that many columns further on; only the X row's diagonal piece and a Y
+//     row's piece at the right edge copy element by element. A fragment
+//     load widens its bf16 with a shift (widen_bits). A bf16 value is exact
+//     in TF32, so its split is the value itself and a zero lo: the a_lo*b_hi
+//     product is zero and is not issued, and a k-step is two mma, a_hi*b_lo
+//     into a zero accumulator, then a_hi*b_hi. The sums are the float32
+//     path's on the widened values bit for bit (but for a zero's sign): a
+//     zero product into a zero accumulator adds nothing. The epilogue rounds
+//     to bf16 (__float2bfloat16_rn). The packed weights, scale and bias stay
+//     float32, as rag_tpu/ops/pallas_conv3d.py keeps them.
 // The tensor cores' mma.sync TF32 rate, not the float32 FMA rate, bounds
-// the design (3 products per multiply-add); wgmma, which reaches the full
-// TF32 rate, is later work.
+// the design (3 products per multiply-add, 2 for bf16); wgmma, which
+// reaches the full TF32 rate, is later work.
 #pragma once
 
 #include <cstdint>
@@ -95,8 +103,6 @@
 
 namespace {
 
-using rag::cp_async4;
-using rag::cp_async16;
 using rag::cp_async_commit;
 using rag::cp_async_wait_all_but_one;
 
@@ -112,18 +118,24 @@ struct ConvArgs {
   const float* bias;
   typename Src::T* out;  // in the input's element type
   int D, Cin, H, W, Cout;
-  int tw, th, n_wt, n_split, cc, n_cc, ksteps, cs, relu;
-  int vec;  // rows copied in 16-byte pieces
+  int tw, th, n_wt, n_split, cc, n_cc, ksteps, relu;
+  int cs;   // elements per staged channel (chan_stride)
+  int vec;  // rows copied in pieces of four elements (Src::vec<4>())
 };
 
 // Staged columns per row: w0-4 .. w0+tw+3, so that a row starts on a
-// 16-byte boundary whenever W % 4 == 0; tile pixel x at tap kw sits at
-// column x + kw + 3.
+// piece boundary whenever W % 4 == 0; tile pixel x at tap kw sits at
+// column x + kw + 3 (plus the stage's col_offset).
 __host__ __device__ inline int slab_width(int tw) { return tw + 8; }
 
-// Floats per staged channel: at least (th + 2) rows, and 8 mod 32.
+// Elements per staged channel: at least (th + 2) rows, and 8 mod 32 words
+// (float32: 8 mod 32; bf16: 16 mod 64, whole 8-byte pieces).
+template <class Elem>
 __host__ __device__ inline int chan_stride(int th, int tw) {
-  return ((th + 2) * slab_width(tw) + 23) / 32 * 32 + 8;
+  constexpr int per_word = 4 / (int)sizeof(Elem);
+  const int n = 32 * per_word;
+  return ((th + 2) * slab_width(tw) + n - 8 * per_word - 1) / n * n +
+         8 * per_word;
 }
 
 // v rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
@@ -208,15 +220,18 @@ template <int MT, int NT, int DB, class Src>
 __global__ void __launch_bounds__(kThreads)
 conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
   using Elem = typename Src::T;
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kF32 = rag::kF32<Elem>;
+  extern __shared__ __align__(16) float smem_raw[];
+  Elem* smem = reinterpret_cast<Elem*>(smem_raw);  // two staging buffers
   const int sw = slab_width(a.tw), sh = a.th + 2;
-  const int buf_floats = a.cc * a.cs;
-  int* s_off = reinterpret_cast<int*>(smem + 2 * buf_floats);
+  const int buf_elems = a.cc * a.cs;
+  int* s_off = reinterpret_cast<int*>(smem + 2 * buf_elems);
 
   // k -> slab offset of (kh, kw, ci); padded k read any staged value,
-  // which meets a zero weight
+  // which meets a zero weight (bf16: one at column 3 or more, inside the
+  // slab at any col_offset)
   for (int k = threadIdx.x; k < a.ksteps * 8; k += kThreads) {
-    int off = 0;
+    int off = kF32 ? 0 : 3;
     if (k < 9 * a.cc) {
       const int tap = k / a.cc, ci = k - tap * a.cc;
       off = ci * a.cs + (tap / 3) * sw + tap % 3 + 3;
@@ -241,16 +256,12 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
     pix[m] = (i / per_row) * sw + (i % per_row) * 16 + g;
   }
 
-  // 16-byte copies where every staged row starts on a 16-byte boundary
-  // (float32 only)
+  // copies of four elements where every staged row starts on a piece
+  // boundary
   const Elem* x = a.src.x;  // the stored volume, or X (and a global
                             // address for zero fills)
-  const bool vec = rag::kF32<Elem> &&
-                   (Src::kCostVolume
-                        ? a.vec != 0
-                        : a.W % 4 == 0 &&
-                              (reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  const int cpr = sw / 4;    // 16-byte chunks per row
+  const bool vec = a.vec != 0;
+  const int cpr = sw / 4;    // pieces per row
   const int rpi = 32 / cpr;  // rows per warp pass (vec)
   const int lane_row = lane / cpr, lane_q = lane % cpr;
 
@@ -264,54 +275,61 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
     n_stages = max(min(p_hi, a.src.last_live_plane(w0 + a.tw)) - p_lo + 1,
                    0) * a.n_cc;
 
-  auto stage = [&](int st, float* dst) {
+  // the columns right of the float32 layout that stage st sits (bf16
+  // stages of the cost volume that are all Y: volume_src.cuh)
+  auto col_offset = [&](int st) {
+    if constexpr (Src::kCostVolume) {
+      if (vec)
+        return a.src.template col_offset<4>(p_lo + st / a.n_cc,
+                                            (st % a.n_cc) * a.cc);
+    }
+    return 0;
+  };
+
+  auto stage = [&](int st, Elem* dst) {
     const int p = p_lo + st / a.n_cc, c0 = (st % a.n_cc) * a.cc;
     const int n_rows = a.cc * sh;
     if constexpr (Src::kCostVolume) {
       // the policy's rows (volume_src.cuh)
-      if constexpr (rag::kF32<Elem>) {
-        if (vec) {
-          if (lane_row >= rpi) return;
-          const int step = kWarps * rpi;
-          int row = warp * rpi + lane_row;
-          int ci = row / sh, r = row - ci * sh;
-          for (; row < n_rows; row += step) {
-            rag::stage_piece(dst + ci * a.cs + r * sw + 4 * lane_q,
-                             a.src.row(b, p, c0 + ci, h0 - 1 + r),
-                             w0 - 4 + 4 * lane_q, x);
-            for (r += step; r >= sh; r -= sh) ++ci;
-          }
-          return;
+      if (vec) {
+        if (lane_row >= rpi) return;
+        const int step = kWarps * rpi;
+        const int j0 = w0 - 4 + col_offset(st) + 4 * lane_q;
+        int row = warp * rpi + lane_row;
+        int ci = row / sh, r = row - ci * sh;
+        for (; row < n_rows; row += step) {
+          rag::stage_piece<4>(dst + ci * a.cs + r * sw + 4 * lane_q,
+                              a.src.row(b, p, c0 + ci, h0 - 1 + r), j0, x);
+          for (r += step; r >= sh; r -= sh) ++ci;
         }
+        return;
       }
       for (int row = warp; row < n_rows; row += kWarps) {
         const int ci = row / sh, r = row - ci * sh;
         const rag::SrcRow<Elem> src = a.src.row(b, p, c0 + ci, h0 - 1 + r);
-        float* dst_row = dst + ci * a.cs + r * sw;
+        Elem* dst_row = dst + ci * a.cs + r * sw;
         for (int col = lane; col < sw; col += 32)
           rag::stage_col(dst_row + col, src, w0 - 4 + col, x);
       }
       return;
     }
     const size_t plane = ((size_t)b * a.D + p) * a.Cin;
-    if constexpr (rag::kF32<Elem>) {
-      if (vec) {
-        if (lane_row >= rpi) return;
-        const int step = kWarps * rpi;
-        int row = warp * rpi + lane_row;
-        int ci = row / sh, r = row - ci * sh;
-        for (; row < n_rows; row += step) {
-          const int h = h0 - 1 + r;
-          const int w = w0 - 4 + 4 * lane_q;
-          const bool ok = c0 + ci < a.Cin && h >= 0 && h < a.H && w >= 0 &&
-                          w < a.W;
-          const float* src =
-              ok ? x + ((plane + c0 + ci) * a.H + h) * (size_t)a.W + w : x;
-          cp_async16(dst + ci * a.cs + r * sw + 4 * lane_q, src, ok);
-          for (r += step; r >= sh; r -= sh) ++ci;
-        }
-        return;
+    if (vec) {
+      if (lane_row >= rpi) return;
+      const int step = kWarps * rpi;
+      int row = warp * rpi + lane_row;
+      int ci = row / sh, r = row - ci * sh;
+      for (; row < n_rows; row += step) {
+        const int h = h0 - 1 + r;
+        const int w = w0 - 4 + 4 * lane_q;
+        const bool ok = c0 + ci < a.Cin && h >= 0 && h < a.H && w >= 0 &&
+                        w < a.W;
+        const Elem* src =
+            ok ? x + ((plane + c0 + ci) * a.H + h) * (size_t)a.W + w : x;
+        rag::stage_n<4>(dst + ci * a.cs + r * sw + 4 * lane_q, src, ok);
+        for (r += step; r >= sh; r -= sh) ++ci;
       }
+      return;
     }
     for (int row = warp; row < n_rows; row += kWarps) {
       const int ci = row / sh, r = row - ci * sh;
@@ -320,7 +338,7 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
       const Elem* src =
           x + ((plane + (row_ok ? c0 + ci : 0)) * a.H + (row_ok ? h : 0)) *
                   (size_t)a.W;
-      float* dst_row = dst + ci * a.cs + r * sw;
+      Elem* dst_row = dst + ci * a.cs + r * sw;
       for (int col = lane; col < sw; col += 32) {
         const int w = w0 - 4 + col;
         const bool ok = row_ok && w >= 0 && w < a.W;
@@ -342,25 +360,30 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
   if (!Src::kCostVolume || n_stages > 0) stage(0, smem);
   cp_async_commit();
   for (int st = 0; st < n_stages; ++st) {
-    if (st + 1 < n_stages) stage(st + 1, smem + ((st + 1) & 1) * buf_floats);
+    if (st + 1 < n_stages) stage(st + 1, smem + ((st + 1) & 1) * buf_elems);
     cp_async_commit();
     cp_async_wait_all_but_one();
     __syncthreads();  // stage st (and the k table) visible to every thread
 
-    const float* sb = smem + (st & 1) * buf_floats;
+    const Elem* sb = smem + (st & 1) * buf_elems - col_offset(st);
     const int p = p_lo + st / a.n_cc, ch = st % a.n_cc;
     for (int ks = 0; ks < a.ksteps; ++ks) {
       const int o0 = s_off[ks * 8 + t], o1 = s_off[ks * 8 + t + 4];
       // A fragments: rows g, g+8 (pixels) x columns t, t+4 (k), split
+      // (bf16: widened, lo = 0)
       uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const float v[4] = {sb[o0 + pix[m]], sb[o0 + pix[m] + 8],
-                            sb[o1 + pix[m]], sb[o1 + pix[m] + 8]};
+        const Elem v[4] = {sb[o0 + pix[m]], sb[o0 + pix[m] + 8],
+                           sb[o1 + pix[m]], sb[o1 + pix[m] + 8]};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          ah[m][e] = tf32_rna(v[e]);
-          al[m][e] = tf32_rna(v[e] - __uint_as_float(ah[m][e]));
+          if constexpr (kF32) {
+            ah[m][e] = tf32_rna(v[e]);
+            al[m][e] = tf32_rna(v[e] - __uint_as_float(ah[m][e]));
+          } else {
+            ah[m][e] = rag::widen_bits(v[e]);
+          }
         }
       }
 #pragma unroll
@@ -388,10 +411,14 @@ conv3d_tf32x3_kernel(const ConvArgs<Src> a) {
             // round-to-nearest add: the tensor cores' accumulation
             // truncates, and chained over all of K (up to 486 mma at Cin 48)
             // its bias reached 8e-6 of the output at Cin 36 (3-10x float32
-            // FMAs)
+            // FMAs). bf16: a_lo = 0, so two products
             float part[4];
-            mma_tf32_zero(part, al[m], bh[n][0], bh[n][1]);
-            mma_tf32(part, ah[m], bl[n][0], bl[n][1]);
+            if constexpr (kF32) {
+              mma_tf32_zero(part, al[m], bh[n][0], bh[n][1]);
+              mma_tf32(part, ah[m], bl[n][0], bl[n][1]);
+            } else {
+              mma_tf32_zero(part, ah[m], bl[n][0], bl[n][1]);
+            }
             mma_tf32(part, ah[m], bh[n][0], bh[n][1]);
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[j][m][n][e] += part[e];
@@ -470,16 +497,17 @@ int conv_setup(ConvArgs<Src>& a, dim3& grid, int& smem, const Src& src,
   a.n_wt = (W + tw - 1) / tw;
   a.n_split = n_split, a.cc = cc, a.n_cc = (Cin + cc - 1) / cc;
   a.ksteps = (9 * cc + 7) / 8;
-  a.cs = chan_stride(a.th, tw);
+  a.cs = chan_stride<typename Src::T>(a.th, tw);
   a.relu = relu;
-  a.vec = src.vec();
+  a.vec = src.template vec<4>();
   const int n_ht = (H + a.th - 1) / a.th;
   const int n_db = (D + db - 1) / db;
   if (n_db > 65535 || (long long)B * n_split > 65535 ||
       (long long)a.n_wt * n_ht > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   grid = dim3(a.n_wt * n_ht, n_db, B * n_split);
-  smem = (2 * cc * a.cs + 8 * a.ksteps) * (int)sizeof(float);
+  smem = 2 * cc * a.cs * (int)sizeof(typename Src::T) +
+         8 * a.ksteps * (int)sizeof(int);
   return launch_pack(static_cast<const float*>(w), static_cast<float4*>(frag),
                      32LL * n_split * 3 * a.n_cc * a.ksteps * nt, Cin, Cout,
                      cc, a.n_cc, a.ksteps, nt, stream);

@@ -14,10 +14,16 @@
 //     padding. Column j >= W reads zero although Y[j - d] exists there: the
 //     reference clips its source column and then masks, so nothing of Y
 //     leaks into the W halo.
-// The Python form of these rules, which the CPU tests emulate, is
-// rag_tpu_torch/ops/cvstem.py::stage_piece. Both policies take float32 or
-// bf16 elements (Elem); a bf16 volume is staged 4 bytes of float32 per
-// element through stage1 (async_copy.cuh), never in 16-byte pieces.
+// Both policies take float32 or bf16 elements (Elem). Rows copy in pieces
+// of N elements where the policy's vec(N) holds: kernel A's engine N = 4
+// (16 bytes of float32, 8 of bf16), kernel D's 16 bytes (N = 4 floats or
+// 8 bf16). A piece copies whole only where its source is aligned to the
+// piece, which Y's rows at planes p % N != 0 are not, so a bf16 stage that
+// is all Y (kernels B and F: at Cin = 24 a stage is one half) is staged at
+// Y's own alignment, col_offset = p % N columns right of where the float32
+// one starts, and read at that offset. The Python form of these rules,
+// which the CPU tests emulate, is rag_tpu_torch/ops/cvstem.py::
+// stage_piece and stage_offset.
 #pragma once
 
 #include <cstddef>
@@ -37,8 +43,10 @@ struct SrcRow {
   int shift, lo, hi;
 };
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// whether p is aligned to a piece of N Elem
+template <int N, class Elem>
+inline bool piece_aligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) % (N * sizeof(Elem))) == 0;
 }
 
 // A stored (B, D, Cin, H, W) volume of row length W.
@@ -49,8 +57,11 @@ struct VolumeSrc {
   const Elem* x;
   int W;
 
-  // whether rows may be copied in 16-byte pieces (float32 only)
-  bool vec() const { return kF32<Elem> && W % 4 == 0 && aligned16(x); }
+  // whether rows may be copied in pieces of N elements
+  template <int N>
+  bool vec() const {
+    return W % N == 0 && piece_aligned<N, Elem>(x);
+  }
 };
 
 // The concat cost volume of two (B, C, H, W) feature maps, 2C channels
@@ -75,38 +86,49 @@ struct CostVolumeSrc {
   // the last plane with a nonzero value in some column <= j: plane p is
   // zero at every column j < p
   __device__ __forceinline__ int last_live_plane(int j) const { return j; }
+  template <int N>
   bool vec() const {
-    return kF32<Elem> && W % 4 == 0 && aligned16(x) && aligned16(y);
+    return W % N == 0 && piece_aligned<N, Elem>(x) &&
+           piece_aligned<N, Elem>(y);
+  }
+  // How many columns right of where a float32 stage starts a bf16 stage of
+  // plane p in pieces of N, whose channels start at c0, sits: p % N where
+  // the stage is all Y (c0 >= C), so that Y's pieces copy whole, else 0. A
+  // float32 stage keeps 0 (Y's rows at p % 4 != 0 copy 4 bytes at a time).
+  template <int N>
+  __device__ __forceinline__ int col_offset(int p, int c0) const {
+    return !kF32<Elem> && c0 >= C ? p & (N - 1) : 0;
   }
 };
 
-// Columns j0 .. j0+3 of a row into dst (16-byte aligned; j0 % 4 == 0 and
-// the policy's vec() held): one 16-byte copy where all four columns are
-// inside and their source is 16-byte aligned (Y's rows at planes p % 4 !=
-// 0 are not), one 16-byte zero fill where none is inside, else four 4-byte
-// copies or fills (the diagonal's piece, unaligned sources). `any` is a
-// global address for the fills. float32 rows only (vec()).
-__device__ __forceinline__ void stage_piece(float* dst,
-                                            const SrcRow<float>& r, int j0,
-                                            const float* any) {
+// Columns j0 .. j0+N-1 of a row into dst (aligned to the piece; the
+// policy's vec<N>() held): one copy of the piece (stage_n) where all N
+// columns are inside and their source is aligned to the piece (Y's rows at
+// planes p % N != 0 are not, unless the stage was offset by col_offset),
+// one zero fill of it where none is inside, else one element at a time
+// (stage1: the diagonal's piece, a bf16 Y row's piece at the right edge,
+// unaligned sources). `any` is a global address for the fills.
+template <int N, class Elem>
+__device__ __forceinline__ void stage_piece(Elem* dst, const SrcRow<Elem>& r,
+                                            int j0, const Elem* any) {
   const int s0 = j0 - r.shift;
-  if (j0 >= r.lo && j0 + 4 <= r.hi && (s0 & 3) == 0) {
-    cp_async16(dst, r.src + s0, true);
-  } else if (j0 + 4 <= r.lo || j0 >= r.hi) {
-    cp_async16(dst, any, false);
+  if (j0 >= r.lo && j0 + N <= r.hi && (s0 & (N - 1)) == 0) {
+    stage_n<N>(dst, r.src + s0, true);
+  } else if (j0 + N <= r.lo || j0 >= r.hi) {
+    stage_n<N>(dst, any, false);
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < N; ++e) {
       const int j = j0 + e;
       const bool ok = j >= r.lo && j < r.hi;
-      cp_async4(dst + e, ok ? r.src + (j - r.shift) : any, ok);
+      stage1(dst + e, ok ? r.src + (j - r.shift) : any, ok);
     }
   }
 }
 
-// Column j of a row into dst, as one float32 (stage1).
+// Column j of a row into dst, one element (stage1).
 template <class Elem>
-__device__ __forceinline__ void stage_col(float* dst, const SrcRow<Elem>& r,
+__device__ __forceinline__ void stage_col(Elem* dst, const SrcRow<Elem>& r,
                                           int j, const Elem* any) {
   const bool ok = j >= r.lo && j < r.hi;
   stage1(dst, ok ? r.src + (j - r.shift) : any, ok);

@@ -60,12 +60,17 @@ for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
 
 Dtypes (the bf16-at-rest policy, ops.precision): x, and the dx conv's
 cotangent, are float32 or bfloat16; weights, scale and bias float32. A
-bf16 volume is staged into shared memory widened to float32 (a register
-load where the float32 path copies with cp.async), the sums run as for
-float32, and A and H store the output in x's dtype; D stores dW in
-float32, as rag_tpu/ops/pallas_conv3d.py's kernels do. The plain versions
-follow the same rule: a float32 computation on the upcast input, the
-output cast to the kernel's output dtype.
+bf16 volume is staged with cp.async as it is, at the float32 instance's
+plan: A and H copy 8-byte pieces of four elements into a bf16 slab and
+widen it as their fragments load (two TF32 products a multiply-add where
+float32 takes three: a bf16 value's TF32 lo part is zero); D copies
+16-byte pieces of eight into a landing slab and widens each plane into
+its float32 slots in one pass (``dw_smem_bytes``, ``widen_landed``). The
+sums are the float32 instance's on the upcast input bit for bit (but for
+a zero's sign); A and H store the output in x's dtype, D stores dW in
+float32, as rag_tpu/ops/pallas_conv3d.py's kernels do. The plain
+versions follow the same rule: a float32 computation on the upcast input,
+the output cast to the kernel's output dtype.
 """
 
 from __future__ import annotations
@@ -117,7 +122,9 @@ CONV_MIN_VOXELS = CONV_MIN_BLOCKS * 128
 
 
 class ConvPlan(NamedTuple):
-    """Kernel A's blocking of one call (csrc/conv3d.cu's arguments)."""
+    """Kernel A's blocking of one call (csrc/conv3d.cu's arguments). The
+    plan takes shapes only, so float32 and bf16 run the same one;
+    ``smem`` is the float32 instance's bytes, ``smem_for`` either's."""
     mt: int           # m-tiles (16 pixels) per warp
     nt: int           # n-tiles (8 output channels) per block
     tw: int           # tile columns
@@ -130,13 +137,28 @@ class ConvPlan(NamedTuple):
     n_ht: int         # tiles along H
     db: int           # output planes per block
     blocks: int       # blocks per launch
-    smem: int         # dynamic shared memory per block, bytes
+    smem: int         # dynamic shared memory per block, bytes (float32)
+
+    def smem_for(self, eb: int) -> int:
+        """Bytes of shared memory of the instance with eb-byte
+        activations (4: float32, 2: bf16)."""
+        return conv_smem_bytes(self.cc, self.th, self.tw, self.ksteps, eb)
 
 
-def _chan_stride(th: int, tw: int) -> int:
-    """Floats per staged channel (csrc/conv3d.cu::chan_stride): rows of
-    tw + 8 columns, the channel 8 mod 32 floats long."""
-    return ((th + 2) * (tw + 8) + 23) // 32 * 32 + 8
+def _chan_stride(th: int, tw: int, eb: int = 4) -> int:
+    """Elements per staged channel (csrc/conv3d.cuh::chan_stride): rows of
+    tw + 8 columns, the channel 8 mod 32 words long (float32: 8 mod 32
+    elements; bf16, eb = 2: 16 mod 64), so that the four k-columns of a
+    fragment load sit on separate banks."""
+    n = 32 * 4 // eb
+    return ((th + 2) * (tw + 8) + n - 32 // eb - 1) // n * n + 32 // eb
+
+
+def conv_smem_bytes(cc: int, th: int, tw: int, ksteps: int,
+                    eb: int = 4) -> int:
+    """Kernel A's shared memory (csrc/conv3d.cuh::conv_setup): two staging
+    buffers of cc channels of eb-byte elements, and the k table."""
+    return eb * 2 * cc * _chan_stride(th, tw, eb) + 4 * 8 * ksteps
 
 
 def conv_candidates(b: int, d: int, cin: int, h: int, w: int, cout: int,
@@ -190,9 +212,9 @@ def conv_candidates(b: int, d: int, cin: int, h: int, w: int, cout: int,
             per_block = (db + 2) * n_cc * (m_tiles * ksteps * 8
                                            + cc * (th + 2) * row_cost) \
                 + 3 * db * n_cc * m_tiles * ksteps * 7 * nt
-            cs = _chan_stride(th, tw)
             plan = ConvPlan(mt, nt, tw, th, n_split, cc, n_cc, ksteps, n_wt,
-                            n_ht, db, blocks, 4 * (2 * cc * cs + 8 * ksteps))
+                            n_ht, db, blocks,
+                            conv_smem_bytes(cc, th, tw, ksteps))
             ok = blocks >= CONV_MIN_BLOCKS if big else fill >= 0.5
             # the work of all blocks, scaled up where the grid leaves an SM
             # fewer than four blocks to hide latency with
@@ -251,7 +273,9 @@ DW_INSTANCES = {(1, 3): 56, (4, 3): 96, (8, 3): 168, (12, 1): 106}
 
 
 class DwPlan(NamedTuple):
-    """Kernel D's blocking of one call (csrc/conv3d_dw.cu's arguments)."""
+    """Kernel D's blocking of one call (csrc/conv3d_dw.cu's arguments).
+    Shapes only, so float32 and bf16 run the same plan; ``smem`` is the
+    float32 instance's bytes, ``smem_for`` either's."""
     ci: int           # input channels per block
     n_ci: int         # blocks across Cin
     co_t: int         # output channels per block (and thread)
@@ -268,7 +292,12 @@ class DwPlan(NamedTuple):
     n_pos: int        # partials per output: b * n_dc * n_ht * n_wt
     blocks: int       # blocks of the first pass
     workspace: int    # floats of partials
-    smem: int         # dynamic shared memory per block, bytes
+    smem: int         # dynamic shared memory per block, bytes (float32)
+
+    def smem_for(self, eb: int) -> int:
+        """Bytes of shared memory of the instance with eb-byte
+        activations (4: float32, 2: bf16)."""
+        return dw_smem_bytes(self.ci, self.co_t, self.th, self.tw, eb)
 
 
 def _pitch(n: int, r: int) -> int:
@@ -276,14 +305,19 @@ def _pitch(n: int, r: int) -> int:
     return (n - r + 31) // 32 * 32 + r
 
 
-def dw_smem_floats(ci: int, co_t: int, th: int, tw: int) -> int:
-    """Floats of kernel D's shared memory (csrc/conv3d_dw.cu): four
-    x-plane slots of ci channels x (th + 2) rows of a row pitch = 12 mod
-    32, the channel pitch = 4 mod 32, and two dz slots of co_t x th rows
-    of tw + 4; at least the row groups' sum buffer."""
+def dw_smem_bytes(ci: int, co_t: int, th: int, tw: int, eb: int = 4) -> int:
+    """Bytes of kernel D's shared memory (csrc/conv3d_dw.cuh::dw_run):
+    four float32 x-plane slots of ci channels x (th + 2) rows of a row
+    pitch = 12 mod 32, the channel pitch = 4 mod 32, and two float32 dz
+    slots of co_t x th rows of tw + 4; with eb = 2 (bf16) one dz slot and
+    the landing slab, one x plane (rows of tw + 16: 16-byte pieces from
+    w0 - 8) and one dz plane of bf16 without pitch padding. At least the
+    row groups' float32 sum buffer."""
     rs = _pitch(tw + 8, 12)
     cs = _pitch((th + 2) * rs, 4)
-    return max(4 * ci * cs + 2 * co_t * th * (tw + 4), 27 * ci * co_t)
+    slots = 4 * ci * cs + (2 if eb == 4 else 1) * co_t * th * (tw + 4)
+    landing = 0 if eb == 4 else ci * (th + 2) * (tw + 16) + co_t * th * tw
+    return max(4 * slots + eb * landing, 4 * 27 * ci * co_t)
 
 
 def dw_blocking(b: int, d: int, cin: int, h: int, w: int, cout: int,
@@ -303,8 +337,7 @@ def dw_blocking(b: int, d: int, cin: int, h: int, w: int, cout: int,
     n_co = -(-cout // co_t)
     return DwPlan(ci, n_ci, co_t, n_co, kh_t, groups, th, tw, db, n_dc,
                   n_ht, n_wt, owners * groups, n_pos, n_pos * n_ci * n_co,
-                  n_pos * 27 * cin * cout,
-                  4 * dw_smem_floats(ci, co_t, th, tw))
+                  n_pos * 27 * cin * cout, dw_smem_bytes(ci, co_t, th, tw))
 
 
 # dw_plan's cost model, fitted to the blockings timed by
@@ -403,6 +436,25 @@ def tf32_round(v: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def widen_bits(h: torch.Tensor) -> torch.Tensor:
+    """bf16 -> float32 as the kernels widen a staged element
+    (csrc/async_copy.cuh::widen_bits): its 16 bits shifted to the top of
+    a float32's 32."""
+    return (h.contiguous().view(torch.int16).to(torch.int32) << 16).view(
+        torch.float32)
+
+
+def widen_landed(landed: torch.Tensor, lead: int, cols: int) -> torch.Tensor:
+    """Kernel D's widening pass over bf16 rows on the last axis
+    (csrc/conv3d_dw.cuh::widen_rows): ``cols`` float32 columns, column c
+    landed column c + lead, zero where that lies outside the landed row."""
+    n = landed.shape[-1]
+    out = torch.zeros((*landed.shape[:-1], cols), dtype=torch.float32)
+    c0, c1 = max(0, -lead), min(cols, n - lead)
+    out[..., c0:c1] = widen_bits(landed[..., c0 + lead:c1 + lead])
+    return out
+
+
 def split_tf32(w: torch.Tensor) -> torch.Tensor:
     """[hi | lo] of the flattened weights in one buffer: hi = tf32(w) (as
     tf32_round) and lo = w - hi exactly, the 13 bits hi drops. w must be
@@ -491,6 +543,23 @@ def conv3d_dw_cf_plain(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     taps = [torch.einsum("bdihw,bdohw->io", xs, dz)
             for _, xs in _shifted(wide(x))]
     return torch.stack(taps).reshape(3, 3, 3, x.shape[2], dz.shape[2])
+
+
+def stages_in_pieces(*acts: torch.Tensor, n: int = 4) -> bool:
+    """Whether an engine stages these activations' rows in pieces of n
+    elements with cp.async (csrc/volume_src.cuh's vec<n>()): rows of a
+    multiple of n elements and every tensor aligned to a piece. Kernel A's
+    engine (A, B, H) takes n = 4 (16 bytes of float32, 8 of bf16), kernel
+    D's (D, F) 16 bytes (``dw_piece``). Else they copy one element at a
+    time."""
+    return all(t.shape[-1] % n == 0
+               and t.data_ptr() % (n * t.element_size()) == 0 for t in acts)
+
+
+def dw_piece(eb: int) -> int:
+    """Elements of kernel D's staged pieces of 16 bytes (csrc/
+    conv3d_dw.cuh::kPiece): 4 floats, 8 bf16."""
+    return 16 // eb
 
 
 # the dtypes of the activations a kernel of A, B, D-F, H, J or K takes

@@ -6,8 +6,8 @@ volume never exists on the card, forward or backward.
 The volume's load rule is one input policy of the engines of kernels A
 and D (csrc/volume_src.cuh::CostVolumeSrc): a staged row of plane p is X's
 row from the diagonal j = p on, or Y's row shifted right by p, and zero at
-j >= W. ``stage_row``, ``stage_piece`` and ``live_plane`` are its rules
-in Python, which the CPU tests emulate.
+j >= W. ``stage_row``, ``stage_piece``, ``stage_offset`` and
+``live_plane`` are its rules in Python, which the CPU tests emulate.
 
 Kernel B, ``cvstem_affine``: conv3d(cost_volume_cf(X, Y, D), w3) * scale +
 bias (+ReLU). Replaces rag_tpu/ops/pallas_cvstem.py::cvstem_forward_cf
@@ -48,12 +48,17 @@ CUDA tensor it launches its kernel or raises.
 
 Dtypes (the bf16-at-rest policy, ops.precision): the features and dz are
 float32 or bfloat16, the weights and affine float32. B and F stage the
-volume's bf16 rows widened to float32 (register loads, where the float32
-path copies with cp.async), E stages bf16 dz planes the same way; the sums
-run as for float32. B stores its output and E dX and dY in the
-activations' dtype, F stores dW in float32, as rag_tpu/ops/
-pallas_cvstem.py does. The plain versions compute in float32 on the upcast
-inputs and cast to the kernel's output dtype.
+volume's bf16 rows with cp.async as they are, in their engines' pieces
+(B: 8 bytes of four, F: 16 bytes of eight; ops/conv3d.py), at the
+float32 instance's plans: a stage that is all Y sits ``stage_offset`` =
+p % 4 (B) or p % 8 (F) columns right, so that Y's pieces copy whole at
+every plane, and only the X row's diagonal piece and a Y row's piece at
+the right edge copy element by element. E still stages bf16 dz planes
+widened by register loads. The sums are the float32 instance's on the
+upcast inputs bit for bit (but for a zero's sign). B stores its output
+and E dX and dY in the activations' dtype, F stores dW in float32, as
+rag_tpu/ops/pallas_cvstem.py does. The plain versions compute in float32
+on the upcast inputs and cast to the kernel's output dtype.
 """
 
 from __future__ import annotations
@@ -94,24 +99,41 @@ def stage_row(half: int, p: int, w: int):
     return (p if half else 0), p, w
 
 
-def stage_piece(half: int, p: int, j0: int, w: int, vec: bool):
-    """How columns j0 .. j0+3 of a row of plane p land in shared memory
-    (csrc/volume_src.cuh::stage_piece where rows copy in 16-byte pieces,
-    ``vec``; else stage_col for each column): a list of (copy width in
-    bytes, first column of the piece, source column or None for a zero
-    fill). One 16-byte copy where all four columns are inside and the
-    source is 16-byte aligned (Y's rows at p % 4 == 0), one 16-byte zero
-    fill where none is; else 4-byte copies and fills: the piece that
-    straddles the diagonal, Y's rows at other planes, and every piece where
-    W % 4 != 0."""
+def stage_piece(half: int, p: int, j0: int, w: int, vec: bool,
+                eb: int = 4, n: int = 4):
+    """How columns j0 .. j0+n-1 of a row of plane p land in shared memory
+    (csrc/volume_src.cuh::stage_piece<n> where rows copy in pieces of n
+    elements, ``vec``; else stage_col for each column), for eb-byte
+    elements (4: float32, 2: bf16): a list of (copy width in bytes, first
+    column of the piece, source column or None for a zero fill). Kernel
+    A's engine copies pieces of n = 4 (16 or 8 bytes), kernel D's of 16
+    bytes (n = 8 for bf16). One copy of the piece where all n columns are
+    inside and the source is aligned to the piece (Y's rows at p % n == 0,
+    or any row of a stage offset by ``stage_offset``), one zero fill of it
+    where none is; else one element at a time (eb bytes): the piece that
+    straddles the diagonal or, offset, W; Y's rows at other planes; every
+    piece where W % n != 0."""
     shift, lo, hi = stage_row(half, p, w)
     s0 = j0 - shift
-    if vec and lo <= j0 and j0 + 4 <= hi and s0 % 4 == 0:
-        return [(16, j0, s0)]
-    if vec and (j0 + 4 <= lo or j0 >= hi):
-        return [(16, j0, None)]
-    return [(4, j, j - shift if lo <= j < hi else None)
-            for j in range(j0, j0 + 4)]
+    if vec and lo <= j0 and j0 + n <= hi and s0 % n == 0:
+        return [(n * eb, j0, s0)]
+    if vec and (j0 + n <= lo or j0 >= hi):
+        return [(n * eb, j0, None)]
+    return [(eb, j, j - shift if lo <= j < hi else None)
+            for j in range(j0, j0 + n)]
+
+
+def stage_offset(p: int, c0: int, c: int, vec: bool, eb: int = 4,
+                 n: int = 4) -> int:
+    """The columns right of where a float32 stage starts that a stage of
+    plane p whose channels start at c0 sits (csrc/volume_src.cuh::
+    CostVolumeSrc::col_offset<n>): p % n for a bf16 stage (eb = 2) that
+    copies in pieces of n (``vec``) and is all Y (c0 >= c, the half's
+    channel count), so that Y's source j0 - p of its first column
+    j0 = w0 - n + p % n lies on a piece boundary; else 0. The engines read
+    the stage that many columns further on (kernel A's fragment loads,
+    n = 4; kernel D's widening pass, n = 8, shifts it back)."""
+    return p % n if eb == 2 and vec and c0 >= c else 0
 
 
 def live_plane(p: int, w0: int, tw: int) -> bool:
