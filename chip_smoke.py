@@ -59,12 +59,13 @@ exception:
                    beside its float32 instance on the upcast arguments,
                    "f32_ms") and at the small shapes, a bf16 output held
                    to one bf16 ulp of its largest value beyond the float32
-                   tolerance; those of A, H, B, D and F also equal to the
-                   float32 instance's output on the upcast arguments at
-                   the same plan, rounded to bf16 (D's and F's dW
-                   outright), under torch.equal ("f32_equal"), with the
-                   copy path taken ("vec", which must hold at every
-                   main-path call); B's line also times the shear-collapsed
+                   tolerance; those of A, H, B, D, E, F and J also equal
+                   to the float32 instance's output on the upcast
+                   arguments at the same plan, rounded to bf16 (D's and
+                   F's dW outright), under torch.equal ("f32_equal"), with
+                   the copy path taken ("vec", which must hold at every
+                   main-path call); E's bf16 line also times it with 8-byte
+                   pieces of four ("piece4_ms"); B's line also times the shear-collapsed
                    stem in plain PyTorch (ops.fused_stem.cost_stem_z) at
                    B's arguments;
   6. serve         per path, in turns (default, variants, variants,
@@ -1053,11 +1054,25 @@ def _dw_plan(x, dz):
 
 
 def _dxy_plan(dz, w3, nd):
-    """Kernel E's plan for the call: chunks of planes, blocks, workspace."""
+    """Kernel E's plan for the call: chunks of planes, blocks, workspace,
+    shared memory, and the elements a copy of its staging moves (1: a
+    float32 element; bf16: 8 or 4, a piece, or 0, element by element)."""
     b, d, cout, h, w = dz.shape
     p = cvstem_mod.dxy_plan(b, d, cout, w3.shape[3] // 2, h, w)
     return {"n_chunks": p.n_chunks, "chunk": p.chunk, "blocks": p.blocks,
-            "workspace_bytes": 4 * p.workspace}
+            "workspace_bytes": 4 * p.workspace,
+            "smem_bytes": p.smem_for(dz.element_size()),
+            "piece": cvstem_mod.dxy_piece(dz)}
+
+
+def _dxy_bf16_beside(dz, w3, nd):
+    """Kernel E's bf16 instance with 8-byte pieces of four (dz copied to
+    an address 8 bytes past a 16-byte boundary), beside its 16-byte
+    pieces of eight."""
+    dz8 = torch.empty(dz.numel() + 4, device=dz.device,
+                      dtype=dz.dtype)[4:].view_as(dz)
+    dz8.copy_(dz)
+    return {"piece4_ms": lambda: cvstem_mod.cvstem_dxy(dz8, w3, nd)}
 
 
 def _head_plan(x, maxdisp, scale=3):
@@ -1092,16 +1107,21 @@ def _head_bwd_beside(x, g, maxdisp, scale=3):
 def _shear_fields(p):
     return {"grid": p.blocks, "block": p.threads, "staged_bytes": p.smem,
             "planes": p.planes, "cols": p.cols, "runs": p.runs,
-            "copy_bytes": 16 if p.vec else 4, "splits": p.splits,
+            "copy_bytes": p.copy_bytes, "splits": p.splits,
             "col_splits": p.col_splits}
 
 
 def _shear_plan(px, py, scale, bias, nd, relu=False):
-    """Kernel J's launch: blocks (a row each), threads (a task each: a run
-    of planes down a group of columns), shared memory (a piece's staged
-    tap-map rows, P and R), planes and columns a piece, pieces a row."""
+    """Kernel J's launch for the maps' dtype: blocks (a row each), threads
+    (a task each: a run of planes down a group of columns), shared memory
+    (a piece's staged tap-map rows, P and R), planes and columns a piece,
+    pieces a row, bytes a copy; it must equal ops/shear.py::fwd_plan."""
     b, _, co, h, w = px.shape
-    return _shear_fields(shear_mod.shear_plan(False, b, nd, co, h, w))
+    p = shear_mod.shear_plan(False, b, nd, co, h, w, px.element_size())
+    if p != shear_mod.fwd_plan(b, nd, co, h, w, px.element_size()):
+        raise SystemExit(f"chip_smoke: kernel J's launch {p} differs from "
+                         "ops/shear.py::fwd_plan")
+    return _shear_fields(p)
 
 
 def _shear_adj_plan(dz, nd):
@@ -1109,7 +1129,8 @@ def _shear_adj_plan(dz, nd):
     memory (the staged run of dz), planes a run, the slab's row pitch, runs
     a row, splits a row and the column blocks among them."""
     b, _, co, h, w = dz.shape
-    return _shear_fields(shear_mod.shear_plan(True, b, nd, co, h, w))
+    return _shear_fields(shear_mod.shear_plan(True, b, nd, co, h, w,
+                                              dz.element_size()))
 
 
 def _shear_beside(px, py, scale, bias, nd, relu=False):
@@ -1200,8 +1221,8 @@ KERNELS = {
                                                   eb=dz.element_size()),
         magnitude=lambda dz, w3, nd: (dz.abs(), w3.abs(), nd),
         library=_dxy_library, beside=_dxy_beside, plan=_dxy_plan, tol="bwd",
-        path="default",
-        serving=False),
+        vec=lambda dz, w3, nd: cvstem_mod.dxy_piece(dz) > 1,
+        path="default", serving=False),
     "cvstem_dw": dict(
         site=(cvstem_mod, "cvstem_dw"),
         plain=cvstem_mod.cvstem_dw_plain,
@@ -1258,6 +1279,7 @@ KERNELS = {
         bound=lambda px, py, scale, bias, nd, relu=False:
             shear_bound(px.shape, nd, relu, eb=px.element_size()),
         library=None, beside=_shear_beside, plan=_shear_plan, tol="conv",
+        vec=lambda px, py, *a, **kw: conv3d_mod.stages_in_pieces(px, py),
         path="variants", serving=True, bitwise=True),
     "shear_adjoint": dict(
         site=(shear_mod, "shear_adjoint"),
@@ -1279,13 +1301,14 @@ for _k in KERNELS.values():
 # wrapper's launches_bf16. name -> (positions of the activation arguments,
 # the rest float32; whether the output is bf16: D's, F's and K's are
 # float32). Each is timed beside its float32 instance on the upcast
-# arguments ("f32_ms"). Those of kernels A, H, B, D and F run the float32
-# instance's sums on the widened values at its plan (plans take shapes
-# only), so their output equals the float32 instance's on the upcast
-# arguments, rounded to bf16 (A, H, B), or outright (D's and F's float32
-# dW), under torch.equal ("f32_equal"); and at every main-path shape they
-# stage with cp.async in pieces ("vec": of four elements in A's engine, of
-# 16 bytes in D's).
+# arguments ("f32_ms"). Those of kernels A, H, B, D, E, F and J run the
+# float32 instance's sums on the widened values at its plan (plans take
+# shapes only), so their output equals the float32 instance's on the
+# upcast arguments, rounded to bf16 (A, H, B, E, J), or outright (D's and
+# F's float32 dW), under torch.equal ("f32_equal"); and at every main-path
+# shape they stage with cp.async in pieces ("vec": of four elements in A's
+# engine and J, of 16 bytes in D's, of 16 or 8 bytes in E). K's bf16
+# instance alone still stages by register loads.
 BF16_OF = {"conv3d_brc_cf": ((0,), True), "conv3d_dblock_cf": ((0,), True),
            "cvstem_brc": ((0, 1), True), "conv3d_dw_cf": ((0, 1), False),
            "cvstem_dxy": ((0,), True), "cvstem_dw": ((0, 1, 2), False),
@@ -1302,17 +1325,22 @@ def cast_acts(name, args, dtype):
     return tuple(a.to(dtype) if i in acts else a for i, a in enumerate(args))
 
 
+# calls timed beside a bf16 instance besides its float32 instance
+BF16_BESIDE = {"cvstem_dxy": _dxy_bf16_beside}
+
+
 def _f32_beside(name):
     wrapper = KERNELS[name]["wrapper"]
 
     def beside(*args, **kw):
         a32 = cast_acts(name, args, torch.float32)
-        return {"f32_ms": lambda: wrapper(*a32, **kw)}
+        extra = BF16_BESIDE[name](*args, **kw) if name in BF16_BESIDE else {}
+        return {"f32_ms": lambda: wrapper(*a32, **kw), **extra}
     return beside
 
 
 BF16_SAME = ("conv3d_brc_cf", "conv3d_dblock_cf", "cvstem_brc",
-             "conv3d_dw_cf", "cvstem_dw")
+             "conv3d_dw_cf", "cvstem_dxy", "cvstem_dw", "shear_forward")
 
 
 BF16_KERNELS = {
@@ -1422,6 +1450,18 @@ def small_cases(dev, rng):
     # kernel E at the train shape with D = 60: chunks of 16, the last of 12
     cases.append(("cvstem_dxy", (t(4, 60, 12, 64, 128),
                                  t(3, 3, 3, 2 * STEM_C, 12, s=0.2), 60)))
+    # kernel E's bf16 instance at W not a multiple of its 16-byte piece:
+    # W = 100 (8-byte pieces of four, two W tiles), W = 75 (element by
+    # element), and W = 64 with dz 8 bytes past a 16-byte boundary (8-byte
+    # pieces)
+    for b, nd, h, w, off in [(1, 7, 9, 100, 0), (2, 5, 10, 75, 0),
+                             (1, 6, 8, 64, 4)]:
+        dz = t(b, nd, 12, h, w).to(torch.bfloat16)
+        if off:
+            dz = torch.empty(dz.numel() + off, device=dev,
+                             dtype=dz.dtype)[off:].view_as(dz).copy_(dz)
+        cases.append((bf16_name("cvstem_dxy"),
+                      (dz, t(3, 3, 3, 2 * STEM_C, 12, s=0.2), nd)))
     for shape, target, tr in [((1, 6, 5, 16, 24), (3, 8, 12), False),
                               ((2, 6, 5, 16, 24), (12, 32, 48), False),
                               ((1, 6, 3, 11, 13), (4, 6, 7), False),
@@ -1444,7 +1484,9 @@ def small_cases(dev, rng):
 
 def exact_cases(dev, rng):
     """Kernels J and K on integer-valued inputs, where every order of
-    summation is exact and kernel and plain version must agree bit for bit:
+    summation is exact and kernel and plain version must agree bit for bit
+    (J's bf16 instance too: integers in [-3, 4) are exact in bf16; its
+    output is rounded as the plain version's):
     D = 2 (every plane a first or last one) at odd W, the diagonal band,
     the first and last planes and the interior at odd W (4-byte copies)
     and at W % 4 == 0 (16-byte copies and stores), ReLU on and off; D = 1;
@@ -1471,6 +1513,8 @@ def exact_cases(dev, rng):
                                         ints(b, 9, co, h, w), scale, bias,
                                         nd, relu)))
         cases.append(("shear_adjoint", (ints(b, nd, co, h, w), nd)))
+    cases += [(bf16_name(n), cast_acts(n, args, torch.bfloat16))
+              for n, args in list(cases) if n == "shear_forward"]
     return cases
 
 
@@ -1670,7 +1714,9 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
         if k.get("same_as_f32"):
             out32 = KERNELS[k["base"]]["wrapper"](
                 *cast_acts(k["base"], args, torch.float32), **kw)
-            f32_equal = torch.equal(out, out32.to(out.dtype))
+            f32_equal = all(torch.equal(o, o32.to(o.dtype)) for o, o32 in zip(
+                out if isinstance(out, tuple) else (out,),
+                out32 if isinstance(out32, tuple) else (out32,)))
             del out32
         ref = k["plain"](*args, **kw)
         # a kernel that sums in a fixed order gives the same bits twice

@@ -43,11 +43,31 @@
 // ms, against 1.136 and 1.147 with chunks of 8 and 1.226 and 1.209 with 4
 // (the staged halo planes weigh more); the workspace is then 12.6 MB.
 //
-// bf16 at rest (rag_tpu_torch/ops/precision.py): dz may be bf16, staged
-// widened to float32 by register loads (cp.async cannot widen); the sums
+// bf16 at rest (rag_tpu_torch/ops/precision.py): dz may be bf16; the sums
 // and the partials are float32, and dX and dY are stored in dz's type (the
-// features' dtype under the policy), as rag_tpu's VJP casts them.
+// features' dtype under the policy), as rag_tpu's VJP casts them. A bf16
+// plane is staged as it is, with cp.async in pieces of N elements: 16-byte
+// pieces of eight (.cg, past L1) where W % 8 == 0 and dz is 16-byte
+// aligned, else 8-byte pieces of four where W % 4 == 0 and dz is 8-byte
+// aligned, else element by element (register loads) in the layout of
+// pieces of eight. A slot row starts at the piece boundary at or left of
+// the window's first column col0 and is read off = col0 - base columns
+// further on: N - 2 for the dX half (col0 = w0 - 2) and (q - 2) mod N for
+// the dY half, whose window moves with the plane. Pieces wholly outside the
+// volume (rows off [0, H), columns off [0, W)) are zero-filled by the
+// copy; with W a multiple of N no piece straddles 0 or W. The slots stay
+// bf16 (rows of kPitchBf16 = 88: 44 words, 12 mod 32, so a warp's two rows
+// of 16 reads, 9 words each, fall on separate banks) and a value is
+// widened as the inner loop reads it: one byte permute, which also applies
+// the output plane's mask (it takes the float32 instance's select), then
+// 12 FMAs. The plan, the walk and the partials are the float32
+// instance's, so dX and dY equal its output on the upcast dz, rounded to
+// bf16. Half-size slots: 57.8 KB a block at the train shape, three blocks
+// an SM where two fit in float32.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "async_copy.cuh"
 
@@ -65,13 +85,22 @@ constexpr int kSH = kTY + 2;         // staged rows (1-row halo each side)
 constexpr int kSW = kTW + 4;         // staged columns: w0-2 .. w0+kTW+1
 constexpr int kPitch = 80;           // row pitch: 80 % 32 == 16 keeps the
                                      // two rows a warp reads on other banks
+constexpr int kPitchBf16 = 88;       // bf16 row pitch (44 words, 12 mod 32)
 
-// Issue the copies of dz plane q, channels c0 .. c0+kc-1, rows h0-1 ..
-// h0+kTY, columns col0 .. col0+kSW-1 into one ring slot [kc][kSH][kPitch];
-// what lies outside the volume is zero-filled. Plane q must be in [0, D).
-template <class Elem>
+// Pieces of N bf16 a staged row takes: the window's kSW columns start up
+// to N - 1 columns into the first piece.
+template <int N>
+constexpr int kPieces = (kSW + 2 * N - 2) / N;
+static_assert(kPieces<8> * 8 <= kPitchBf16 && kPieces<4> * 4 <= kPitchBf16,
+              "a slot row holds its pieces");
+static_assert(kPitchBf16 * 2 % 16 == 0, "slot rows stay 16-byte aligned");
+
+// Issue the copies of float32 dz plane q, channels c0 .. c0+kc-1, rows
+// h0-1 .. h0+kTY, columns col0 .. col0+kSW-1 into one ring slot
+// [kc][kSH][kPitch], one 4-byte cp.async an element; what lies outside the
+// volume is zero-filled. Plane q must be in [0, D).
 __device__ __forceinline__ void stage_plane(float* slot,
-                                            const Elem* __restrict__ dz,
+                                            const float* __restrict__ dz,
                                             int b, int q, int c0, int kc,
                                             int D, int Cout, int H, int W,
                                             int h0, int col0) {
@@ -80,7 +109,7 @@ __device__ __forceinline__ void stage_plane(float* slot,
     const int co = row / kSH, r = row % kSH;
     const int h = h0 - 1 + r;
     const bool h_ok = h >= 0 && h < H;
-    const Elem* src_row =
+    const float* src_row =
         dz + ((((size_t)b * D + q) * Cout + c0 + co) * H + (h_ok ? h : 0)) *
                  (size_t)W;
     float* dst_row = slot + (co * kSH + r) * kPitch;
@@ -92,20 +121,70 @@ __device__ __forceinline__ void stage_plane(float* slot,
   }
 }
 
+// The same for bf16 dz into a slot [kc][kSH][kPitchBf16] of bf16, in
+// pieces of N from column base (a multiple of N at or left of the window):
+// slot column s holds dz column base + s. With vec (W % N == 0, dz aligned
+// to a piece) a piece is one cp.async of its 2N bytes, or a zero fill of
+// them where it lies outside the volume; else every piece is copied
+// element by element.
+template <int N>
+__device__ __forceinline__ void stage_plane(rag::bf16* slot,
+                                            const rag::bf16* __restrict__ dz,
+                                            int b, int q, int c0, int kc,
+                                            int D, int Cout, int H, int W,
+                                            int h0, int base, bool vec) {
+  constexpr int P = kPieces<N>;
+  for (int i = threadIdx.x; i < kc * kSH * P; i += kThreads) {
+    const int row = i / P, k = i - row * P;
+    const int co = row / kSH, r = row - co * kSH;
+    const int h = h0 - 1 + r;
+    const bool h_ok = h >= 0 && h < H;
+    const rag::bf16* src_row =
+        dz + ((((size_t)b * D + q) * Cout + c0 + co) * H + (h_ok ? h : 0)) *
+                 (size_t)W;
+    rag::bf16* dst = slot + row * kPitchBf16 + k * N;
+    const int j0 = base + k * N;
+    if (vec && (!h_ok || j0 + N <= 0 || j0 >= W)) {
+      rag::stage_n<N>(dst, dz, false);
+    } else if (vec && j0 >= 0 && j0 + N <= W) {
+      rag::stage_n<N>(dst, src_row + j0, true);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const int j = j0 + e;
+        const bool ok = h_ok && j >= 0 && j < W;
+        rag::stage1(dst + e, ok ? src_row + j : dz, ok);
+      }
+    }
+  }
+}
+
+// The slot element and row pitch of an instance: float32 rows of kPitch,
+// or bf16 rows of kPitchBf16.
+template <class Elem>
+using Slot =
+    typename std::conditional<rag::kF32<Elem>, float, rag::bf16>::type;
+template <class Elem>
+constexpr int kSlotPitch = rag::kF32<Elem> ? kPitch : kPitchBf16;
+
 // wpk: (2, n_cc, 27, Cout, CT) weights of the X and Y halves, channel chunk
 // cc of each zero-padded to CT. partial: (2, n_chunks, B, C, H, W).
-// Grid: x = n_ht * n_wt, y = n_chunks, z = B * 2 * n_cc.
-template <int CT, class Elem>
+// Grid: x = n_ht * n_wt, y = n_chunks, z = B * 2 * n_cc. N: elements of a
+// bf16 piece (8 or 4; 1 for float32), vec: whether bf16 rows copy in
+// pieces.
+template <int CT, class Elem, int N>
 __global__ void __launch_bounds__(kThreads)
 cvstem_dxy_partial_kernel(const Elem* __restrict__ dz,
                           const float* __restrict__ wpk,
                           float* __restrict__ partial, int B, int D, int Cout,
                           int C, int H, int W, int n_wt, int chunk,
-                          int n_chunks, int n_cc, int kc_max) {
+                          int n_chunks, int n_cc, int kc_max, int vec) {
+  constexpr int kP = kSlotPitch<Elem>;
   extern __shared__ __align__(16) float smem[];
-  float* s_w = smem;                         // [27][kc][CT]
-  float* s_ring = smem + 27 * kc_max * CT;   // [2][kc][kSH][kPitch]
-  const int slot_floats = kc_max * kSH * kPitch;
+  float* s_w = smem;                                     // [27][kc][CT]
+  Slot<Elem>* s_ring =                                   // [2][kc][kSH][kP]
+      reinterpret_cast<Slot<Elem>*>(smem + 27 * kc_max * CT);
+  const int slot_elems = kc_max * kSH * kP;
 
   const int wt = blockIdx.x % n_wt;
   const int ht = blockIdx.x / n_wt;
@@ -136,20 +215,31 @@ cvstem_dxy_partial_kernel(const Elem* __restrict__ dz,
       const int tap = i / (kc * CT), rest = i % (kc * CT);
       s_w[i] = __ldg(wh + ((size_t)tap * Cout + c0) * CT + rest);
     }
+    // stage dz plane q (its window starts at column w0 - 2, shifted by +q
+    // for the dY half) into its ring slot
+    auto stage = [&](int q) {
+      const int col0 = w0 - 2 + (half ? q : 0);
+      Slot<Elem>* slot = s_ring + (q & 1) * slot_elems;
+      if constexpr (rag::kF32<Elem>)
+        stage_plane(slot, dz, b, q, c0, kc, D, Cout, H, W, h0, col0);
+      else
+        stage_plane<N>(slot, dz, b, q, c0, kc, D, Cout, H, W, h0,
+                       col0 & ~(N - 1), vec);
+    };
     // dz planes d0-1 .. d_end feed the outputs d0 .. d_end-1
     const int q_lo = max(d0 - 1, 0), q_hi = min(d_end, D - 1);
-    if (q_lo <= q_hi)
-      stage_plane(s_ring + (q_lo & 1) * slot_floats, dz, b, q_lo, c0, kc, D,
-                  Cout, H, W, h0, w0 - 2 + (half ? q_lo : 0));
+    if (q_lo <= q_hi) stage(q_lo);
     cp_async_commit();
     for (int q = q_lo; q <= q_hi; ++q) {
-      if (q + 1 <= q_hi)
-        stage_plane(s_ring + ((q + 1) & 1) * slot_floats, dz, b, q + 1, c0,
-                    kc, D, Cout, H, W, h0, w0 - 2 + (half ? q + 1 : 0));
+      if (q + 1 <= q_hi) stage(q + 1);
       cp_async_commit();
       cp_async_wait_all_but_one();
       __syncthreads();  // plane q (and the weights) visible to every thread
-      const float* slab = s_ring + (q & 1) * slot_floats;
+      // the slot's column of window column 0 (bf16: the window's offset in
+      // its first piece)
+      const int off =
+          rag::kF32<Elem> ? 0 : (w0 - 2 + (half ? q : 0)) & (N - 1);
+      const Slot<Elem>* slab = s_ring + (q & 1) * slot_elems + off;
 #pragma unroll
       for (int kd = 0; kd < 3; ++kd) {
         const int d = q + 1 - kd;  // the output plane that reads q at tap kd
@@ -157,15 +247,18 @@ cvstem_dxy_partial_kernel(const Elem* __restrict__ dz,
         // staged column of pixel x at tap kw: x + coff + kw
         const int coff = half == 0 ? 1 : 2 - kd;
         bool keep[kPX];
+        unsigned sel[kPX];  // bf16: the permute that widens, or gives +0.0
 #pragma unroll
         for (int p = 0; p < kPX; ++p) {
           const int j = w0 + tx + p * kTX;
           keep[p] = half == 0 ? j >= d : j + d < W;
+          sel[p] = keep[p] ? 0x1044u : 0x4444u;
         }
         for (int co = 0; co < kc; ++co) {
 #pragma unroll
           for (int kh = 0; kh < 3; ++kh) {
-            const float* row = slab + (co * kSH + ty + kh) * kPitch + tx + coff;
+            const Slot<Elem>* row =
+                slab + (co * kSH + ty + kh) * kP + tx + coff;
 #pragma unroll
             for (int kw = 0; kw < 3; ++kw) {
               const float4* w4 = reinterpret_cast<const float4*>(
@@ -181,7 +274,13 @@ cvstem_dxy_partial_kernel(const Elem* __restrict__ dz,
               }
 #pragma unroll
               for (int p = 0; p < kPX; ++p) {
-                const float v = keep[p] ? row[kw + p * kTX] : 0.f;
+                float v;
+                if constexpr (rag::kF32<Elem>)
+                  v = keep[p] ? row[kw + p * kTX] : 0.f;
+                else  // bytes 0, 1 of the bf16 to the top half, or zeros
+                  v = __uint_as_float(__byte_perm(
+                      (unsigned)__bfloat16_as_ushort(row[kw + p * kTX]), 0u,
+                      sel[p]));
 #pragma unroll
                 for (int c = 0; c < CT; ++c)
                   acc[p][c] = fmaf(v, wv[c], acc[p][c]);
@@ -228,25 +327,38 @@ cvstem_dxy_reduce_kernel(const float* __restrict__ partial,
   (half ? dY : dX)[k] = rag::to_elem<Elem>(s);
 }
 
-template <int CT, class Elem>
+template <int CT, class Elem, int N>
 int launch(const Elem* dz, const float* wpk, float* partial, Elem* dX,
            Elem* dY, dim3 grid, int B, int D, int Cout, int C, int H, int W,
-           int n_wt, int chunk, int n_chunks, int n_cc, int kc,
+           int n_wt, int chunk, int n_chunks, int n_cc, int kc, int vec,
            cudaStream_t stream) {
-  const int smem =
-      (27 * kc * CT + 2 * kc * kSH * kPitch) * (int)sizeof(float);
+  // the weights, then two ring slots (ops/cvstem.py::DxyPlan.smem_for)
+  const int smem = 27 * kc * CT * (int)sizeof(float) +
+                   2 * kc * kSH * kSlotPitch<Elem> * (int)sizeof(Slot<Elem>);
   cudaError_t e = cudaFuncSetAttribute(
-      cvstem_dxy_partial_kernel<CT, Elem>,
+      cvstem_dxy_partial_kernel<CT, Elem, N>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  cvstem_dxy_partial_kernel<CT, Elem><<<grid, kThreads, smem, stream>>>(
-      dz, wpk, partial, B, D, Cout, C, H, W, n_wt, chunk, n_chunks, n_cc, kc);
+  cvstem_dxy_partial_kernel<CT, Elem, N><<<grid, kThreads, smem, stream>>>(
+      dz, wpk, partial, B, D, Cout, C, H, W, n_wt, chunk, n_chunks, n_cc, kc,
+      vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long n = (long long)B * C * H * W;
   cvstem_dxy_reduce_kernel<Elem><<<(unsigned)((2 * n + 255) / 256), 256, 0,
                                    stream>>>(partial, dX, dY, n, n_chunks);
   return (int)cudaGetLastError();
+}
+
+// The elements of the pieces a bf16 dz copies in (ops/cvstem.py::
+// dxy_piece): 8 (16 bytes) where W % 8 == 0 and dz is 16-byte aligned, 4
+// (8 bytes) where W % 4 == 0 and dz is 8-byte aligned, else 0 (element by
+// element).
+int dxy_piece(const void* dz, int W) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dz);
+  if (W % 8 == 0 && a % 16 == 0) return 8;
+  if (W % 4 == 0 && a % 8 == 0) return 4;
+  return 0;
 }
 
 // The plan's integers (rag_tpu_torch/ops/cvstem.py::dxy_plan): ct channels
@@ -274,15 +386,30 @@ int dxy_entry(const void* dz, const void* wpk, void* partial, void* dX,
   Elem* xf = static_cast<Elem*>(dX);
   Elem* yf = static_cast<Elem*>(dY);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // float32: N = 1 (one element a copy); bf16: pieces of 8 or 4, or the
+  // element path in the layout of pieces of eight
+  const int piece = rag::kF32<Elem> ? 1 : dxy_piece(dz, W);
+  const int vec = piece > 1;
+  auto run = [&](auto ct_c, auto n_c) {
+    return launch<decltype(ct_c)::value, Elem, decltype(n_c)::value>(
+        zf, wf, pf, xf, yf, grid, B, D, Cout, C, H, W, n_wt, chunk, n_chunks,
+        n_cc, kc, vec, st);
+  };
+  auto by_piece = [&](auto ct_c) {
+    if constexpr (rag::kF32<Elem>)
+      return run(ct_c, std::integral_constant<int, 1>());
+    else if (piece == 4)
+      return run(ct_c, std::integral_constant<int, 4>());
+    else
+      return run(ct_c, std::integral_constant<int, 8>());
+  };
   switch (ct) {
-#define RAG_DXY_CASE(N)                                                     \
-  case N:                                                                   \
-    return launch<N>(zf, wf, pf, xf, yf, grid, B, D, Cout, C, H, W, n_wt,   \
-                     chunk, n_chunks, n_cc, kc, st);
-    RAG_DXY_CASE(4)
-    RAG_DXY_CASE(8)
-    RAG_DXY_CASE(12)
-#undef RAG_DXY_CASE
+    case 4:
+      return by_piece(std::integral_constant<int, 4>());
+    case 8:
+      return by_piece(std::integral_constant<int, 8>());
+    case 12:
+      return by_piece(std::integral_constant<int, 12>());
     default:
       return (int)cudaErrorInvalidValue;
   }

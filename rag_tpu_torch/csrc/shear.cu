@@ -39,14 +39,16 @@
 // at every main-path shape). For a piece of columns [j0, j1) and planes
 // [d0, d1) it stages the nine px rows over [j0, j1) and the nine py rows
 // over the columns the piece reads, [j0 - d1 - 1, j1 - d0 + 1] within
-// [0, W) (16-byte cp.async where W % 4 == 0 and the maps are aligned, else
-// 4-byte), and builds P over [j0, j1) and R over the piece's interior u
-// there, so shared memory is bounded whatever W and D are. It writes y =
-// fmaf(z, a, c) (+ReLU) in groups of G columns: G = 4 (one 16-byte store)
-// where W % 4 == 0, else 1. Phase 1 takes the groups that are neither
-// wholly interior nor wholly zero, term by term: the first and last planes
-// from their first non-zero group, and on the planes between at most two
-// band groups (four at G = 1) and the last group. Phase 2 streams the rest:
+// [0, W) (cp.async in pieces of four columns where W % 4 == 0 and the maps
+// are aligned to a piece, else one element at a time), and builds P over
+// [j0, j1) and R over the piece's interior u there, so shared memory is
+// bounded whatever W and D are. It writes y = fmaf(z, a, c) (+ReLU) in
+// groups of G columns: G = 4 (one 16-byte store of float32, one 8-byte
+// store of bf16) where W % 4 == 0 and the maps are aligned, else 1. Phase
+// 1 takes the groups that are neither wholly interior nor wholly zero,
+// term by term: the first and last planes from their first non-zero
+// group, and on the planes between at most two band groups (four at G =
+// 1) and the last group. Phase 2 streams the rest:
 // a thread walks its group of columns down a run of kFwdPlanes planes, P +
 // R or the zero region's fmaf(0, a, c), the same few instructions for every
 // thread of a warp. (With both kinds in one loop, a warp waited on the
@@ -84,10 +86,17 @@
 //
 // bf16 at rest (rag_tpu_torch/ops/precision.py): J takes bf16 tap maps
 // and stores z in bf16 (rounded to nearest even), K takes a bf16 dz and
-// writes dpx and dpy in float32. A bf16 row is staged widened to float32
-// by register loads (cp.async cannot widen), 4 bytes of shared memory an
-// element, so every sum is the float32 path's; J's bf16 instance stores
-// one column at a time (G = 1).
+// writes dpx and dpy in float32. J's bf16 instance takes the float32
+// instance's plan: groups of four columns where W % 4 == 0 and px, py and
+// out are 8-byte aligned (G = 1 with the element path elsewhere), the same
+// pieces, tasks and threads. It stages its tap-map rows as they are, with
+// cp.async in 8-byte pieces of four (y0 rounded down to four, as for
+// float32), two bytes of shared memory an element, widens each value as it
+// reads it (P, R and phase 1's terms), and stores a group of four as one
+// 8-byte store. A column falls in the same class in both instances, so
+// every sum is the float32 instance's. K's bf16 instance, the last to do
+// so, stages its rows widened to float32 by register loads (cp.async
+// cannot widen), 4 bytes of shared memory an element.
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -113,17 +122,21 @@ constexpr unsigned kEdgeLast = 0x0DBu;  // edge(W-1): no dw = 2
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
-// J's shared memory, in floats, for pieces of tw columns x dp planes:
-// xs[9][wx] (px), ys[9][wy] (py over the piece's columns j - d - 2 ..
-// j - d + 2, widened to 16-byte bounds), P[wx], R[wr] (the piece's interior
-// u, at most tw + dp - 1 of them).
+// J's shared memory for pieces of tw columns x dp planes: the staged rows
+// in the maps' element type, xs[9][wx] (px) and ys[9][wy] (py over the
+// piece's columns j - d - 2 .. j - d + 2, widened to bounds of four), then
+// float32 P[wx] and R[wr] (the piece's interior u, at most tw + dp - 1 of
+// them). (ops/shear.py::fwd_smem_bytes)
 struct FwdLayout {
   int wx, wy, wr;
   __host__ __device__ FwdLayout(int W, int tw, int dp)
       : wx(round4(tw)),
         wy(round4(W) < round4(tw + dp + 9) ? round4(W) : round4(tw + dp + 9)),
         wr(W < tw + dp ? W : tw + dp) {}
-  __host__ __device__ int floats() const { return 10 * wx + 9 * wy + wr; }
+  // bytes with eb-byte staged elements (4: float32, 2: bf16)
+  __host__ __device__ size_t bytes(int eb) const {
+    return (size_t)eb * 9 * (wx + wy) + sizeof(float) * (wx + wr);
+  }
 };
 
 __device__ __forceinline__ unsigned diag_bits(int u) {
@@ -142,10 +155,12 @@ __device__ __forceinline__ float affine(float z, float a, float c, int relu) {
 }
 
 // A staged piece in shared memory: xs[t][j - j0], ys[t][i - y0] for py
-// columns i in [y0, y1), P[j - j0], R[u - r0].
+// columns i in [y0, y1) (elements S: float32, or bf16 widened as read),
+// P[j - j0], R[u - r0].
+template <class S>
 struct Piece {
-  const float* xs;
-  const float* ys;
+  const S* xs;
+  const S* ys;
   const float* P;
   const float* R;
   int wx, wy, j0, y0, y1, r0;
@@ -154,7 +169,8 @@ struct Piece {
 // One output (d, j) of the staged piece before the affine: the interior
 // from P and R, every other class term by term in the TPU kernel's order
 // (the zero region keeps no term and gives 0).
-__device__ __forceinline__ float shear_elem(const Piece& r, int D, int W,
+template <class S>
+__device__ __forceinline__ float shear_elem(const Piece<S>& r, int D, int W,
                                             int d, int j) {
   const int u = j - d;
   const unsigned kx = gate_bits(d, D) & diag_bits(u);
@@ -167,9 +183,10 @@ __device__ __forceinline__ float shear_elem(const Piece& r, int D, int W,
   float xv[9], yv[9];
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
-    xv[t] = r.xs[t * r.wx + j - r.j0];
-    yv[t] = r.ys[t * r.wy +
-                 min(max(u - (t / 3 - t % 3), r.y0), r.y1 - 1) - r.y0];
+    xv[t] = rag::widen(r.xs[t * r.wx + j - r.j0]);
+    yv[t] = rag::widen(r.ys[t * r.wy +
+                            min(max(u - (t / 3 - t % 3), r.y0), r.y1 - 1) -
+                            r.y0]);
   }
   float acc = 0.f;
 #pragma unroll
@@ -180,20 +197,31 @@ __device__ __forceinline__ float shear_elem(const Piece& r, int D, int W,
   return acc;
 }
 
-// G columns of an output row (G = 4: float32 only, one 16-byte store).
+// bf16 bits of a float32, rounded to nearest even
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// G columns of an output row: G = 4, one 16-byte store of float32 or one
+// 8-byte store of bf16 (each rounded to nearest even); else one element.
 template <int G, class Elem>
 __device__ __forceinline__ void store_group(Elem* dst, const float (&y)[G]) {
-  if constexpr (G == 4)
+  if constexpr (G == 4 && rag::kF32<Elem>)
     *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+  else if constexpr (G == 4)
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(bf16_bits(y[0]) | bf16_bits(y[1]) << 16,
+                   bf16_bits(y[2]) | bf16_bits(y[3]) << 16);
   else
     *dst = rag::to_elem<Elem>(y[0]);
 }
 
 // Stage n columns from `from` of the nine rows at src (one tap map apart)
-// into dst (rows `pitch` apart), 16-byte copies at G = 4 (float32 only),
-// else one element at a time (widened from bf16).
+// into dst (rows `pitch` apart) as they are: cp.async in pieces of four at
+// G = 4 (16 bytes of float32, 8 of bf16), else one element at a time (a
+// 4-byte cp.async, or a bf16 register load).
 template <int G, class Elem>
-__device__ __forceinline__ void stage_rows(float* dst, int pitch,
+__device__ __forceinline__ void stage_rows(Elem* dst, int pitch,
                                            const Elem* src, size_t plane,
                                            int from, int n) {
   const int m = n / G;
@@ -201,14 +229,15 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch,
     const int r = i / m, q = G * (i - r * m);
     const Elem* s = src + r * plane + from + q;
     if constexpr (G == 4)
-      rag::cp_async16(dst + r * pitch + q, s, true);
+      rag::stage_n<4>(dst + r * pitch + q, s, true);
     else
       rag::stage1(dst + r * pitch + q, s, true);
   }
 }
 
-// G: columns a thread stores at once, 4 (16-byte copies and stores, W % 4
-// == 0 and aligned maps) or 1. A block owns one row and takes it in pieces
+// G: columns a thread stores at once, 4 (copies and stores of four
+// elements, W % 4 == 0 and maps aligned to them) or 1. A block owns one
+// row and takes it in pieces
 // of tw columns (a multiple of G) x dp planes; a piece's tasks are (run of
 // kFwdPlanes planes, group of G columns), one a thread where they fit.
 // Two blocks of up to 768 threads stay resident an SM: without the cap the
@@ -220,12 +249,11 @@ shear_fwd_kernel(const Elem* __restrict__ px, const Elem* __restrict__ py,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, Elem* __restrict__ out,
                  int D, int Co, int H, int W, int relu, int tw, int dp) {
-  static_assert(G == 1 || rag::kF32<Elem>, "16-byte groups are float32's");
   extern __shared__ float4 smem4[];
   const FwdLayout lay(W, tw, dp);
-  float* xs = reinterpret_cast<float*>(smem4);  // px, 9 rows
-  float* ys = xs + 9 * lay.wx;                  // py, 9 rows
-  float* P = ys + 9 * lay.wy;
+  Elem* xs = reinterpret_cast<Elem*>(smem4);           // px, 9 rows
+  Elem* ys = xs + 9 * lay.wx;                          // py, 9 rows
+  float* P = reinterpret_cast<float*>(ys + 9 * lay.wy);
   float* R = P + lay.wx;
   const int CoH = Co * H;
   const size_t plane = (size_t)CoH * W;  // one tap map, one output plane
@@ -250,7 +278,7 @@ shear_fwd_kernel(const Elem* __restrict__ px, const Elem* __restrict__ py,
     y1 = max(y1, y0);
     // the interior u of the piece, R's entries
     const int r0 = max(2, j0 - d1 + 1), r1 = min(W - 3, j1 - 1 - d0);
-    const Piece pc{xs, ys, P, R, lay.wx, lay.wy, j0, y0, y1, r0};
+    const Piece<Elem> pc{xs, ys, P, R, lay.wx, lay.wy, j0, y0, y1, r0};
     stage_rows<G>(xs, lay.wx, xrow, plane, j0, j1 - j0);
     stage_rows<G>(ys, lay.wy, yrow, plane, y0, y1 - y0);
     rag::cp_async_commit();
@@ -261,14 +289,14 @@ shear_fwd_kernel(const Elem* __restrict__ px, const Elem* __restrict__ py,
       if (i < j1 - j0) {
         float p = 0.f;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) p += xs[t * lay.wx + i];
+        for (int t = 0; t < 9; ++t) p += rag::widen(xs[t * lay.wx + i]);
         P[i] = p;
       }
       if (i <= r1 - r0) {
         float r = 0.f;
 #pragma unroll
         for (int t = 0; t < 9; ++t)
-          r += ys[t * lay.wy + r0 + i - (t / 3 - t % 3) - y0];
+          r += rag::widen(ys[t * lay.wy + r0 + i - (t / 3 - t % 3) - y0]);
         R[i] = r;
       }
     }
@@ -493,6 +521,13 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// whether p is aligned to a piece of four Elem (16 bytes of float32, 8 of
+// bf16)
+template <class Elem>
+bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(Elem)) == 0;
+}
+
 int set_smem(const void* kernel, size_t smem) {
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem <= 48 * 1024) return 0;
@@ -504,8 +539,9 @@ int round32(int n) { return (n + 31) / 32 * 32; }
 
 // A launch of J or K: blocks, threads a block, shared memory, the planes
 // and columns a staged piece (J) or run (K; columns: the slab's row
-// pitch), pieces or runs a row, 16-byte copies, blocks a row (K's splits)
-// and K's column blocks a row (0: one block walks both kinds).
+// pitch), pieces or runs a row, copies in pieces of four elements (vec),
+// blocks a row (K's splits) and K's column blocks a row (0: one block
+// walks both kinds).
 struct Plan {
   int threads, planes, cols, runs, vec, splits, ncs;
   long long blocks;
@@ -514,11 +550,13 @@ struct Plan {
 
 // J: a block a row, pieces of tw columns x dp planes (column tiles and
 // plane chunks of even size), a thread a task (run of kFwdPlanes planes,
-// group of columns) of a piece, at most kFwdMaxThreads. 16-byte copies and
-// stores (G = 4) for float32 maps only.
+// group of columns) of a piece, at most kFwdMaxThreads. Copies and stores
+// of four elements (G = 4) where W % 4 == 0 and the maps are aligned to
+// them, for either element type: the plan but its shared bytes is the
+// same for float32 and bf16 (ops/shear.py::fwd_plan).
 template <class Elem>
 int fwd_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
-  p->vec = rag::kF32<Elem> && (W % 4 == 0) && aligned;
+  p->vec = (W % 4 == 0) && aligned;
   p->splits = 1, p->ncs = 0;
   const int tiles = (W + kFwdTileCols - 1) / kFwdTileCols;
   int tw = (W + tiles - 1) / tiles;
@@ -531,13 +569,11 @@ int fwd_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
                           (p->vec ? tw / 4 : tw);
   p->threads = tasks < kFwdMaxThreads ? round32((int)tasks) : kFwdMaxThreads;
   p->blocks = (long long)B * Co * H;
-  p->smem = (size_t)FwdLayout(W, tw, dp).floats() * sizeof(float);
+  p->smem = FwdLayout(W, tw, dp).bytes((int)sizeof(Elem));
   if (p->blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  if constexpr (rag::kF32<Elem>) {
-    if (p->vec) return set_smem((const void*)shear_fwd_kernel<4, Elem>,
-                                p->smem);
-  }
-  return set_smem((const void*)shear_fwd_kernel<1, Elem>, p->smem);
+  return set_smem(p->vec ? (const void*)shear_fwd_kernel<4, Elem>
+                         : (const void*)shear_fwd_kernel<1, Elem>,
+                  p->smem);
 }
 
 // K: 2W + 4 walkers a row, one block where they fit kAdjMaxThreads, else
@@ -585,13 +621,11 @@ int fwd_entry(const void* px, const void* py, const void* scale,
   if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
   Plan p;
   if (const int e = fwd_plan<Elem>(
-          B, D, Co, H, W, aligned16(px) && aligned16(py) && aligned16(out),
+          B, D, Co, H, W,
+          aligned4<Elem>(px) && aligned4<Elem>(py) && aligned4<Elem>(out),
           &p))
     return e;
-  auto kernel = shear_fwd_kernel<1, Elem>;
-  if constexpr (rag::kF32<Elem>) {
-    if (p.vec) kernel = shear_fwd_kernel<4, Elem>;
-  }
+  auto kernel = p.vec ? shear_fwd_kernel<4, Elem> : shear_fwd_kernel<1, Elem>;
   kernel<<<(unsigned)p.blocks, p.threads, p.smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Elem*>(px), static_cast<const Elem*>(py),
@@ -614,6 +648,13 @@ int adj_entry(const void* dz, void* dpx, void* dpy, int B, int D, int Co,
       static_cast<float*>(dpy), D, Co, H, W, p.splits, p.ncs, p.planes,
       p.cols, p.vec);
   return (int)cudaGetLastError();
+}
+
+// J's or K's launch for operands aligned to a piece (rag_shear_plan).
+template <class Elem>
+int plan_of(int adjoint, int B, int D, int Co, int H, int W, Plan* p) {
+  return adjoint ? adj_plan<Elem>(B, D, Co, H, W, true, p)
+                 : fwd_plan<Elem>(B, D, Co, H, W, true, p);
 }
 
 }  // namespace
@@ -648,22 +689,24 @@ extern "C" int rag_shear_adj_bf16(const void* dz, void* dpx, void* dpy, int B,
   return adj_entry<rag::bf16>(dz, dpx, dpy, B, D, Co, H, W, stream);
 }
 
-// The launch of J (adjoint = 0; 16-byte aligned maps assumed) or K
-// (adjoint = 1) at a shape, as the two entries above choose it: out[0..8]
-// = blocks, threads a block, shared bytes a block, planes and columns a
-// staged piece or run, pieces or runs a row, 16-byte copies (1) or 4-byte
-// (0), blocks a row, K's column blocks a row (0: one block walks both
-// kinds).
+// The launch of J (adjoint = 0; operands aligned to a piece assumed) or K
+// (adjoint = 1) at a shape, for eb-byte maps or dz (4: float32, 2: bf16),
+// as the entries above choose it: out[0..9] = blocks, threads a block,
+// shared bytes a block, planes and columns a staged piece or run, pieces
+// or runs a row, copies in pieces of four (1) or of one element (0),
+// blocks a row, K's column blocks a row (0: one block walks both kinds),
+// bytes a copy.
 extern "C" int rag_shear_plan(int adjoint, int B, int D, int Co, int H,
-                              int W, void* out) {
-  if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
+                              int W, int eb, void* out) {
+  if (bad_shape(B, D, Co, H, W) || (eb != 4 && eb != 2))
+    return (int)cudaErrorInvalidValue;
   Plan p;
-  if (const int e = adjoint ? adj_plan<float>(B, D, Co, H, W, true, &p)
-                            : fwd_plan<float>(B, D, Co, H, W, true, &p))
+  if (const int e = eb == 4 ? plan_of<float>(adjoint, B, D, Co, H, W, &p)
+                            : plan_of<rag::bf16>(adjoint, B, D, Co, H, W, &p))
     return e;
   long long* o = static_cast<long long*>(out);
   o[0] = p.blocks, o[1] = p.threads, o[2] = (long long)p.smem;
   o[3] = p.planes, o[4] = p.cols, o[5] = p.runs, o[6] = p.vec;
-  o[7] = p.splits, o[8] = p.ncs;
+  o[7] = p.splits, o[8] = p.ncs, o[9] = p.vec ? 4 * eb : eb;
   return 0;
 }

@@ -46,7 +46,7 @@ SIGNATURES = {
     "rag_resize_taps_cf": [_P] * 4 + [_I] * 15 + [_P],
     "rag_shear_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "rag_shear_adj": [_P] * 3 + [_I] * 5 + [_P],
-    "rag_shear_plan": [_I] * 6 + [_P],
+    "rag_shear_plan": [_I] * 7 + [_P],
 }
 # the bf16 instances of kernels A/H, B, D, F, E, J and K: the same arguments
 BF16_ENTRIES = ("rag_conv3d_brc_cf", "rag_cvstem_brc", "rag_conv3d_dw_cf",

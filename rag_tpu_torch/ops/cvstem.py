@@ -29,7 +29,8 @@ planes d in chunks across blocks (``dxy_plan``); each block stages every dz
 plane of its chunk once, for all 12 output channels of its half, and the
 partial sums of the chunks are added in chunk order by a second kernel.
 ``dxy_window``, ``dxy_tap_column`` and ``dxy_ring_slot`` are the kernel's
-index rules, which the CPU tests emulate.
+index rules, and ``dxy_piece``, ``dxy_stage_base`` and ``dxy_row_pieces``
+its bf16 staging rules, which the CPU tests emulate.
 
 Kernel F, ``cvstem_dw``: the stem's weight gradient. Replaces
 rag_tpu/ops/pallas_cvstem.py::cvstem_dw_pallas (body _cvstem_dw_kernel).
@@ -53,9 +54,13 @@ volume's bf16 rows with cp.async as they are, in their engines' pieces
 float32 instance's plans: a stage that is all Y sits ``stage_offset`` =
 p % 4 (B) or p % 8 (F) columns right, so that Y's pieces copy whole at
 every plane, and only the X row's diagonal piece and a Y row's piece at
-the right edge copy element by element. E still stages bf16 dz planes
-widened by register loads. The sums are the float32 instance's on the
-upcast inputs bit for bit (but for a zero's sign). B stores its output
+the right edge copy element by element. E copies a bf16 dz plane's rows
+with cp.async in pieces (``dxy_piece``: 16 bytes of eight, or 8 bytes of
+four) from the piece boundary at or left of its window
+(``dxy_stage_base``), into bf16 ring slots it reads that many columns
+further on, widening each value as its inner loop reads it. The sums are
+the float32 instance's on the upcast inputs bit for bit (but for a zero's
+sign). B stores its output
 and E dX and dY in the activations' dtype, F stores dW in float32, as
 rag_tpu/ops/pallas_cvstem.py does. The plain versions compute in float32
 on the upcast inputs and cast to the kernel's output dtype.
@@ -157,6 +162,7 @@ DXY_TH, DXY_TW = 8, 64
 DXY_RING = 2          # plane slots: the plane in use and the one streaming in
 DXY_HALO = 2          # staged columns left of the tile (and right of it)
 DXY_PITCH = 80        # floats per staged row
+DXY_PITCH_BF16 = 88   # bf16 per staged row of the bf16 instance
 DXY_BLOCKS = 512      # about two waves at two blocks per SM
 
 
@@ -171,7 +177,15 @@ class DxyPlan(NamedTuple):
     n_ht: int         # tiles along H
     blocks: int       # blocks of the partial-sum kernel
     workspace: int    # floats of the partial dX, dY workspace
-    smem: int         # dynamic shared memory per block, bytes
+    smem: int         # dynamic shared memory per block, bytes (float32)
+
+    def smem_for(self, eb: int) -> int:
+        """Bytes of shared memory of the instance with eb-byte dz (4:
+        float32, 2: bf16): the weights, and two ring slots of kc channels
+        x (TH + 2) rows of DXY_PITCH floats or DXY_PITCH_BF16 bf16."""
+        pitch = DXY_PITCH if eb == 4 else DXY_PITCH_BF16
+        return (4 * 27 * self.kc * self.ct
+                + eb * DXY_RING * self.kc * (DXY_TH + 2) * pitch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,10 +203,10 @@ def dxy_plan(b: int, d: int, cout: int, c: int, h: int, w: int) -> DxyPlan:
     n_chunks = -(-d // chunk)
     passes = -(-cout // 12)
     kc = -(-cout // passes)
-    smem = 4 * (27 * kc * ct + DXY_RING * kc * (DXY_TH + 2) * DXY_PITCH)
-    return DxyPlan(ct, n_cc, chunk, n_chunks, kc, n_wt, n_ht,
+    plan = DxyPlan(ct, n_cc, chunk, n_chunks, kc, n_wt, n_ht,
                    n_wt * n_ht * n_chunks * 2 * b * n_cc,
-                   2 * n_chunks * b * c * h * w, smem)
+                   2 * n_chunks * b * c * h * w, 0)
+    return plan._replace(smem=plan.smem_for(4))
 
 
 def dxy_window(half: int, w0: int, q: int) -> int:
@@ -211,6 +225,64 @@ def dxy_tap_column(half: int, kd: int) -> int:
 def dxy_ring_slot(q: int) -> int:
     """The ring slot that holds dz plane q."""
     return q % DXY_RING
+
+
+def dxy_piece_for(w: int, ptr: int, eb: int) -> int:
+    """Elements a copy of kernel E's staging moves for dz rows of w
+    eb-byte elements at address ptr (csrc/cvstem_dxy.cu::dxy_piece):
+    float32 one (a 4-byte cp.async an element); bf16 8 (16-byte pieces)
+    where w % 8 == 0 and ptr is 16-byte aligned, else 4 (8-byte pieces)
+    where w % 4 == 0 and ptr is 8-byte aligned, else 0 (one element at a
+    time by register loads, in the layout of pieces of eight)."""
+    if eb == 4:
+        return 1
+    if w % 8 == 0 and ptr % 16 == 0:
+        return 8
+    if w % 4 == 0 and ptr % 8 == 0:
+        return 4
+    return 0
+
+
+def dxy_piece(dz: torch.Tensor) -> int:
+    """``dxy_piece_for`` of a dz tensor."""
+    return dxy_piece_for(dz.shape[-1], dz.data_ptr(), dz.element_size())
+
+
+def dxy_stage_base(half: int, w0: int, q: int, n: int):
+    """(base, off): the bf16 instance stages plane q's window for the
+    tile at w0 (from ``dxy_window``) in pieces of n from column base, the
+    piece boundary at or left of the window's first column, and reads
+    window column c at slot column c + off (off = window start - base:
+    n - 2 for the dX half, (q - 2) mod n for the dY half). n = 0 (the
+    element path) takes the layout of pieces of eight."""
+    n = n or 8
+    col0 = dxy_window(half, w0, q)
+    return col0 - col0 % n, col0 % n
+
+
+def dxy_row_pieces(base: int, w: int, n: int, h_ok: bool = True):
+    """How a staged row of the bf16 instance lands (csrc/cvstem_dxy.cu::
+    stage_plane): its pieces from column base, enough to hold the window's
+    TW + 2 * HALO columns at any offset, each a list of (copy width in
+    bytes, slot column, source column or None for a zero). With pieces (n
+    = 8 or 4): one copy of 2n bytes where the piece lies inside [0, w),
+    one zero fill of it where it lies outside (or the row is outside
+    [0, H), not h_ok); n = 0: every piece of eight element by element (2
+    bytes, a zero outside)."""
+    size = n or 8
+    cols = DXY_TW + 2 * DXY_HALO
+    out = []
+    for k in range((cols + 2 * size - 2) // size):
+        j0 = base + k * size
+        if n and (not h_ok or j0 + n <= 0 or j0 >= w):
+            out.append([(2 * n, k * n, None)])
+        elif n and j0 >= 0 and j0 + n <= w:
+            out.append([(2 * n, k * n, j0)])
+        else:
+            out.append([(2, k * size + e,
+                         j0 + e if h_ok and 0 <= j0 + e < w else None)
+                        for e in range(size)])
+    return out
 
 
 def pack_dxy_weights(w3: torch.Tensor, ct: int, n_cc: int) -> torch.Tensor:

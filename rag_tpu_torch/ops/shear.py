@@ -31,14 +31,14 @@ no float atomics, the same bits on every run. Where a row's 2W + 4
 walkers fit one block (W <= 510) the block stages the row's D x W slab of
 dz once; wider rows go to column blocks and diagonal blocks that stage
 only the columns they read. ``shear_plan`` reads either launch from the
-library.
+library; ``fwd_plan`` is J's in Python.
 
 rag_tpu engages the shear only where its VMEM estimate fits 12 MB
 (``shear_vmem_ok``), which keeps it off at 480x960. J and K take every
 shape (their shared memory is bounded whatever W and D are), so the port
 serves 480x960 through them too; the same holds for D == W, ``num_disp``
-past W and any W % 4 (16-byte copies and stores where W % 4 == 0, 4-byte
-ones elsewhere).
+past W and any W % 4 (copies and stores of four elements where W % 4 ==
+0, of one elsewhere).
 
 Each wrapper runs its plain PyTorch version for CPU tensors only; on a
 CUDA tensor it launches its kernel or raises. The plain versions are masked,
@@ -47,11 +47,16 @@ shifted sums with direct indexing (never a roll that wraps).
 Dtypes (the bf16-at-rest policy, ops.precision): the tap maps are built
 in float32 from the upcast features and stored in the features' dtype, as
 rag_tpu/ops/pallas_shear.py::shear_stem_z casts them to the compute
-dtype. J takes float32 or bfloat16 tap maps (bf16 rows staged widened to
-float32 by register loads, where float32 copies with cp.async), sums in
-float32 and stores z in their dtype; K takes a float32 or bf16 dz and
-writes dpx and dpy in float32. The plain versions compute in float32 (or
-float64) on the upcast inputs; J's casts its output to the maps' dtype.
+dtype. J takes float32 or bfloat16 tap maps at one plan (``fwd_plan``:
+groups of four columns for both where W % 4 == 0 and the maps are aligned
+to four elements), stages their rows as they are with cp.async in pieces
+of four (16 bytes of float32, 8 of bf16), widens a bf16 value as it reads
+it, sums in float32 and stores z in the maps' dtype, four columns at once
+(one 16- or 8-byte store); so its bf16 output is its float32 output on
+the upcast maps, rounded. K takes a float32 or bf16 dz and writes dpx and
+dpy in float32; its bf16 rows are still staged widened to float32 by
+register loads. The plain versions compute in float32 (or float64) on the
+upcast inputs; J's casts its output to the maps' dtype.
 """
 
 from __future__ import annotations
@@ -226,21 +231,62 @@ class ShearPlan(NamedTuple):
     planes: int        # J: planes a staged piece; K: dz planes a run
     cols: int          # J: columns a piece; K: the staged slab's row pitch
     runs: int          # J: pieces a row; K: runs of planes a row
-    vec: int           # 16-byte copies (1) or 4-byte (0)
+    vec: int           # copies in pieces of four elements (1) or of one (0)
     splits: int        # blocks a row (K's column and diagonal blocks)
     col_splits: int    # K's column blocks a row (0: one block, both kinds)
+    copy_bytes: int    # bytes a copy: 16 or 8 (pieces), 4 or 2 (elements)
 
 
 def shear_plan(adjoint: bool, b: int, num_disp: int, co: int, h: int,
-               w: int) -> ShearPlan:
-    """The launch kernel J (or K, with adjoint) takes at a shape, as the
-    library's entry point chooses it (16-byte aligned operands). Loads the
-    library: CUDA hosts only."""
+               w: int, eb: int = 4) -> ShearPlan:
+    """The launch kernel J (or K, with adjoint) takes at a shape for
+    eb-byte operands (4: float32, 2: bf16), as the library's entry point
+    chooses it (operands aligned to a piece). Loads the library: CUDA
+    hosts only."""
     out = (ctypes.c_longlong * len(ShearPlan._fields))()
     rc = cuda_lib.lib().rag_shear_plan(int(adjoint), b, num_disp, co, h, w,
-                                       ctypes.cast(out, ctypes.c_void_p))
+                                       eb, ctypes.cast(out, ctypes.c_void_p))
     cuda_lib.check(rc, "shear_plan")
     return ShearPlan(*out)
+
+
+# kernel J's plain constants (csrc/shear.cu)
+FWD_MAX_THREADS = 768   # most threads a block
+FWD_PLANES = 8          # planes a task walks
+FWD_TILE_COLS = 1024    # most columns a staged piece
+FWD_TILE_PLANES = 64    # most planes a staged piece
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def fwd_smem_bytes(w: int, tw: int, dp: int, eb: int) -> int:
+    """Kernel J's shared memory for pieces of tw columns x dp planes
+    (csrc/shear.cu::FwdLayout::bytes): nine px rows of round4(tw) and nine
+    py rows of min(round4(W), round4(tw + dp + 9)) eb-byte elements, then
+    float32 P (round4(tw)) and R (min(W, tw + dp))."""
+    wx = _round4(tw)
+    wy = min(_round4(w), _round4(tw + dp + 9))
+    return eb * 9 * (wx + wy) + 4 * (wx + min(w, tw + dp))
+
+
+def fwd_plan(b: int, num_disp: int, co: int, h: int, w: int, eb: int = 4,
+             aligned: bool = True) -> ShearPlan:
+    """Kernel J's launch in Python (csrc/shear.cu::fwd_plan), for eb-byte
+    maps (aligned: px, py and out aligned to four elements): the same for
+    float32 and bf16 but for its shared bytes and copy width."""
+    vec = w % 4 == 0 and aligned
+    tw = -(-w // -(-w // FWD_TILE_COLS))
+    if vec:
+        tw = _round4(tw)
+    dp = -(-num_disp // -(-num_disp // FWD_TILE_PLANES))
+    tasks = -(-dp // FWD_PLANES) * (tw // 4 if vec else tw)
+    threads = (-(-tasks // 32) * 32 if tasks < FWD_MAX_THREADS
+               else FWD_MAX_THREADS)
+    return ShearPlan(b * co * h, threads, fwd_smem_bytes(w, tw, dp, eb), dp,
+                     tw, -(-w // tw) * -(-num_disp // dp), int(vec), 1, 0,
+                     4 * eb if vec else eb)
 
 
 def _identity_affine(px: torch.Tensor):

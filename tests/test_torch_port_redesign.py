@@ -86,13 +86,20 @@ def _stage(dz_q, h0, col0):
     return out
 
 
-def emulate_dxy(dz, w3, plan):
+def stage_window(dz_q, h0, half, w0, q):
+    """Plane q's staged window for the tile at (h0, w0), as the float32
+    instance stages it (one element a copy)."""
+    return _stage(dz_q, h0, dxy_window(half, w0, q))
+
+
+def emulate_dxy(dz, w3, plan, stage=stage_window):
     """Kernel E's two passes, block by block, as csrc/cvstem_dxy.cu runs
     them: for each (half, channel chunk, chunk of planes, tile), walk the
     dz planes q of the chunk with the next one staged into the other ring
     slot before plane q is used, add plane q's contribution to each output
     d = q + 1 - kd under d's mask, write the partial; then sum partials in
-    chunk order."""
+    chunk order. ``stage(dz_q, h0, half, w0, q)`` gives a plane's staged
+    window as the block reads it (float32, (B, Cout, TH + 2, TW + 4))."""
     b, d, cout, h, w = dz.shape
     c = w3.shape[3] // 2
     wpk = pack_dxy_weights(w3, plan.ct, plan.n_cc)
@@ -112,13 +119,12 @@ def emulate_dxy(dz, w3, plan):
                         ring = [None] * DXY_RING
                         q_lo, q_hi = max(d0 - 1, 0), min(d_end, d - 1)
                         if d0 < d_end and q_lo <= q_hi:
-                            ring[dxy_ring_slot(q_lo)] = _stage(
-                                dz[:, q_lo], h0, dxy_window(half, w0, q_lo))
+                            ring[dxy_ring_slot(q_lo)] = stage(
+                                dz[:, q_lo], h0, half, w0, q_lo)
                         for q in range(q_lo, q_hi + 1) if d0 < d_end else ():
                             if q + 1 <= q_hi:
-                                ring[dxy_ring_slot(q + 1)] = _stage(
-                                    dz[:, q + 1], h0,
-                                    dxy_window(half, w0, q + 1))
+                                ring[dxy_ring_slot(q + 1)] = stage(
+                                    dz[:, q + 1], h0, half, w0, q + 1)
                             slab = ring[dxy_ring_slot(q)]
                             for kd in range(3):
                                 dd = q + 1 - kd
