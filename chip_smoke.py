@@ -7,8 +7,8 @@ Two paths run through every phase but learn and cli: the default path (kernels
 A-G) and the variant path, KernelVariants(conv3d_dblock, resize_kernel, shear_stem) all
 on, where kernel H (kernel A's engine with four output planes a block)
 takes kernel A's place, kernel I the matrix resizes, and the shear stem
-(tap maps + kernels J and K) kernels B, E and F. Kernels A, B, D-F, H,
-J and K each have a bf16
+(tap maps + kernels J and K) kernels B, E and F. Kernels A, B, D-F and
+H-K each have a bf16
 instance (bf16 at rest, ops.precision.Precision(torch.bfloat16)), which
 the bf16 phase drives and the kernels phase checks; its launches count
 apart (the wrapper's launches_bf16) and its report entry is its own.
@@ -59,10 +59,10 @@ exception:
                    beside its float32 instance on the upcast arguments,
                    "f32_ms") and at the small shapes, a bf16 output held
                    to one bf16 ulp of its largest value beyond the float32
-                   tolerance; those of A, H, B, D, E, F and J also equal
-                   to the float32 instance's output on the upcast
-                   arguments at the same plan, rounded to bf16 (D's and
-                   F's dW outright), under torch.equal ("f32_equal"), with
+                   tolerance; every one also equal to the float32
+                   instance's output on the upcast arguments at the same
+                   plan, rounded to bf16 (D's and F's dW and K's maps
+                   outright), under torch.equal ("f32_equal"), with
                    the copy path taken ("vec", which must hold at every
                    main-path call); E's bf16 line also times it with 8-byte
                    pieces of four ("piece4_ms"); B's line also times the shear-collapsed
@@ -107,10 +107,11 @@ exception:
                    steps of task 0's configuration, precision=
                    Precision(torch.bfloat16) or float32, every launch
                    count (both instances) at 0 first. Gates: bf16 serving
-                   launches A, B, C (default) or H, J, C (variants) and
-                   training A-G or H, J, K, C, D, G, their bf16 instances
-                   where they have one and kernel I at 0, no float32
-                   instance of those; each task path's bf16 disparity
+                   launches A, B, C (default) or H, I, J, C (variants) and
+                   training A-G or H-K, C, D, G, their bf16 instances
+                   where they have one, no float32 instance of those, and
+                   I's bf16 instance as often as the float32 turn's I;
+                   each task path's bf16 disparity
                    against the float32 one within tests/test_bf16.py's
                    bounds (|mean difference| < 1 px, mean |difference| <
                    5 px); the first bf16 step's loss within 5 % of the
@@ -434,11 +435,6 @@ PATHS = {"default": KernelVariants(),
          "variants": KernelVariants(conv3d_dblock=True, resize_kernel=True,
                                     shear_stem=True)}
 TURNS = ("default", "variants", "variants", "default")  # serve, route, train
-# the paths under Precision(torch.bfloat16): kernel I takes float32 only, so
-# the variant path leaves resize_kernel off (KernelVariants.check refuses it)
-BF16_PATHS = {"default": PATHS["default"],
-              "variants": dataclasses.replace(PATHS["variants"],
-                                              resize_kernel=False)}
 # the route phase: the canonical run's four styled test scenes (scene t
 # styled WEATHER_STYLES[t], seed 30 + t, disparity up to 64 px;
 # rag_tpu/cli.py:260-267) and its router training (rag_tpu's driver
@@ -744,10 +740,12 @@ def disp_bwd_bound(x_shape, maxdisp, scale):
     return _bound(flops, nbytes)
 
 
-def resize_bound(x_shape, d2, h2, w2, align_corners=True, transposed=False):
+def resize_bound(x_shape, d2, h2, w2, align_corners=True, transposed=False,
+                 eb=4):
     """Kernel I: the multiply-adds of the separable form (each axis that
     changes, one per nonzero tap of its table, over the volume at that
-    stage); bytes: x in, the output out."""
+    stage), float32 (the bf16 instance widens and sums in float32); bytes:
+    x in, the output out, eb bytes an element."""
     b, d, c, h, w = x_shape
     nnz = []
     for n, n2 in ((d, d2), (h, h2), (w, w2)):
@@ -759,7 +757,7 @@ def resize_bound(x_shape, d2, h2, w2, align_corners=True, transposed=False):
         nnz.append(int(np.count_nonzero(wts)))
     flops = 2.0 * (nnz[0] * b * c * h * w + nnz[1] * b * d2 * c * w
                    + nnz[2] * b * d2 * c * h2)
-    nbytes = 4.0 * (b * d * c * h * w + b * d2 * c * h2 * w2)
+    nbytes = float(eb) * (b * d * c * h * w + b * d2 * c * h2 * w2)
     return _bound(flops, nbytes)
 
 
@@ -922,15 +920,25 @@ def _resize_beside(x, d2, h2, w2, align_corners=True, transposed=False):
                                                          plan)}
 
 
+def _resize_piece(x):
+    """Elements of kernel I's staged pieces for x (its instance's rule)."""
+    return resize_mod.resize_piece(x.shape[-1], x.data_ptr(),
+                                   x.element_size())
+
+
 def _resize_plan(x, d2, h2, w2, align_corners=True, transposed=False):
-    """Kernel I's plan for the call: tile, output planes per block, taps a
-    table row, blocks, staged rows and columns a plane, shared memory."""
+    """Kernel I's plan for the call (the float32 plan for either dtype):
+    tile, output planes per block, taps a table row, blocks, staged rows
+    and elements a row, the elements a staged piece, shared memory for x's
+    dtype."""
     b, d, c, h, w = x.shape
     p = resize_mod.resize_plan(b, d, c, h, w, d2, h2, w2, align_corners,
                                transposed)
+    piece = _resize_piece(x)
     return {"blocks": p.blocks, "tile": f"{p.th}x{p.tw}", "run": p.run,
-            "n_runs": p.n_runs, "k": p.k, "staged": f"{p.rows}x{p.pitch}",
-            "smem_bytes": p.smem}
+            "n_runs": p.n_runs, "k": p.k,
+            "staged": f"{p.rows}x{p.pitch_for(piece)}", "piece": piece,
+            "smem_bytes": p.smem_for(x.element_size(), piece)}
 
 
 def _conv_beside(x, w, scale, bias, relu):
@@ -1125,12 +1133,16 @@ def _shear_plan(px, py, scale, bias, nd, relu=False):
 
 
 def _shear_adj_plan(dz, nd):
-    """Kernel K's launch: blocks (row, split), threads (walkers), shared
-    memory (the staged run of dz), planes a run, the slab's row pitch, runs
-    a row, splits a row and the column blocks among them."""
+    """Kernel K's launch for dz's dtype: blocks (row, split), threads
+    (walkers), shared memory (the staged run of dz), planes a run, the
+    slab's row pitch, runs a row, bytes a copy, splits a row and the column
+    blocks among them; it must equal ops/shear.py::adj_plan."""
     b, _, co, h, w = dz.shape
-    return _shear_fields(shear_mod.shear_plan(True, b, nd, co, h, w,
-                                              dz.element_size()))
+    p = shear_mod.shear_plan(True, b, nd, co, h, w, dz.element_size())
+    if p != shear_mod.adj_plan(b, nd, co, h, w, dz.element_size()):
+        raise SystemExit(f"chip_smoke: kernel K's launch {p} differs from "
+                         "ops/shear.py::adj_plan")
+    return _shear_fields(p)
 
 
 def _shear_beside(px, py, scale, bias, nd, relu=False):
@@ -1266,8 +1278,10 @@ KERNELS = {
         replaces="rag_tpu/ops/pallas_resize.py:123",
         sig=lambda x, d2, h2, w2, align_corners=True, transposed=False:
             (tuple(x.shape), (d2, h2, w2), transposed),
-        bound=lambda x, *a, **kw: resize_bound(x.shape, *a, **kw),
+        bound=lambda x, *a, **kw: resize_bound(x.shape, *a, **kw,
+                                               eb=x.element_size()),
         library=_resize_library, beside=_resize_beside, plan=_resize_plan,
+        vec=lambda x, *a, **kw: _resize_piece(x) > 1,
         tol="conv", path="variants", serving=True),
     "shear_forward": dict(
         site=(shear_mod, "shear_forward"),
@@ -1291,6 +1305,8 @@ KERNELS = {
                                              eb=dz.element_size()),
         magnitude=lambda dz, nd: (dz.abs(), nd),
         library=None, beside=_shear_adj_beside, plan=_shear_adj_plan,
+        vec=lambda dz, nd: shear_mod.adj_piece(
+            dz.shape[-1], dz.data_ptr(), dz.element_size()) > 1,
         tol="bwd", path="variants", serving=False, bitwise=True),
 }
 for _k in KERNELS.values():
@@ -1301,18 +1317,18 @@ for _k in KERNELS.values():
 # wrapper's launches_bf16. name -> (positions of the activation arguments,
 # the rest float32; whether the output is bf16: D's, F's and K's are
 # float32). Each is timed beside its float32 instance on the upcast
-# arguments ("f32_ms"). Those of kernels A, H, B, D, E, F and J run the
-# float32 instance's sums on the widened values at its plan (plans take
-# shapes only), so their output equals the float32 instance's on the
-# upcast arguments, rounded to bf16 (A, H, B, E, J), or outright (D's and
-# F's float32 dW), under torch.equal ("f32_equal"); and at every main-path
-# shape they stage with cp.async in pieces ("vec": of four elements in A's
-# engine and J, of 16 bytes in D's, of 16 or 8 bytes in E). K's bf16
-# instance alone still stages by register loads.
+# arguments ("f32_ms"). Every one runs the float32 instance's sums on the
+# widened values at its plan (plans take shapes only), so its output
+# equals the float32 instance's on the upcast arguments, rounded to bf16
+# (A, H, B, E, I, J), or outright (D's and F's float32 dW, K's float32
+# maps), under torch.equal ("f32_equal"); and at every main-path shape it
+# stages with cp.async in pieces ("vec": of four elements in A's engine
+# and J, of 16 bytes in D's, of 16 or 8 bytes in E, I and K).
 BF16_OF = {"conv3d_brc_cf": ((0,), True), "conv3d_dblock_cf": ((0,), True),
            "cvstem_brc": ((0, 1), True), "conv3d_dw_cf": ((0, 1), False),
            "cvstem_dxy": ((0,), True), "cvstem_dw": ((0, 1, 2), False),
-           "shear_forward": ((0, 1), True), "shear_adjoint": ((0,), False)}
+           "resize_taps_cf": ((0,), True), "shear_forward": ((0, 1), True),
+           "shear_adjoint": ((0,), False)}
 
 
 def bf16_name(name: str) -> str:
@@ -1339,15 +1355,11 @@ def _f32_beside(name):
     return beside
 
 
-BF16_SAME = ("conv3d_brc_cf", "conv3d_dblock_cf", "cvstem_brc",
-             "conv3d_dw_cf", "cvstem_dxy", "cvstem_dw", "shear_forward")
-
-
 BF16_KERNELS = {
     bf16_name(n): {**{k: v for k, v in KERNELS[n].items()
                       if k not in ("beside", "beside_graph", "max_err")},
                    "base": n, "count": "launches_bf16", "bf16_out": out,
-                   "beside": _f32_beside(n), "same_as_f32": n in BF16_SAME}
+                   "beside": _f32_beside(n)}
     for n, (_, out) in BF16_OF.items()}
 ALL_KERNELS = {**KERNELS, **BF16_KERNELS}
 
@@ -1378,15 +1390,12 @@ TRAIN_KERNELS = {
         "conv3d_dw_cf", "cvstem_dxy", "cvstem_dw", "soft_argmin_bwd"),
     "variants": SERVE_KERNELS["variants"] + (
         "shear_adjoint", "conv3d_dw_cf", "soft_argmin_bwd")}
-# under Precision(torch.bfloat16) (BF16_PATHS): every kernel that takes bf16
-# runs its bf16 instance; the head (C, G) stays float32 and kernel I, which
-# takes float32 only, does not run (the matrix resize does)
+# under Precision(torch.bfloat16): every kernel that takes bf16 runs its
+# bf16 instance; the head (C, G) stays float32
 SERVE_BF16 = {p: tuple(bf16_name(k) if k in BF16_OF else k
-                       for k in SERVE_KERNELS[p] if k != "resize_taps_cf")
-              for p in PATHS}
+                       for k in SERVE_KERNELS[p]) for p in PATHS}
 TRAIN_BF16 = {p: tuple(bf16_name(k) if k in BF16_OF else k
-                       for k in TRAIN_KERNELS[p] if k != "resize_taps_cf")
-              for p in PATHS}
+                       for k in TRAIN_KERNELS[p]) for p in PATHS}
 
 
 def small_cases(dev, rng):
@@ -1472,6 +1481,22 @@ def small_cases(dev, rng):
                               ((1, 16, 2, 20, 40), (4, 5, 10), False),
                               ((1, 4, 2, 5, 10), (16, 20, 40), True)]:
         cases.append(("resize_taps_cf", (t(*shape), *target, True, tr)))
+    # the bf16 instances of I and K with x or dz 8 bytes past a 16-byte
+    # boundary (8-byte pieces of four), and I where a W tile's span starts
+    # four columns into its 16-byte piece (a 2x upsample of W = 40)
+    def off8(v):
+        return torch.empty(v.numel() + 4, device=dev,
+                           dtype=v.dtype)[4:].view_as(v).copy_(v)
+
+    for shape, target, tr, off in [((1, 6, 5, 16, 24), (3, 8, 12), False, 1),
+                                   ((2, 12, 5, 32, 48), (6, 16, 24), True, 1),
+                                   ((1, 8, 3, 20, 40), (16, 40, 80), False,
+                                    0)]:
+        x = t(*shape).to(torch.bfloat16)
+        cases.append((bf16_name("resize_taps_cf"),
+                      (off8(x) if off else x, *target, True, tr)))
+    cases.append((bf16_name("shear_adjoint"),
+                  (off8(t(2, 9, 3, 5, 64).to(torch.bfloat16)), 9)))
     # the head: the periodic instance at D = 8, W = 10; the general one
     # at D = 4 (no instance) and at maxdisp not a multiple of D
     for b, d, h, w, md in [(1, 8, 16, 10, 24), (2, 4, 5, 43, 12),
@@ -1485,8 +1510,10 @@ def small_cases(dev, rng):
 def exact_cases(dev, rng):
     """Kernels J and K on integer-valued inputs, where every order of
     summation is exact and kernel and plain version must agree bit for bit
-    (J's bf16 instance too: integers in [-3, 4) are exact in bf16; its
-    output is rounded as the plain version's):
+    (their bf16 instances too: integers in [-3, 4) are exact in bf16; J's
+    output is rounded as the plain version's; K's bf16 instance stages in
+    16-byte pieces at W = 24 and 520, the diagonal blocks' windows widened
+    to pieces of eight, in 8-byte ones at W = 12 and 2100):
     D = 2 (every plane a first or last one) at odd W, the diagonal band,
     the first and last planes and the interior at odd W (4-byte copies)
     and at W % 4 == 0 (16-byte copies and stores), ReLU on and off; D = 1;
@@ -1514,7 +1541,7 @@ def exact_cases(dev, rng):
                                         nd, relu)))
         cases.append(("shear_adjoint", (ints(b, nd, co, h, w), nd)))
     cases += [(bf16_name(n), cast_acts(n, args, torch.bfloat16))
-              for n, args in list(cases) if n == "shear_forward"]
+              for n, args in list(cases)]
     return cases
 
 
@@ -1656,8 +1683,7 @@ def train_step(cfg, params, stats, opt_state, lr, batch, path,
                precision=Precision()):
     specs, _, _, sites = cfg
     step = make_train_step(specs, sites, make_optimizer(WD), maxdisp=MAXDISP,
-                           variants=(BF16_PATHS if precision.mixed()
-                                     else PATHS)[path], precision=precision)
+                           variants=PATHS[path], precision=precision)
     return step(params, stats, opt_state, lr, *batch)
 
 
@@ -1704,14 +1730,14 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
     times of kernel, plain, library and (with beside) the calls timed
     beside it. Returns a result dict (no assertion here). A bf16 instance
     whose output is bf16 is held to one bf16 ulp of its largest value
-    beyond its float32 instance's tolerance; one of BF16_SAME also to its
-    float32 instance on the upcast arguments, rounded to bf16, under
+    beyond its float32 instance's tolerance; every bf16 instance also to
+    its float32 instance on the upcast arguments, rounded to bf16, under
     torch.equal (f32_equal)."""
     k = ALL_KERNELS[name]
     with torch.inference_mode():
         out = k["wrapper"](*args, **kw)
         f32_equal = None
-        if k.get("same_as_f32"):
+        if "base" in k:
             out32 = KERNELS[k["base"]]["wrapper"](
                 *cast_acts(k["base"], args, torch.float32), **kw)
             f32_equal = all(torch.equal(o, o32.to(o.dtype)) for o, o32 in zip(
@@ -1837,7 +1863,7 @@ def phase_kernels(args_of, dev, extra_args=None):
                             f" (tolerance {r['tol']:.3g}), two launches "
                             f"bit-identical: {r['same']}, equal to the "
                             f"float32 instance: {r['f32_equal']}")
-        if main and ALL_KERNELS[name].get("same_as_f32") and not r["vec"]:
+        if main and "base" in ALL_KERNELS[name] and not r["vec"]:
             failures.append(f"{name} {where} {sig}: a main-path bf16 call "
                             "not staged in pieces (vec false)")
         ALL_KERNELS[name].setdefault("max_err", 0.0)
@@ -2329,7 +2355,7 @@ def phase_record_bf16(dev, args_of, requests, path):
     ({"request": ...}, {"task0": ...})."""
     net, _ = load_checkpoint(str(CKPT), 3, device=dev)
     ri = RoutedInference(net, maxdisp=MAXDISP, device=dev,
-                         variants=BF16_PATHS[path], precision=BF16)
+                         variants=PATHS[path], precision=BF16)
     req, step = [], []
     with recording(req, args_of):
         ri.predict(*requests[0][0], task=0)
@@ -2397,16 +2423,31 @@ def train_run(dev, path, precision):
             bad)
 
 
+def i_failures(seen, path, prec, what, n, units):
+    """Kernel I's gate in the bf16 phase: a bf16 run launches I's bf16
+    instance (and no float32 I) as often as the float32 run before it
+    launched I. ``seen`` collects the launches a unit (request or step)
+    per dtype."""
+    name = "resize_taps_cf"
+    count = n[bf16_name(name)] if prec == "bfloat16" else n[name]
+    seen.setdefault(prec, []).append(count / units)
+    if prec == "bfloat16" and count != units * seen["float32"][0]:
+        return [f"bf16 phase {path} {what}: kernel I's bf16 instance "
+                f"launched {count} times, the float32 turn "
+                f"{units * seen['float32'][0]:g}"]
+    return []
+
+
 def phase_bf16(dev, net, requests):
     """bf16 at rest against float32, per path in turns (float32, bf16, bf16,
     float32): REQUESTS requests per task path through RoutedInference and
     TRAIN_STEPS steps of task 0's configuration through make_train_step,
-    with precision=Precision(torch.bfloat16) or float32 (the bf16 runs on
-    BF16_PATHS; RoutedInference and make_train_step must refuse bf16 with
-    resize_kernel). Gates: each run launches its kernels' instances and no
-    other (bf16: A, B, C serving and A-G training on the default path, H,
-    J, C and H, J, K, C, D, G on the variant path, kernel I at 0); every
-    disparity finite in [0, 191];
+    with precision=Precision(torch.bfloat16) or float32. Gates: each run
+    launches its kernels' instances and no other (bf16: A, B, C serving
+    and A-G training on the default path, H, I, J, C and H-K, C, D, G on
+    the variant path); a bf16 run launches kernel I's bf16 instance as
+    often as the float32 turn before it launches I; every disparity finite
+    in [0, 191];
     each task path's bf16 disparity against the float32 one within
     tests/test_bf16.py's bounds; the bf16 first step's loss within
     BF16_LOSS_RTOL of the float32 one's; every leaf float32 and finite.
@@ -2414,24 +2455,17 @@ def phase_bf16(dev, net, requests):
     (bf16 launches summed over the runs, report)."""
     t_phase = time.perf_counter()
     failures, report = [], {}
-    for build in (lambda: RoutedInference(net, device=dev, precision=BF16,
-                                          variants=PATHS["variants"]),
-                  lambda: make_train_step({}, frozenset(), make_optimizer(WD),
-                                          variants=PATHS["variants"],
-                                          precision=BF16)):
-        try:
-            build()
-            failures.append("bf16 with resize_kernel was not refused")
-        except ValueError:
-            pass
     launches = dict.fromkeys(BF16_KERNELS, 0)
+    n_requests = sum(len(reqs) for reqs in requests.values())
     turns = ("float32", "bfloat16", "bfloat16", "float32")
     for p in PATHS:
         ris = {"float32": RoutedInference(net, maxdisp=MAXDISP, device=dev,
                                           variants=PATHS[p]),
                "bfloat16": RoutedInference(net, maxdisp=MAXDISP, device=dev,
-                                           variants=BF16_PATHS[p],
+                                           variants=PATHS[p],
                                            precision=BF16)}
+        # kernel I's launches a request and a step, float32 and bf16
+        i_launches = {"serve": {}, "train": {}}
         serve = {prec: [] for prec in ris}
         first = {}
         for prec in turns:
@@ -2439,6 +2473,8 @@ def phase_bf16(dev, net, requests):
             must = SERVE_BF16[p] if prec == "bfloat16" else SERVE_KERNELS[p]
             failures += launch_failures(f"bf16 phase {p} {prec} serving", n,
                                         must)
+            failures += i_failures(i_launches["serve"], p, prec, "serving",
+                                   n, n_requests)
             for t, ds in outs.items():
                 for i, d in enumerate(ds):
                     failures += check_disparity(f"{p} {prec} task {t} "
@@ -2466,6 +2502,8 @@ def phase_bf16(dev, net, requests):
             must = TRAIN_BF16[p] if prec == "bfloat16" else TRAIN_KERNELS[p]
             failures += launch_failures(f"bf16 phase {p} {prec} training", n,
                                         must)
+            failures += i_failures(i_launches["train"], p, prec, "training",
+                                   n, TRAIN_STEPS)
             failures += [f"bf16 {p} {prec} step: leaf {b}" for b in bad]
             if not all(np.isfinite(losses)):
                 failures.append(f"bf16 {p} {prec}: losses {losses}")
@@ -2481,7 +2519,8 @@ def phase_bf16(dev, net, requests):
             failures.append(f"bf16 {p}: first-step loss {l16} vs float32 "
                             f"{l32} ({rel:.3g} relative > {BF16_LOSS_RTOL})")
         report[p] = {"serve": serve, "vs_float32": vs, "train": train,
-                     "first_step_loss_rel": rel}
+                     "first_step_loss_rel": rel,
+                     "kernel_i_launches": i_launches}
         log(f"[bf16] {p}: {json.dumps(report[p])}")
     report["launches"] = {k: c for k, c in launches.items() if c}
     report["wall_s"] = time.perf_counter() - t_phase

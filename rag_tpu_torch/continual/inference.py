@@ -36,7 +36,6 @@ class RoutedInference:
                  router: Optional[SceneRouter] = None, maxdisp: int = 192,
                  device="cuda", variants: KernelVariants = DEFAULT,
                  precision: Precision = FP32):
-        variants.check(precision)
         self.device = torch.device(device)
         self.net = net.to(self.device)
         self.router = None if router is None else router.to(self.device)

@@ -1,16 +1,15 @@
 // cp.async helpers shared by kernels A (conv3d.cu), D (conv3d_dw.cu), E
-// (cvstem_dxy.cu) and J, K (shear.cu): 4-, 8- and 16-byte global -> shared
-// copies that zero-fill where the source lies outside the volume, committed
-// in groups and waited on group by group. And the element rule of the
-// bf16-at-rest policy (rag_tpu_torch/ops/precision.py): a kernel's
-// activations are float32 or bf16 (Elem) and every sum is float32.
-// cp.async copies bytes and cannot widen, so a bf16 row is staged as it
-// is, two bytes an element (A: 8-byte pieces of four; D: 16-byte pieces of
-// eight; E: 16-byte pieces of eight, or 8-byte ones of four; J: 8-byte
-// pieces of four), and widened in shared memory or as it is read
-// (widen_bits: a bf16 is the top half of its float32); kernel K alone
-// still widens each element as it stages it (a register load). An output
-// is rounded to nearest even as it is stored.
+// (cvstem_dxy.cu), I (resize_taps.cu) and J, K (shear.cu): 4-, 8- and
+// 16-byte global -> shared copies that zero-fill where the source lies
+// outside the volume, committed in groups and waited on group by group. And
+// the element rule of the bf16-at-rest policy (rag_tpu_torch/ops/
+// precision.py): a kernel's activations are float32 or bf16 (Elem) and
+// every sum is float32. cp.async copies bytes and cannot widen, so a bf16
+// row is staged as it is, two bytes an element (A: 8-byte pieces of four;
+// D: 16-byte pieces of eight; E, I and K: 16-byte pieces of eight, or
+// 8-byte ones of four; J: 8-byte pieces of four), and widened in shared
+// memory or as it is read (widen_bits: a bf16 is the top half of its
+// float32). An output is rounded to nearest even as it is stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,24 +70,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One element of a float32 or bf16 source into shared memory as float32,
-// or 0 where !valid (src is then not read): a 4-byte cp.async for float32;
-// for bf16 a register load and widening store, visible to the block after
-// the __syncthreads() that publishes the cp.async copies of the same stage
-// (kernel K's bf16 instance, the last that stages so).
+// One float32 element into shared memory, or 0 where !valid (src is then
+// not read): a 4-byte cp.async.
 __device__ __forceinline__ void stage1(float* dst, const float* src,
                                        bool valid) {
   cp_async4(dst, src, valid);
 }
-__device__ __forceinline__ void stage1(float* dst, const bf16* src,
-                                       bool valid) {
-  *dst = valid ? __bfloat162float(*src) : 0.f;
-}
 // One bf16 element into a bf16 slab as it is (there is no 2-byte
-// cp.async): a register load and store, published as stage1's. The
-// element path of a bf16 row that does not copy in pieces (E, J: W not a
-// multiple of the piece, or an unaligned operand; A, D: the pieces that
-// straddle the cost volume's diagonal or W).
+// cp.async): a register load and store, visible to the block after the
+// __syncthreads() that publishes the cp.async copies of the same stage.
+// The element path of a bf16 row that does not copy in pieces (E, I, J, K:
+// W not a multiple of the piece, or an unaligned operand; A, D: the pieces
+// that straddle the cost volume's diagonal or W).
 __device__ __forceinline__ void stage1(bf16* dst, const bf16* src,
                                        bool valid) {
   *dst = valid ? *src : __ushort_as_bfloat16(0);
@@ -98,8 +91,8 @@ __device__ __forceinline__ void stage1(bf16* dst, const bf16* src,
 // !valid: one cp.async of its 8 or 16 bytes (dst and src aligned to the
 // piece). Kernel A's engine copies pieces of four elements (16 bytes of
 // float32, 8 of bf16), kernel D's pieces of 16 bytes (four floats, eight
-// bf16); kernel E's bf16 instance pieces of eight bf16 (or four), kernel
-// J's pieces of four elements.
+// bf16); the bf16 instances of E, I and K pieces of eight bf16 (or four),
+// kernel J's pieces of four elements.
 template <int N, class Elem>
 __device__ __forceinline__ void stage_n(Elem* dst, const Elem* src,
                                         bool valid) {

@@ -50,6 +50,21 @@
 //     upsample's restage one or two planes each, so they stay long.
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): 0.42 ms of
 // device time a request, against F.interpolate's 0.76-0.80 ms.
+//
+// bf16 at rest (rag_tpu_torch/ops/precision.py): rag_resize_taps_cf_bf16
+// takes a bf16 x and writes a bf16 out at the float32 instance's plan and
+// tables. Its ring holds x's rows as they are, two bytes an element, copied
+// with cp.async in 16-byte pieces of eight (W % 8 == 0, x 16-byte aligned)
+// from the piece boundary at or left of the tile's first column (wt_lo is a
+// multiple of 4 only, so a span may start 4 columns into its first piece
+// and is read `off` columns on), else in 8-byte pieces of four (W % 4 == 0,
+// x 8-byte aligned; no offset), else element by element (a register load
+// and store). Each staged value is widened as it is read, the float32
+// weights and sums are the float32 instance's in its order, and the output
+// is rounded to bf16 once, at the store: the float32 instance's result on
+// the upcast x, rounded. A staged row is at most round8(pitch + 4) bf16
+// (16-byte rows) where the float32 instance's is pitch floats, so the ring
+// takes about half the shared memory at the same tiles.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -58,16 +73,15 @@
 
 namespace {
 
-using rag::cp_async4;
-using rag::cp_async16;
 using rag::cp_async_commit;
 
 constexpr int kThreads = 128;
 constexpr int kRing = 4;  // staged planes: kRing - 1 in flight, one read
 
+template <class Elem>
 struct ResizeArgs {
-  const float* x;
-  float* out;
+  const Elem* x;
+  Elem* out;
   // int32 tables (rag_tpu_torch/ops/resize.py::resize_tables)
   const int* wt_lo;       // (n_wt) first staged column of each W tile
   const int* wt_n;        // (n_wt) staged columns
@@ -86,8 +100,30 @@ struct ResizeArgs {
   const float* row_w;     // (H2, K) tap order
   const float* pl_w;      // (D2, K) last tap first
   int D, C, H, W, D2, H2, W2;
-  int n_wt, n_ht, n_runs, run, rows, pitch, planes, vec;
+  // pitch: elements a staged row; piece: elements a cp.async piece (float32:
+  // 4, 16 bytes, or 1, 4-byte copies; bf16: 8, 4 or 1, register copies)
+  int n_wt, n_ht, n_runs, run, rows, pitch, planes, piece;
 };
+
+// Stage n_row rows (source rows `rows`, `W` apart) of `width` elements from
+// src into dst (rows `pitch` apart) in pieces of N elements: one cp.async
+// of 16 or 8 bytes a piece, or at N = 1 one element (float32: a 4-byte
+// cp.async; bf16: a register load and store, visible after the
+// __syncthreads() that publishes the copies).
+template <int N, class Elem>
+__device__ __forceinline__ void stage_rows(Elem* dst, int pitch,
+                                           const Elem* src, const int* rows,
+                                           int W, int n_row, int width) {
+  const int chunks = width / N, n = n_row * chunks;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int s = i / chunks, q = N * (i - s * chunks);
+    const Elem* from = src + (size_t)__ldg(rows + s) * W + q;
+    if constexpr (N == 1)
+      rag::stage1(dst + s * pitch + q, from, true);
+    else
+      rag::stage_n<N>(dst + s * pitch + q, from, true);
+  }
+}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -96,10 +132,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Grid: one block per (b, c, run, row tile, column tile), column tiles
 // fastest, so neighbouring blocks share the halo of their staged spans.
-template <int QC, int RPW, int K>
+template <int QC, int RPW, int K, class Elem>
 __global__ void __launch_bounds__(kThreads)
-resize_taps_kernel(const ResizeArgs a) {
-  extern __shared__ __align__(16) float smem[];
+resize_taps_kernel(const ResizeArgs<Elem> a) {
+  extern __shared__ float4 smem4[];
+  Elem* smem = reinterpret_cast<Elem*>(smem4);
   int t = blockIdx.x;
   const int wt = t % a.n_wt;
   t /= a.n_wt;
@@ -138,6 +175,14 @@ resize_taps_kernel(const ResizeArgs a) {
   }
 
   const int lo = __ldg(a.wt_lo + wt), n_col = __ldg(a.wt_n + wt);
+  // the staged span: float32 the tile's span as it is (lo and n_col
+  // multiples of its piece); bf16 from the piece boundary at or left of
+  // lo, whole pieces (within W, a multiple of a piece), read off columns on
+  int base = lo, off = 0, width = n_col;
+  if constexpr (!rag::kF32<Elem>) {
+    base = lo & -a.piece, off = lo - base;
+    width = (off + n_col + a.piece - 1) & -a.piece;
+  }
   const int n_row = __ldg(a.ht_n + ht);
   const int* rows = a.ht_rows + (size_t)ht * a.rows;
   const int* planes = a.run_planes + (size_t)run * a.planes;
@@ -148,24 +193,17 @@ resize_taps_kernel(const ResizeArgs a) {
   // list entry e's staged rows x column span into ring slot e % kRing
   auto stage = [&](int e) {
     if (e >= n_plane) return;
-    float* dst = smem + (e % kRing) * buf;
-    const float* src =
-        a.x + (((size_t)b * a.D + __ldg(planes + e)) * a.C + c) * in_plane + lo;
-    if (a.vec) {
-      const int chunks = n_col / 4, n = n_row * chunks;
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int s = i / chunks, q = i - s * chunks;
-        cp_async16(dst + s * a.pitch + 4 * q,
-                   src + (size_t)__ldg(rows + s) * a.W + 4 * q, true);
-      }
-    } else {
-      const int n = n_row * n_col;
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        const int s = i / n_col, q = i - s * n_col;
-        cp_async4(dst + s * a.pitch + q,
-                  src + (size_t)__ldg(rows + s) * a.W + q, true);
-      }
-    }
+    Elem* dst = smem + (e % kRing) * buf;
+    const Elem* src = a.x +
+        (((size_t)b * a.D + __ldg(planes + e)) * a.C + c) * in_plane + base;
+    if (a.piece == 1)
+      stage_rows<1>(dst, a.pitch, src, rows, a.W, n_row, width);
+    else if constexpr (rag::kF32<Elem>)
+      stage_rows<4>(dst, a.pitch, src, rows, a.W, n_row, width);
+    else if (a.piece == 4)
+      stage_rows<4>(dst, a.pitch, src, rows, a.W, n_row, width);
+    else
+      stage_rows<8>(dst, a.pitch, src, rows, a.W, n_row, width);
   };
 
   // win[j]: this thread's pixels interpolated in H and W on list entry
@@ -194,7 +232,7 @@ resize_taps_kernel(const ResizeArgs a) {
       __syncthreads();  // everyone's; slot (e - 1) % kRing is free again
       stage(e + kRing - 1);
       cp_async_commit();
-      const float* sb = smem + (e % kRing) * buf;
+      const Elem* sb = smem + (e % kRing) * buf + off;
 #pragma unroll
       for (int j = K - 1; j > 0; --j)
 #pragma unroll
@@ -209,11 +247,12 @@ resize_taps_kernel(const ResizeArgs a) {
 #pragma unroll
           for (int qq = 0; qq < K; ++qq) {
             if (qq < rn[r]) {
-              const float* row = sb + (rslot[r] + qq) * a.pitch + coff[q];
+              const Elem* row = sb + (rslot[r] + qq) * a.pitch + coff[q];
               float acc_w = 0.f;
 #pragma unroll
               for (int k = 0; k < K; ++k)
-                if (k < cn[q]) acc_w = fmaf(cw[q][k], row[k], acc_w);
+                if (k < cn[q])
+                  acc_w = fmaf(cw[q][k], rag::widen(row[k]), acc_w);
               acc_h = fmaf(rw[r][qq], acc_w, acc_h);
             }
           }
@@ -225,8 +264,8 @@ resize_taps_kernel(const ResizeArgs a) {
     float wd[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) wd[j] = j < n ? __ldg(a.pl_w + od * K + j) : 0.f;
-    float* o = a.out + (((size_t)b * a.D2 + od) * a.C + c) * a.H2 *
-                           (size_t)a.W2;
+    Elem* o = a.out + (((size_t)b * a.D2 + od) * a.C + c) * a.H2 *
+                          (size_t)a.W2;
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       const int oh = oh0 + 8 * r;
@@ -239,50 +278,60 @@ resize_taps_kernel(const ResizeArgs a) {
 #pragma unroll
         for (int j = 0; j < K; ++j)
           if (j < n) acc = fmaf(wd[j], win[j][r][q], acc);
-        o[(size_t)oh * a.W2 + ow] = acc;
+        o[(size_t)oh * a.W2 + ow] = rag::to_elem<Elem>(acc);
       }
     }
   }
   cp_async_wait<0>();  // the empty groups committed past the last entry
 }
 
-template <int QC, int RPW, int K>
-int launch(const ResizeArgs& a, unsigned blocks, int smem,
+template <int QC, int RPW, int K, class Elem>
+int launch(const ResizeArgs<Elem>& a, unsigned blocks, int smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        resize_taps_kernel<QC, RPW, K>,
+        resize_taps_kernel<QC, RPW, K, Elem>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  resize_taps_kernel<QC, RPW, K><<<blocks, kThreads, smem, stream>>>(a);
+  resize_taps_kernel<QC, RPW, K, Elem><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// Elements a staged piece (ops/resize.py::resize_piece): float32 4 (16
+// bytes) where W % 4 == 0 and x is 16-byte aligned, else 1; bf16 8 (16
+// bytes) where W % 8 == 0 and x is 16-byte aligned, else 4 (8 bytes) where
+// W % 4 == 0 and x is 8-byte aligned, else 1.
+template <class Elem>
+int piece_of(int W, const void* x) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(x);
+  if (rag::kF32<Elem>) return W % 4 == 0 && p % 16 == 0 ? 4 : 1;
+  if (W % 8 == 0 && p % 16 == 0) return 8;
+  return W % 4 == 0 && p % 8 == 0 ? 4 : 1;
+}
 
-// itab, ftab: rag_tpu_torch/ops/resize.py::resize_tables for the plan's
-// integers: k taps a table row, qc columns and rpw rows a thread, run
-// output planes a block, rows staged rows and pitch floats a staged row at
-// most, planes source planes a run at most. Returns a cudaError_t.
-extern "C" int rag_resize_taps_cf(const void* x, const void* itab,
-                                  const void* ftab, void* out, int B, int D,
-                                  int C, int H, int W, int D2, int H2, int W2,
-                                  int k, int qc, int rpw, int run, int rows,
-                                  int pitch, int planes, void* stream) {
+// x and out of element type Elem; pitch: the float32 plan's floats a
+// staged row (a multiple of 4), widened by a piece of eight for an offset
+// span of bf16 pieces of eight.
+template <class Elem>
+int resize_entry(const void* x, const void* itab, const void* ftab, void* out,
+                 int B, int D, int C, int H, int W, int D2, int H2, int W2,
+                 int k, int qc, int rpw, int run, int rows, int pitch,
+                 int planes, void* stream) {
   if (B <= 0 || D <= 0 || C <= 0 || H <= 0 || W <= 0 || D2 <= 0 || H2 <= 0 ||
       W2 <= 0 || (k != 2 && k != 4) || run <= 0 || rows <= 0 || pitch <= 0 ||
       pitch % 4 != 0 || planes <= 0)
     return (int)cudaErrorInvalidValue;
-  ResizeArgs a;
-  a.x = static_cast<const float*>(x);
-  a.out = static_cast<float*>(out);
+  ResizeArgs<Elem> a;
+  a.x = static_cast<const Elem*>(x);
+  a.out = static_cast<Elem*>(out);
   a.D = D, a.C = C, a.H = H, a.W = W, a.D2 = D2, a.H2 = H2, a.W2 = W2;
   a.n_wt = (W2 + 16 * qc - 1) / (16 * qc);
   a.n_ht = (H2 + 8 * rpw - 1) / (8 * rpw);
   a.n_runs = (D2 + run - 1) / run;
-  a.run = run, a.rows = rows, a.pitch = pitch, a.planes = planes;
-  a.vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  a.run = run, a.rows = rows, a.planes = planes;
+  a.piece = piece_of<Elem>(W, x);
+  a.pitch = a.piece == 8 ? (pitch + 4 + 7) / 8 * 8 : pitch;
   const int* it = static_cast<const int*>(itab);
   a.wt_lo = it, it += a.n_wt;
   a.wt_n = it, it += a.n_wt;
@@ -302,7 +351,7 @@ extern "C" int rag_resize_taps_cf(const void* x, const void* itab,
   a.pl_w = ft;
   const long long blocks =
       (long long)B * C * a.n_runs * a.n_ht * a.n_wt;
-  const long long smem = 4LL * kRing * rows * pitch;
+  const long long smem = (long long)sizeof(Elem) * kRing * rows * a.pitch;
   if (blocks > 2147483647LL || smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -317,4 +366,31 @@ extern "C" int rag_resize_taps_cf(const void* x, const void* itab,
   RAG_RESIZE_CASE(4, 1, 4)
 #undef RAG_RESIZE_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// itab, ftab: rag_tpu_torch/ops/resize.py::resize_tables for the plan's
+// integers: k taps a table row, qc columns and rpw rows a thread, run
+// output planes a block, rows staged rows and pitch floats a staged row at
+// most, planes source planes a run at most. Returns a cudaError_t.
+extern "C" int rag_resize_taps_cf(const void* x, const void* itab,
+                                  const void* ftab, void* out, int B, int D,
+                                  int C, int H, int W, int D2, int H2, int W2,
+                                  int k, int qc, int rpw, int run, int rows,
+                                  int pitch, int planes, void* stream) {
+  return resize_entry<float>(x, itab, ftab, out, B, D, C, H, W, D2, H2, W2, k,
+                             qc, rpw, run, rows, pitch, planes, stream);
+}
+
+// The same with x and out bf16, at the same plan and tables.
+extern "C" int rag_resize_taps_cf_bf16(const void* x, const void* itab,
+                                       const void* ftab, void* out, int B,
+                                       int D, int C, int H, int W, int D2,
+                                       int H2, int W2, int k, int qc, int rpw,
+                                       int run, int rows, int pitch,
+                                       int planes, void* stream) {
+  return resize_entry<rag::bf16>(x, itab, ftab, out, B, D, C, H, W, D2, H2,
+                                 W2, k, qc, rpw, run, rows, pitch, planes,
+                                 stream);
 }

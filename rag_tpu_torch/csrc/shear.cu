@@ -94,9 +94,15 @@
 // float32), two bytes of shared memory an element, widens each value as it
 // reads it (P, R and phase 1's terms), and stores a group of four as one
 // 8-byte store. A column falls in the same class in both instances, so
-// every sum is the float32 instance's. K's bf16 instance, the last to do
-// so, stages its rows widened to float32 by register loads (cp.async
-// cannot widen), 4 bytes of shared memory an element.
+// every sum is the float32 instance's. K's bf16 instance takes the float32
+// instance's runs and walkers (the slab's cap counts elements, so a bf16
+// slab takes half the bytes) and stages dz as it is, two bytes of shared
+// memory an element, with cp.async in 16-byte pieces of eight (W % 8 == 0,
+// dz 16-byte aligned), else 8-byte pieces of four (W % 4 == 0, dz 8-byte
+// aligned), else element by element; a diagonal block's sliding window is
+// widened to whole pieces (its row pitch by two pieces). The walkers widen
+// each value as they read it; their sums, in ascending d, are the float32
+// instance's on the upcast dz.
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -110,7 +116,7 @@ constexpr int kFwdMinBlocks = 2;      // J: blocks resident an SM (40 registers)
 constexpr int kFwdPlanes = 8;        // planes a task of J walks
 constexpr int kFwdTileCols = 1024;   // J: most columns a staged piece
 constexpr int kFwdTilePlanes = 64;   // J: most planes a staged piece
-constexpr int kAdjSlabFloats = 16384;  // K: most dz floats staged at once
+constexpr int kAdjSlabFloats = 16384;  // K: most dz elements staged at once
 constexpr int kAdjMaxThreads = 1024;   // K: most walkers a block
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can take
 
@@ -389,23 +395,20 @@ __device__ __forceinline__ void adj_snapshot(bool col, int j, int u, int d,
 }
 
 // Stage columns [x0, x1) of planes [c0, c0 + n) of K's row into slab (rows
-// `pitch` apart): 16-byte copies with vec (float32 only), else one element
-// at a time (widened from bf16).
-template <class Elem>
-__device__ __forceinline__ void stage_slab(float* slab, int pitch,
+// `pitch` apart) as they are, in pieces of N elements: one cp.async of 16 or
+// 8 bytes a piece (x0 and x1 - x0 multiples of N), or at N = 1 one element
+// (float32: a 4-byte cp.async; bf16: a register load and store).
+template <int N, class Elem>
+__device__ __forceinline__ void stage_slab(Elem* slab, int pitch,
                                            const Elem* src, size_t plane,
-                                           int n, int x0, int x1, int vec) {
-  const int m = vec ? (x1 - x0) >> 2 : x1 - x0;
+                                           int n, int x0, int x1) {
+  const int m = (x1 - x0) / N;
   for (int i = threadIdx.x; i < n * m; i += blockDim.x) {
-    const int r = i / m, q = i - r * m;
-    if constexpr (rag::kF32<Elem>) {
-      if (vec) {
-        rag::cp_async16(slab + r * pitch + 4 * q,
-                        src + r * plane + x0 + 4 * q, true);
-        continue;
-      }
-    }
-    rag::stage1(slab + r * pitch + q, src + r * plane + x0 + q, true);
+    const int r = i / m, q = N * (i - r * m);
+    if constexpr (N == 1)
+      rag::stage1(slab + r * pitch + q, src + r * plane + x0 + q, true);
+    else
+      rag::stage_n<N>(slab + r * pitch + q, src + r * plane + x0 + q, true);
   }
 }
 
@@ -415,13 +418,14 @@ __device__ __forceinline__ void stage_slab(float* slab, int pitch,
 // the next W + 4 the diagonals, staging every column. Else splits 0 ..
 // ncs-1 walk blockDim.x columns each and the rest blockDim.x diagonals
 // each, staging only the columns their walkers read.
+// piece: elements a staged piece (adj_piece; 1: element by element).
 template <class Elem>
 __global__ void __launch_bounds__(kAdjMaxThreads)
 shear_adj_kernel(const Elem* __restrict__ dz, float* __restrict__ dpx,
                  float* __restrict__ dpy, int D, int Co, int H, int W,
-                 int splits, int ncs, int planes, int pitch, int vec) {
+                 int splits, int ncs, int planes, int pitch, int piece) {
   extern __shared__ float4 smem4[];
-  float* slab = reinterpret_cast<float*>(smem4);
+  Elem* slab = reinterpret_cast<Elem*>(smem4);
   const long long row = blockIdx.x / splits;
   const int split = (int)(blockIdx.x - row * splits);
   const int CoH = Co * H;
@@ -471,11 +475,18 @@ shear_adj_kernel(const Elem* __restrict__ dz, float* __restrict__ dpx,
       x0 = xa, x1 = min(W, xa + bd);
     } else {
       x0 = max(0, ua + c0), x1 = min(W, ua + bd + c1 - 1);
-      if (vec) x0 &= ~3, x1 = min(W, round4(x1));
+      x0 &= -piece, x1 = min(W, (x1 + piece - 1) & -piece);  // 1, 4 or 8
       x1 = max(x1, x0);
     }
-    stage_slab(slab, pitch, src + (size_t)c0 * plane, plane, c1 - c0, x0, x1,
-               vec);
+    const Elem* run_src = src + (size_t)c0 * plane;
+    if (piece == 1)
+      stage_slab<1>(slab, pitch, run_src, plane, c1 - c0, x0, x1);
+    else if constexpr (rag::kF32<Elem>)
+      stage_slab<4>(slab, pitch, run_src, plane, c1 - c0, x0, x1);
+    else if (piece == 4)
+      stage_slab<4>(slab, pitch, run_src, plane, c1 - c0, x0, x1);
+    else
+      stage_slab<8>(slab, pitch, run_src, plane, c1 - c0, x0, x1);
     rag::cp_async_commit();
     rag::cp_async_wait_all();
     __syncthreads();
@@ -486,13 +497,13 @@ shear_adj_kernel(const Elem* __restrict__ dz, float* __restrict__ dpx,
       int d = lo;
       int at = (d - c0) * pitch + (col ? j : u + d) - x0;
       if (d == 0 && d < stop) {
-        s0 += slab[at];
+        s0 += rag::widen(slab[at]);
         at += step;
         ++d;
       }
 #pragma unroll 4
       for (; d < stop; ++d, at += step) {
-        const float v = slab[at];
+        const float v = rag::widen(slab[at]);
         s0 += v;
         s1 += v;
       }
@@ -500,7 +511,8 @@ shear_adj_kernel(const Elem* __restrict__ dz, float* __restrict__ dpx,
       for (int r = 0; r <= 4; ++r) {
         const int dt = ts + r;
         if (r <= tail && dt >= lo && dt < c1) {
-          const float v = slab[(dt - c0) * pitch + (col ? j : u + dt) - x0];
+          const float v =
+              rag::widen(slab[(dt - c0) * pitch + (col ? j : u + dt) - x0]);
           s0 += v;
           if (dt >= 1) s1 += v;
           adj_snapshot(col, j, u, dt, s0, s1, D, W, plane, xout, yout);
@@ -517,8 +529,10 @@ bool bad_shape(int B, int D, int Co, int H, int W) {
          (long long)B * D * Co > 2147483647LL;
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// the largest of 16 and 8 bytes that p is aligned to, else 0
+int alignment(const void* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 0;
 }
 
 // whether p is aligned to a piece of four Elem (16 bytes of float32, 8 of
@@ -539,11 +553,11 @@ int round32(int n) { return (n + 31) / 32 * 32; }
 
 // A launch of J or K: blocks, threads a block, shared memory, the planes
 // and columns a staged piece (J) or run (K; columns: the slab's row
-// pitch), pieces or runs a row, copies in pieces of four elements (vec),
-// blocks a row (K's splits) and K's column blocks a row (0: one block
-// walks both kinds).
+// pitch), pieces or runs a row, copies in pieces (vec) of `piece` elements
+// (1: one element at a time), blocks a row (K's splits) and K's column
+// blocks a row (0: one block walks both kinds).
 struct Plan {
-  int threads, planes, cols, runs, vec, splits, ncs;
+  int threads, planes, cols, runs, vec, piece, splits, ncs;
   long long blocks;
   size_t smem;
 };
@@ -557,6 +571,7 @@ struct Plan {
 template <class Elem>
 int fwd_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
   p->vec = (W % 4 == 0) && aligned;
+  p->piece = p->vec ? 4 : 1;
   p->splits = 1, p->ncs = 0;
   const int tiles = (W + kFwdTileCols - 1) / kFwdTileCols;
   int tw = (W + tiles - 1) / tiles;
@@ -576,14 +591,37 @@ int fwd_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
                   p->smem);
 }
 
+// Elements of K's staged pieces for a dz of element type Elem, W columns,
+// its address aligned to `align` bytes (ops/shear.py::adj_piece): 16 bytes
+// (four floats, eight bf16) where W is a multiple of a piece and dz is
+// 16-byte aligned; for bf16 else 8 bytes (four) where W % 4 == 0 and dz is
+// 8-byte aligned; else 1 (element by element).
+template <class Elem>
+int adj_piece(int W, int align) {
+  constexpr int n16 = 16 / (int)sizeof(Elem);
+  if (W % n16 == 0 && align >= 16) return n16;
+  if (!rag::kF32<Elem> && W % 4 == 0 && align >= 8) return 4;
+  return 1;
+}
+
+// K's slab row pitch for a diagonal block of `threads` walkers and runs of
+// `planes` planes: its window of threads + planes - 1 columns widened to
+// whole pieces of `piece` at both ends, rounded to a piece of four (eight
+// for bf16 pieces of eight, so that every row starts 16-byte aligned).
+int adj_cols(int threads, int planes, int piece) {
+  const int p = piece > 4 ? piece : 4;
+  return (threads + planes + 2 * p + p - 1) / p * p;
+}
+
 // K: 2W + 4 walkers a row, one block where they fit kAdjMaxThreads, else
 // ceil(W / kAdjMaxThreads) column blocks and ceil((W + 4) / kAdjMaxThreads)
 // diagonal blocks of equal size; each row's dz staged in runs of planes of
-// equal length, at most kAdjSlabFloats floats a run. 16-byte copies for a
-// float32 dz only.
+// equal length, at most kAdjSlabFloats elements a run, in pieces of
+// adj_piece elements. dz's address is aligned to `align` bytes.
 template <class Elem>
-int adj_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
-  p->vec = rag::kF32<Elem> && (W % 4 == 0) && aligned;
+int adj_plan(int B, int D, int Co, int H, int W, int align, Plan* p) {
+  p->piece = adj_piece<Elem>(W, align);
+  p->vec = p->piece > 1;
   const int walkers = 2 * W + 4;
   int most;
   if (walkers <= kAdjMaxThreads) {
@@ -599,15 +637,16 @@ int adj_plan(int B, int D, int Co, int H, int W, bool aligned, Plan* p) {
     p->splits = p->ncs + nds;
     // a diagonal block reads threads + planes - 1 columns a run
     most = 1;
-    while ((most + 1) * round4(p->threads + most + 9) <= kAdjSlabFloats)
+    while ((most + 1) * adj_cols(p->threads, most + 1, p->piece) <=
+           kAdjSlabFloats)
       ++most;
   }
   if (most < 1) most = 1;
   p->runs = (D + most - 1) / most;
   p->planes = (D + p->runs - 1) / p->runs;
-  p->cols = p->ncs == 0 ? W : round4(p->threads + p->planes + 8);
+  p->cols = p->ncs == 0 ? W : adj_cols(p->threads, p->planes, p->piece);
   p->blocks = (long long)B * Co * H * p->splits;
-  p->smem = (size_t)p->planes * p->cols * sizeof(float);
+  p->smem = (size_t)p->planes * p->cols * sizeof(Elem);
   return p->blocks > 2147483647LL
              ? (int)cudaErrorInvalidValue
              : set_smem((const void*)shear_adj_kernel<Elem>, p->smem);
@@ -640,20 +679,20 @@ int adj_entry(const void* dz, void* dpx, void* dpy, int B, int D, int Co,
               int H, int W, void* stream) {
   if (bad_shape(B, D, Co, H, W)) return (int)cudaErrorInvalidValue;
   Plan p;
-  if (const int e = adj_plan<Elem>(B, D, Co, H, W, aligned16(dz), &p))
+  if (const int e = adj_plan<Elem>(B, D, Co, H, W, alignment(dz), &p))
     return e;
   shear_adj_kernel<Elem><<<(unsigned)p.blocks, p.threads, p.smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Elem*>(dz), static_cast<float*>(dpx),
       static_cast<float*>(dpy), D, Co, H, W, p.splits, p.ncs, p.planes,
-      p.cols, p.vec);
+      p.cols, p.piece);
   return (int)cudaGetLastError();
 }
 
 // J's or K's launch for operands aligned to a piece (rag_shear_plan).
 template <class Elem>
 int plan_of(int adjoint, int B, int D, int Co, int H, int W, Plan* p) {
-  return adjoint ? adj_plan<Elem>(B, D, Co, H, W, true, p)
+  return adjoint ? adj_plan<Elem>(B, D, Co, H, W, 16, p)
                  : fwd_plan<Elem>(B, D, Co, H, W, true, p);
 }
 
@@ -693,9 +732,8 @@ extern "C" int rag_shear_adj_bf16(const void* dz, void* dpx, void* dpy, int B,
 // (adjoint = 1) at a shape, for eb-byte maps or dz (4: float32, 2: bf16),
 // as the entries above choose it: out[0..9] = blocks, threads a block,
 // shared bytes a block, planes and columns a staged piece or run, pieces
-// or runs a row, copies in pieces of four (1) or of one element (0),
-// blocks a row, K's column blocks a row (0: one block walks both kinds),
-// bytes a copy.
+// or runs a row, copies in pieces (1) or of one element (0), blocks a row,
+// K's column blocks a row (0: one block walks both kinds), bytes a copy.
 extern "C" int rag_shear_plan(int adjoint, int B, int D, int Co, int H,
                               int W, int eb, void* out) {
   if (bad_shape(B, D, Co, H, W) || (eb != 4 && eb != 2))
@@ -707,6 +745,6 @@ extern "C" int rag_shear_plan(int adjoint, int B, int D, int Co, int H,
   long long* o = static_cast<long long*>(out);
   o[0] = p.blocks, o[1] = p.threads, o[2] = (long long)p.smem;
   o[3] = p.planes, o[4] = p.cols, o[5] = p.runs, o[6] = p.vec;
-  o[7] = p.splits, o[8] = p.ncs, o[9] = p.vec ? 4 * eb : eb;
+  o[7] = p.splits, o[8] = p.ncs, o[9] = (long long)p.piece * eb;
   return 0;
 }

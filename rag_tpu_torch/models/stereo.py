@@ -317,7 +317,6 @@ def stereo_forward(specs: Mapping[str, Spec], params, stats,
     feature net and the matching half store their activations in its
     dtypes (rag_tpu/models/stereo.py's casts); the head runs in float32
     and the disparity is float32."""
-    variants.check(precision)
     new_stats: Dict = {}
     vol = volume_ops(mesh)
     with full_fp32():

@@ -285,7 +285,6 @@ def supernet_forward(params, stats, left: torch.Tensor, right: torch.Tensor,
     ``precision``: the feature and matching halves store their activations
     in its dtypes, as rag_tpu/models/supernet.py casts them; the head runs
     in float32."""
-    variants.check(precision)
     new_stats: Dict[str, Any] = {"fea": {}, "mat": {}}
     with full_fp32():
         both = precision.cast_in(torch.cat([left, right], dim=0))

@@ -48,10 +48,11 @@ SIGNATURES = {
     "rag_shear_adj": [_P] * 3 + [_I] * 5 + [_P],
     "rag_shear_plan": [_I] * 7 + [_P],
 }
-# the bf16 instances of kernels A/H, B, D, F, E, J and K: the same arguments
+# the bf16 instances of kernels A/H, B, D, F, E, I, J and K: the same
+# arguments
 BF16_ENTRIES = ("rag_conv3d_brc_cf", "rag_cvstem_brc", "rag_conv3d_dw_cf",
-                "rag_cvstem_dw", "rag_cvstem_dxy", "rag_shear_fwd",
-                "rag_shear_adj")
+                "rag_cvstem_dw", "rag_cvstem_dxy", "rag_resize_taps_cf",
+                "rag_shear_fwd", "rag_shear_adj")
 SIGNATURES.update({f"{n}_bf16": SIGNATURES[n] for n in BF16_ENTRIES})
 
 _lock = threading.Lock()

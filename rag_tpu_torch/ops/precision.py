@@ -15,10 +15,10 @@ its tensor's dtype, as rag_tpu's do:
     feature net rides it as under rag_tpu's default
     ``RAG_TPU_BF16_FEATURES=1``; that variable's opt-out has no
     counterpart, since no caller of the port needs it;
-  * inside the hand-written kernels A, B, D-F, H, J and K: bf16 loads are
+  * inside the hand-written kernels A, B, D-F and H-K: bf16 loads are
     widened to float32 before the sums, which run in float32, and the
-    output is stored in the input's dtype (the weight gradients in
-    float32); kernels C, G and I take float32 only;
+    output is stored in the input's dtype (the weight gradients and K's
+    tap-map gradients in float32); kernels C and G take float32 only;
   * BatchNorm takes its statistics and normalizes in float32 and returns
     x's dtype; the 2D and 1x1x1 convs cast the weight to x's dtype;
   * the disparity and depth heads run in float32.

@@ -25,6 +25,18 @@ one axis. The TPU kernel blends D by taps and contracts H and W with dense
 matrices, which computes the same function with the float32 sums in
 another order. Its plain version is the matrix form, which stays the
 default path.
+
+Dtypes (the bf16-at-rest policy, ops.precision): kernel I takes a float32
+or a bf16 volume (and cotangent) and returns one of the same dtype. The
+bf16 instance runs the float32 instance's plan, tables and sums on the
+widened values and rounds once, at the store, so its output is the
+float32 instance's on the upcast input, rounded to bf16; its ring holds
+the bf16 rows as they are, copied in 16-byte pieces of eight
+(``resize_piece``, ``resize_stage``). That is not rag_tpu's bf16
+arithmetic: rag_tpu's gate sends a bf16 volume to its matrix products,
+which contract against a bf16 copy of each matrix and round after every
+axis (``resize_linear``, which the default path keeps); one rounding
+comes closer to the exact resize.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import numpy as np
 import torch
 
 from rag_tpu_torch.ops import cuda_lib
-from rag_tpu_torch.ops.conv3d import CONV_SMS, check_f32, needs_grad
+from rag_tpu_torch.ops.conv3d import CONV_SMS, check_dtypes, needs_grad
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 
 
@@ -119,7 +131,12 @@ def resize_taps_plain(x: torch.Tensor, d2: int, h2: int, w2: int,
                       transposed: bool = False) -> torch.Tensor:
     """Plain PyTorch version of kernel I: the matrix products. Forward:
     (B, D, C, H, W) -> (B, d2, C, h2, w2). transposed: the adjoint of the
-    forward resize from (d2, h2, w2) to x's sizes, x being its cotangent."""
+    forward resize from (d2, h2, w2) to x's sizes, x being its cotangent.
+    A bf16 x: the float32 version on the upcast x, rounded to bf16 (the
+    bf16 instance's definition)."""
+    if x.dtype == torch.bfloat16:
+        return resize_taps_plain(x.float(), d2, h2, w2, align_corners,
+                                 transposed).to(torch.bfloat16)
     if not transposed:
         return resize_linear(x, (d2, h2, w2), (1, 3, 4), align_corners)
     for axis, n_fwd_in in zip((1, 3, 4), (d2, h2, w2)):
@@ -165,7 +182,41 @@ class ResizePlan(NamedTuple):
     pitch: int        # floats per staged row (the widest tile's span)
     planes: int       # source planes per run, the most of any run
     blocks: int       # b * c * n_runs * n_ht * n_wt
-    smem: int         # dynamic shared memory per block, bytes
+    smem: int         # dynamic shared memory per block, bytes (float32)
+
+    def pitch_for(self, piece: int) -> int:
+        """Elements a staged row at a piece of ``piece`` elements
+        (``resize_piece``): the plan's pitch, or for bf16 pieces of eight
+        round8(pitch + 4), an offset span in whole 16-byte pieces."""
+        return -(-(self.pitch + 4) // 8) * 8 if piece == 8 else self.pitch
+
+    def smem_for(self, eb: int, piece: int) -> int:
+        """Shared bytes a block for eb-byte elements staged in pieces of
+        ``piece`` (csrc/resize_taps.cu::resize_entry)."""
+        return eb * RESIZE_RING * self.rows * self.pitch_for(piece)
+
+
+def resize_piece(w: int, addr: int, eb: int) -> int:
+    """Elements of kernel I's staged pieces (csrc/resize_taps.cu::piece_of)
+    for x of W columns at address ``addr`` with eb-byte elements: float32
+    4 (16 bytes) where W % 4 == 0 and x is 16-byte aligned, else 1; bf16 8
+    (16 bytes) where W % 8 == 0 and x is 16-byte aligned, else 4 (8
+    bytes) where W % 4 == 0 and x is 8-byte aligned, else 1."""
+    if eb == 4:
+        return 4 if w % 4 == 0 and addr % 16 == 0 else 1
+    if w % 8 == 0 and addr % 16 == 0:
+        return 8
+    return 4 if w % 4 == 0 and addr % 8 == 0 else 1
+
+
+def resize_stage(lo: int, n_col: int, piece: int):
+    """A W tile's staged span in pieces (csrc/resize_taps.cu): (base,
+    off, width), the columns [base, base + width) copied from the piece
+    boundary at or left of its first column lo, whole pieces, the span's
+    columns [lo, lo + n_col) read off columns on."""
+    base = lo - lo % piece
+    off = lo - base
+    return base, off, -(-(off + n_col) // piece) * piece
 
 
 def _axis_table(n: int, n2: int, align_corners: bool, transposed: bool):
@@ -376,11 +427,12 @@ def resize_setup(shape, d2: int, h2: int, w2: int, align_corners: bool,
 
 def launch_resize(x: torch.Tensor, itab: torch.Tensor, ftab: torch.Tensor,
                   out: torch.Tensor, plan: ResizePlan) -> None:
-    """Launch kernel I on the current stream into ``out`` with a plan and
-    its tables (``resize_tables``) on the card; counts nothing."""
+    """Launch kernel I's instance for x's dtype on the current stream into
+    ``out`` with a plan and its tables (``resize_tables``) on the card;
+    counts nothing."""
     b, d, c, h, w = x.shape
     _, d2, _, h2, w2 = out.shape
-    rc = cuda_lib.lib().rag_resize_taps_cf(
+    rc = cuda_lib.entry("rag_resize_taps_cf", x.dtype)(
         x.data_ptr(), itab.data_ptr(), ftab.data_ptr(), out.data_ptr(),
         b, d, c, h, w, d2, h2, w2, plan.k, plan.qc, plan.rpw, plan.run,
         plan.rows, plan.pitch, plan.planes, cuda_lib.stream_ptr(x))
@@ -390,27 +442,29 @@ def launch_resize(x: torch.Tensor, itab: torch.Tensor, ftab: torch.Tensor,
 def resize_taps_cf(x: torch.Tensor, d2: int, h2: int, w2: int,
                    align_corners: bool = True,
                    transposed: bool = False) -> torch.Tensor:
-    """Kernel I, no autograd: x (B, D, C, H, W) f32 -> (B, d2, C, h2, w2),
-    the forward resize, or with ``transposed`` its adjoint (see
-    ``resize_taps_plain``)."""
+    """Kernel I, no autograd: x (B, D, C, H, W) float32 or bf16 -> (B, d2,
+    C, h2, w2) of x's dtype, the forward resize, or with ``transposed``
+    its adjoint (see ``resize_taps_plain``)."""
     if not x.is_cuda:
         return resize_taps_plain(x, d2, h2, w2, align_corners, transposed)
-    check_f32("resize_taps_cf", x)
+    check_dtypes("resize_taps_cf", (x,))
     plan, itab, ftab = resize_setup(tuple(x.shape), d2, h2, w2,
                                     align_corners, transposed, x.device)
     b, _, c, _, _ = x.shape
-    out = torch.empty((b, d2, c, h2, w2), device=x.device, dtype=torch.float32)
+    out = torch.empty((b, d2, c, h2, w2), device=x.device, dtype=x.dtype)
     launch_resize(x, itab, ftab, out, plan)
-    resize_taps_cf.launches += 1
+    cuda_lib.count(resize_taps_cf, x.dtype)
     return out
 
 
-resize_taps_cf.launches = 0
+resize_taps_cf.launches = resize_taps_cf.launches_bf16 = 0
 
 
 class _ResizeCF(torch.autograd.Function):
     """rag_tpu/ops/pallas_resize.py::resize_cf's custom VJP: kernel I on
-    the forward tap tables, and on the transposed ones for the backward."""
+    the forward tap tables, and on the transposed ones for the backward
+    (the cotangent's dtype in, the same dtype out, as rag_tpu's
+    ``_resize_bwd`` returns ``g.dtype``)."""
 
     @staticmethod
     def forward(ctx, x, d2, h2, w2, align_corners):
@@ -429,18 +483,14 @@ def resize_cf(x: torch.Tensor, d2: int, h2: int, w2: int,
               align_corners: bool = True,
               variants: KernelVariants = DEFAULT) -> torch.Tensor:
     """Trilinear resize of a channel-first volume (B, D, C, H, W) ->
-    (B, d2, C, h2, w2): the matrix products, or kernel I where
-    ``variants.resize_kernel``. A bf16 x (the bf16-at-rest policy) takes
-    the matrix products, which contract it against a bf16 copy of each
-    matrix; kernel I takes float32 only, so a bf16 x with
-    ``resize_kernel`` raises (the entry points refuse that pairing first,
-    ``KernelVariants.check``), where rag_tpu/ops/pallas_resize.py's gate
-    quietly takes the matrix products."""
+    (B, d2, C, h2, w2) of x's dtype: the matrix products, or kernel I
+    where ``variants.resize_kernel``, float32 or bf16 (the bf16-at-rest
+    policy). Without the variant a bf16 x contracts against a bf16 copy
+    of each matrix, as rag_tpu/ops/resize.py does; with it kernel I's bf16
+    instance rounds once, where rag_tpu/ops/pallas_resize.py's gate sends
+    a bf16 volume to those matrix products (see the module docstring)."""
     if not variants.resize_kernel:
         return resize_linear(x, (d2, h2, w2), (1, 3, 4), align_corners)
-    if x.dtype == torch.bfloat16:
-        raise ValueError("resize_cf: kernel I takes float32 only, not a "
-                         "bf16 volume")
     x = x.contiguous()
     if needs_grad(x):
         return _ResizeCF.apply(x, d2, h2, w2, align_corners)

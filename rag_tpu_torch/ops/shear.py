@@ -31,7 +31,8 @@ no float atomics, the same bits on every run. Where a row's 2W + 4
 walkers fit one block (W <= 510) the block stages the row's D x W slab of
 dz once; wider rows go to column blocks and diagonal blocks that stage
 only the columns they read. ``shear_plan`` reads either launch from the
-library; ``fwd_plan`` is J's in Python.
+library; ``fwd_plan`` is J's in Python, ``adj_plan`` K's (with
+``adj_piece`` and ``adj_window``, the columns a block stages a run).
 
 rag_tpu engages the shear only where its VMEM estimate fits 12 MB
 (``shear_vmem_ok``), which keeps it off at 480x960. J and K take every
@@ -54,9 +55,13 @@ of four (16 bytes of float32, 8 of bf16), widens a bf16 value as it reads
 it, sums in float32 and stores z in the maps' dtype, four columns at once
 (one 16- or 8-byte store); so its bf16 output is its float32 output on
 the upcast maps, rounded. K takes a float32 or bf16 dz and writes dpx and
-dpy in float32; its bf16 rows are still staged widened to float32 by
-register loads. The plain versions compute in float32 (or float64) on the
-upcast inputs; J's casts its output to the maps' dtype.
+dpy in float32. Its bf16 instance takes the float32 instance's runs and
+walkers (the slab's cap counts elements: a bf16 slab is half the bytes),
+stages dz as it is with cp.async in 16-byte pieces of eight (or 8-byte
+pieces of four, ``adj_piece``) and widens each value as a walker reads
+it, so dpx and dpy are the float32 instance's on the upcast dz. The plain
+versions compute in float32 (or float64) on the upcast inputs; J's casts
+its output to the maps' dtype.
 """
 
 from __future__ import annotations
@@ -231,7 +236,8 @@ class ShearPlan(NamedTuple):
     planes: int        # J: planes a staged piece; K: dz planes a run
     cols: int          # J: columns a piece; K: the staged slab's row pitch
     runs: int          # J: pieces a row; K: runs of planes a row
-    vec: int           # copies in pieces of four elements (1) or of one (0)
+    vec: int           # copies in pieces (1: J's of four, K's adj_piece)
+                       # or of one element (0)
     splits: int        # blocks a row (K's column and diagonal blocks)
     col_splits: int    # K's column blocks a row (0: one block, both kinds)
     copy_bytes: int    # bytes a copy: 16 or 8 (pieces), 4 or 2 (elements)
@@ -287,6 +293,79 @@ def fwd_plan(b: int, num_disp: int, co: int, h: int, w: int, eb: int = 4,
     return ShearPlan(b * co * h, threads, fwd_smem_bytes(w, tw, dp, eb), dp,
                      tw, -(-w // tw) * -(-num_disp // dp), int(vec), 1, 0,
                      4 * eb if vec else eb)
+
+
+# kernel K's plain constants (csrc/shear.cu)
+ADJ_SLAB = 16384        # most dz elements a staged run (kAdjSlabFloats)
+ADJ_MAX_THREADS = 1024  # most walkers a block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def adj_piece(w: int, addr: int, eb: int) -> int:
+    """Elements of kernel K's staged pieces (csrc/shear.cu::adj_piece) for
+    dz of W columns at address ``addr`` with eb-byte elements: 16 bytes
+    (four floats, eight bf16) where W is a multiple of them and dz is
+    16-byte aligned; for bf16 else 8 bytes (four) where W % 4 == 0 and dz
+    is 8-byte aligned; else 1 (element by element)."""
+    n16 = 16 // eb
+    if w % n16 == 0 and addr % 16 == 0:
+        return n16
+    if eb == 2 and w % 4 == 0 and addr % 8 == 0:
+        return 4
+    return 1
+
+
+def adj_cols(threads: int, planes: int, piece: int) -> int:
+    """K's slab row pitch for a diagonal block (csrc/shear.cu::adj_cols):
+    its window of threads + planes - 1 columns widened to whole pieces at
+    both ends, rounded to four (eight for pieces of eight)."""
+    p = max(piece, 4)
+    return _cdiv(threads + planes + 2 * p, p) * p
+
+
+def adj_plan(b: int, num_disp: int, co: int, h: int, w: int, eb: int = 4,
+             addr: int = 0, max_threads: int = ADJ_MAX_THREADS,
+             slab: int = ADJ_SLAB) -> ShearPlan:
+    """Kernel K's launch in Python (csrc/shear.cu::adj_plan) for eb-byte
+    dz at address ``addr``; ``max_threads`` and ``slab`` stand in for the
+    library's caps. The runs and walkers take shapes only; the pieces,
+    the diagonal blocks' pitch and the bytes take the dtype too."""
+    piece = adj_piece(w, addr, eb)
+    if 2 * w + 4 <= max_threads:
+        threads, ncs, splits = _cdiv(2 * w + 4, 32) * 32, 0, 1
+        most = slab // w
+    else:
+        ncs, nds = _cdiv(w, max_threads), _cdiv(w + 4, max_threads)
+        threads = _cdiv(max(_cdiv(w, ncs), _cdiv(w + 4, nds)), 32) * 32
+        splits, most = ncs + nds, 1
+        while (most + 1) * adj_cols(threads, most + 1, piece) <= slab:
+            most += 1
+    runs = _cdiv(num_disp, max(most, 1))
+    planes = _cdiv(num_disp, runs)
+    cols = w if ncs == 0 else adj_cols(threads, planes, piece)
+    return ShearPlan(b * co * h * splits, threads, planes * cols * eb,
+                     planes, cols, runs, int(piece > 1), splits, ncs,
+                     piece * eb)
+
+
+def adj_window(plan: ShearPlan, w: int, split: int, c0: int, c1: int,
+               piece: int):
+    """The columns [x0, x1) block ``split`` of a row stages for its run of
+    planes [c0, c1) (csrc/shear.cu::shear_adj_kernel): the whole row for
+    one block a row; a column block's walkers' columns; a diagonal
+    block's window, sliding one column a plane, widened to whole pieces."""
+    bd, ncs = plan.threads, plan.col_splits
+    if ncs == 0:
+        return 0, w
+    if split < ncs:
+        return split * bd, min(w, split * bd + bd)
+    ua = (split - ncs) * bd - 2
+    x0, x1 = max(0, ua + c0), min(w, ua + bd + c1 - 1)
+    x0, x1 = x0 - x0 % piece, min(w, _cdiv(x1, piece) * piece)
+    return x0, max(x1, x0)
 
 
 def _identity_affine(px: torch.Tensor):

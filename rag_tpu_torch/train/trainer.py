@@ -266,7 +266,6 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
     masked updates never carry them into the params, so the params agree;
     only that unused part of the state differs (it stays zero here).
     """
-    variants.check(precision)
     if trainable_sites is None:
         trainable_sites = bn_sites
     group = data_group(mesh)

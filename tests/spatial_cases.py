@@ -17,15 +17,23 @@ import torch.distributed as dist
 
 from dp_cases import f64, flat
 from rag_tpu_torch.models.growable import GrowableStereoNet
+from rag_tpu_torch.ops import resize as resize_mod
+from rag_tpu_torch.ops.precision import Precision
 from rag_tpu_torch.ops.variants import KernelVariants
-from rag_tpu_torch.parallel.halo import HALO, gather_h, halo_rows, slice_h
+from rag_tpu_torch.parallel.halo import (
+    HALO,
+    SlabVolume,
+    gather_h,
+    halo_rows,
+    slice_h,
+)
 from rag_tpu_torch.parallel.mesh import slab_rows
 from rag_tpu_torch.parallel.sharded import (
     make_sharded_eval_step,
     make_sharded_train_step,
 )
 from rag_tpu_torch.search.genotype import default_genotype
-from rag_tpu_torch.train.trainer import make_optimizer
+from rag_tpu_torch.train.trainer import make_optimizer, make_train_step
 
 B, H, W, MAXDISP = 2, 48, 96, 24
 LR, WD = 1e-3, 3e-3
@@ -89,6 +97,39 @@ CASES = {
     "eval": lambda mesh: _eval(mesh),
     "eval_variants": lambda mesh: _eval(mesh, variants=VARIANTS),
 }
+
+
+def bf16_step(mesh):
+    """One float32-parameter train step of task 0's path with every variant
+    on under precision=Precision(torch.bfloat16) over ``mesh``: the loss,
+    the calls of SlabVolume.resize and those of kernel I's plain version
+    (its bf16 instance's, on the CPU) on a bf16 volume or cotangent."""
+    net = GrowableStereoNet.initial(default_genotype(), 0, "cpu")
+    specs, params, stats = net.path(net.archis[0])
+    calls = {"slab_resize": 0, "plain_bf16": 0}
+    plain, resize = resize_mod.resize_taps_plain, SlabVolume.resize
+
+    def count_plain(x, *a, **k):
+        calls["plain_bf16"] += int(x.dtype == torch.bfloat16)
+        return plain(x, *a, **k)
+
+    def count_resize(self, *a, **k):
+        calls["slab_resize"] += 1
+        return resize(self, *a, **k)
+
+    resize_mod.resize_taps_plain, SlabVolume.resize = count_plain, \
+        count_resize
+    try:
+        opt = make_optimizer(WD, CLIP)
+        step = make_train_step(specs, net.trainable_sites(0), opt,
+                               maxdisp=MAXDISP, variants=VARIANTS, mesh=mesh,
+                               precision=Precision(torch.bfloat16))
+        left, right, gt = (t.float() for t in stereo_batch())
+        sc = step(params, stats, opt.init(params), LR, left, right, gt)[3]
+    finally:
+        resize_mod.resize_taps_plain, SlabVolume.resize = plain, resize
+    return {"loss": np.asarray(float(sc["loss"])),
+            **{k: np.asarray(v) for k, v in calls.items()}}
 
 
 def run_cases(mesh):

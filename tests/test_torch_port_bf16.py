@@ -7,8 +7,8 @@ of rag_tpu's cases becomes the port's two kernel paths, the default one
 and every variant on.
 
 - The plain versions of the kernels that take bf16 (A, H, B, D, E, F, J,
-  K) against rag_tpu's Pallas kernels in interpret mode on the same bf16
-  inputs: bf16 outputs within one bf16 ulp of each element beyond the
+  K; I's has no bf16 Pallas counterpart, see below) against rag_tpu's
+  Pallas kernels in interpret mode on the same bf16 inputs: bf16 outputs within one bf16 ulp of each element beyond the
   float32 sums' own difference, float32 outputs (D's and F's dW, E's dX
   and dY before the cast, K's maps) within F32_RTOL, with rag_tpu's
   dtypes.
@@ -22,9 +22,15 @@ and every variant on.
   result; the deeper gaps (matching cost, disparity, loss) are printed,
   and measured over eight frames under ``-m slow`` (see the cases).
 - The feature dtype policy (TestFeatureDtypePolicy), the head's float32
-  upcast, the wrappers' dtype rule, and kernel I's: float32 only, so
-  ``resize_kernel`` under a bf16 policy is refused.
+  upcast, the wrappers' dtype rule, and kernel I's bf16 instance: its
+  plain version is the float32 resize of the upcast volume rounded to bf16
+  (where rag_tpu's gate sends a bf16 volume to its bf16 matrix products),
+  within 2^-6 of the largest float32 output of rag_tpu's ``resize_cf``
+  with ``RAG_TPU_RESIZE_KERNEL=1``, forward and adjoint, and
+  ``resize_kernel`` runs under a bf16 policy at every entry point.
 """
+
+import dataclasses
 
 from pathlib import Path
 
@@ -43,6 +49,7 @@ from rag_tpu.models.stereo import build_site_specs as jbuild_site_specs
 from rag_tpu.models.stereo import init_sites as jinit_sites
 from rag_tpu.ops import pallas_conv3d as jconv
 from rag_tpu.ops import pallas_cvstem as jcvstem
+from rag_tpu.ops import pallas_resize as jresize
 from rag_tpu.ops import pallas_shear as jshear
 from rag_tpu.search.genotype import default_genotype as jdefault_genotype
 from rag_tpu.train import trainer as jtrainer
@@ -57,6 +64,7 @@ from rag_tpu_torch.models.stereo import (
     stereo_forward,
 )
 from rag_tpu_torch.ops import conv3d as tconv
+from rag_tpu_torch.ops import cuda_lib
 from rag_tpu_torch.ops import cvstem as tcvstem
 from rag_tpu_torch.ops import disparity as tdisp
 from rag_tpu_torch.ops import resize as tresize
@@ -74,9 +82,10 @@ from rag_tpu_torch.train.trainer import (
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = str(ROOT / "logs" / "canonical_learn_r4")
 BF16 = Precision(torch.bfloat16)
-# every variant that takes bf16 (kernel I takes float32 only)
+# the default path and every variant on
 PATHS = {"default": KernelVariants(),
-         "variants": KernelVariants(conv3d_dblock=True, shear_stem=True)}
+         "variants": KernelVariants(conv3d_dblock=True, resize_kernel=True,
+                                    shear_stem=True)}
 # float32 sums in another order: the outputs' relative difference, of the
 # largest |value| (sums that cancel near zero keep the absolute one)
 F32_RTOL = 1e-5
@@ -262,8 +271,9 @@ def test_bf16_kernel_paths_interpret():
 
 def test_kernel_dtype_rule():
     """What a kernel wrapper takes on the card: activations float32 or
-    bf16, one dtype; weights float32; C, G and I float32 only. Every other
-    dtype raises (checked before any launch)."""
+    bf16, one dtype; weights float32; C and G float32 only, I (like A, B,
+    D-F, H, J, K) both, through a ``_bf16`` C entry. Every other dtype
+    raises (checked before any launch)."""
     x16, x32 = torch.zeros(2, dtype=torch.bfloat16), torch.zeros(2)
     tconv.check_dtypes("k", (x16, x16), (x32,))
     tconv.check_dtypes("k", (x32,), (x32,))
@@ -272,42 +282,106 @@ def test_kernel_dtype_rule():
                          ((x32,), (x32.double(),))):
         with pytest.raises(ValueError):
             tconv.check_dtypes("k", acts, floats)
-    for fn in (tdisp.check_f32, tresize.check_f32):
-        with pytest.raises(ValueError):
-            fn("k", x16)
+    with pytest.raises(ValueError):
+        tdisp.check_f32("k", x16)
+    assert "rag_resize_taps_cf" in cuda_lib.BF16_ENTRIES
+    assert cuda_lib.SIGNATURES["rag_resize_taps_cf_bf16"] == \
+        cuda_lib.SIGNATURES["rag_resize_taps_cf"]
+    assert not {"rag_soft_argmin", "rag_soft_argmin_bwd"} & set(
+        cuda_lib.BF16_ENTRIES)
 
 
-@pytest.mark.parametrize("dtype,taps", [(torch.float32, 1),
-                                        (torch.bfloat16, 0)])
-def test_resize_kernel_takes_no_bf16(path, monkeypatch, dtype, taps):
-    """resize_cf with KernelVariants(resize_kernel=True): kernel I for a
-    float32 volume; a bf16 one raises before any launch (kernel I takes
-    float32 only, and nothing routes round it), and the entry points refuse
-    the pairing with a bf16 policy before any work. Without the variant a
-    bf16 volume takes the matrix resize, in bf16."""
+@pytest.mark.parametrize("kind", list(PATHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resize_kernel_takes_no_bf16(path, monkeypatch, dtype, kind):
+    """resize_cf with kernel I (``resize_kernel``, alone or with every
+    other variant): a float32 or bf16 volume reaches kernel I's wrapper
+    once and comes out in its dtype, a bf16 one as the float32 plain
+    resize of the upcast volume rounded to bf16, bit for bit (kernel I's
+    bf16 instance; before it existed this test pinned the raise). With a
+    bf16 policy stereo_forward runs its matching resizes through kernel
+    I's bf16 instance and make_train_step builds."""
+    variants = dataclasses.replace(PATHS[kind], resize_kernel=True)
     calls = []
     real = tresize.resize_taps_cf
     monkeypatch.setattr(tresize, "resize_taps_cf",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    x = torch.randn(1, 4, 3, 6, 8).to(dtype)
-    ref = tresize.resize_linear(x.float(), (8, 12, 16), (1, 3, 4), True)
-    iv = KernelVariants(resize_kernel=True)
-    if taps:
-        out = tresize.resize_cf(x, 8, 12, 16, True, iv)
-    else:
-        with pytest.raises(ValueError, match="kernel I"):
-            tresize.resize_cf(x, 8, 12, 16, True, iv)
-        out = tresize.resize_cf(x, 8, 12, 16, True)
+                        lambda x, *a, **k: calls.append(x.dtype)
+                        or real(x, *a, **k))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 3, 6, 8))
+                         .astype(np.float32)).to(dtype)
+    out = tresize.resize_cf(x, 8, 12, 16, True, variants)
+    assert calls == [dtype] and out.dtype == dtype
+    want = tresize.resize_linear(x.float(), (8, 12, 16), (1, 3, 4), True)
+    assert torch.equal(out, want.to(dtype))
+    if dtype == torch.bfloat16:
+        calls.clear()
         specs, params, stats = _state(path)
         left, right = _images(1)
-        with pytest.raises(ValueError, match="kernel I"):
-            stereo_forward(specs, params, stats, left, right, variants=iv,
-                           precision=BF16)
-        with pytest.raises(ValueError, match="kernel I"):
-            make_train_step(specs, frozenset(specs), make_optimizer(0.003),
-                            variants=iv, precision=BF16)
-    assert len(calls) == taps and out.dtype == dtype
-    assert float((out.float() - ref).abs().max()) < 0.05
+        with torch.no_grad():
+            disp, _ = stereo_forward(specs, params, stats, left, right,
+                                     variants=variants, precision=BF16)
+        assert calls and set(calls) == {torch.bfloat16}
+        assert disp.dtype == torch.float32
+        assert bool(torch.isfinite(disp).all())
+        make_train_step(specs, frozenset(specs), make_optimizer(0.003),
+                        variants=variants, precision=BF16)
+
+
+# the model's resizes at a small size: x shape, target: the cells' 2x down
+# and 2x up, and the head's scale of 3 (an upsample by 3 on every axis)
+RESIZE_SHAPES = [((1, 8, 4, 12, 24), (4, 6, 12)),
+                 ((1, 4, 8, 6, 12), (8, 12, 24)),
+                 ((1, 4, 2, 6, 12), (12, 18, 36))]
+# kernel I's bf16 instance against rag_tpu's bf16 resize_cf: fixed before
+# measuring at 2^-6 of the largest float32 output (rag_tpu rounds to bf16
+# after each axis against bf16 matrices, the port once: each is measured
+# within 8.2e-3 of it); and 2^-8 to the float32 resize (one rounding)
+RESIZE_BF16_RTOL, RESIZE_ROUND_RTOL = 2.0 ** -6, 2.0 ** -8
+
+
+@pytest.mark.parametrize("shape,target", RESIZE_SHAPES)
+def test_resize_bf16_against_rag_tpu(monkeypatch, shape, target):
+    """Kernel I's bf16 path (resize_cf with ``resize_kernel``; on CPU
+    tensors the bf16 instance's plain version) forward and adjoint, against
+    rag_tpu's ``resize_cf`` on the same bf16 volume and cotangent with
+    ``RAG_TPU_RESIZE_KERNEL=1`` (its bf16 route, the matrix products):
+    within RESIZE_BF16_RTOL of the largest float32 output, within
+    RESIZE_ROUND_RTOL of the float32 resize, and equal to the float32 plain
+    resize of the upcast input rounded to bf16."""
+    monkeypatch.setenv("RAG_TPU_RESIZE_KERNEL", "1")
+    rng = np.random.default_rng(sum(shape) + sum(target))
+    x = _tb(rng.standard_normal(shape))
+    b, d, c, h, w = shape
+    g = _tb(rng.standard_normal((b, target[0], c, *target[1:])))
+    iv = KernelVariants(resize_kernel=True)
+    xt = x.clone().requires_grad_(True)
+    out = tresize.resize_cf(xt, *target, True, iv)
+    out.backward(g)
+    dx = xt.grad
+    assert out.dtype == dx.dtype == torch.bfloat16
+
+    def jfwd(v):
+        return jresize.resize_cf(v, *target, True)
+    jout, vjp = jax.vjp(jfwd, _bf(x.float().numpy()))
+    (jdx,) = vjp(_bf(g.float().numpy()))
+    assert jout.dtype == jdx.dtype == jnp.bfloat16
+
+    ref = tresize.resize_taps_plain(x.float(), *target)
+    dref = tresize.resize_taps_plain(g.float(), d, h, w, True, True)
+    for what, got, theirs, f32 in (("forward", out, jout, ref),
+                                   ("adjoint", dx, jdx, dref)):
+        top = float(f32.abs().max())
+        got = got.detach().float()
+        assert torch.equal(got, f32.to(torch.bfloat16).float())
+        theirs = torch.from_numpy(np.array(theirs.astype(jnp.float32)))
+        gaps = [float((a - b).abs().max()) / top
+                for a, b in ((got, theirs), (got, f32), (theirs, f32))]
+        print(f"[resize bf16] {shape} -> {target} {what}, of max|float32|: "
+              "port vs rag_tpu {:.3e}, port vs float32 {:.3e}, rag_tpu vs "
+              "float32 {:.3e}".format(*gaps))
+        assert gaps[0] <= RESIZE_BF16_RTOL, gaps
+        assert gaps[1] <= RESIZE_ROUND_RTOL, gaps
 
 
 # -- the slice -----------------------------------------------------------------

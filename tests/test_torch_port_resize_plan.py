@@ -175,10 +175,19 @@ def unpack_tables(plan, itab, ftab, d2, h2, w2):
     return out
 
 
+def stage_span(x, bb, plane, c, src_rows, lo, n_col):
+    """The float32 instance's staging: a plane's listed rows over the
+    tile's column span [lo, lo + n_col), as they are."""
+    return x[bb, plane, c][src_rows][:, lo:lo + n_col]
+
+
 def emulate_resize(x: np.ndarray, d2: int, h2: int, w2: int,
-                   transposed: bool, plan=None) -> np.ndarray:
+                   transposed: bool, plan=None,
+                   stage=stage_span) -> np.ndarray:
     """Kernel I's blocks and order of sums, in x's dtype (see the module
-    doc); every output is written by exactly one block."""
+    doc); every output is written by exactly one block. ``stage``: what a
+    block reads as a plane's staged rows and span (default: the float32
+    instance's staging)."""
     b_, d, c_, h, w = x.shape
     plan = plan or resize_plan(b_, d, c_, h, w, d2, h2, w2, True, transposed)
     tab = unpack_tables(plan, *resize_tables(plan, d, h, w, d2, h2, w2, True,
@@ -204,7 +213,7 @@ def emulate_resize(x: np.ndarray, d2: int, h2: int, w2: int,
             n, last = tab["pl_n"][od], tab["pl_last"][od]
             while e < last:
                 e += 1
-                staged = x[bb, src_planes[e], c][src_rows][:, lo:lo + n_col]
+                staged = stage(x, bb, src_planes[e], c, src_rows, lo, n_col)
                 acc_h = np.zeros(ok.shape, x.dtype)
                 for qq in range(plan.k):
                     slot = tab["row_slot"][ohc] + qq

@@ -90,6 +90,20 @@ def test_spatial_steps_exchange_halos(worlds, single, world):
         assert len(set(halo)) == len(set(gather)) == 1, case
 
 
+def test_1x2_bf16_step_reaches_kernel_i(worlds):
+    """The 1x2 world's step under precision=Precision(torch.bfloat16) with
+    every variant on (spatial_cases.bf16_step): each rank's
+    SlabVolume.resize reaches kernel I's bf16 instance (its plain version
+    on the CPU) forward and adjoint, and the loss is finite and the same
+    on both ranks."""
+    outs = worlds[2]
+    for out in outs:
+        assert int(out["bf16/slab_resize"]) > 0
+        assert int(out["bf16/plain_bf16"]) >= 2 * int(out["bf16/slab_resize"])
+        assert np.isfinite(float(out["bf16/loss"]))
+    assert float(outs[0]["bf16/loss"]) == float(outs[1]["bf16/loss"])
+
+
 @contextlib.contextmanager
 def _jax_f64():
     saved = jnp.float32, os.environ.get("RAG_TPU_COMPUTE_DTYPE")

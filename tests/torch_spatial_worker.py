@@ -5,8 +5,9 @@ tests/test_torch_halo.py start:
 
 Joins the process group on the CPU, builds the (data, model) mesh of
 spatial_cases.MESHES[WORLD], runs every case of tests/spatial_cases.py
-over it (with ``halo``: the halo adjoint checks instead), and writes them
-to OUT.npz. One torch thread; imports no jax.
+over it (at world 2 also spatial_cases.bf16_step, under "bf16/"; with
+``halo``: the halo adjoint checks instead), and writes them to OUT.npz.
+One torch thread; imports no jax.
 """
 
 import json
@@ -38,6 +39,9 @@ def main():
     else:
         for name, res in spatial_cases.run_cases(mesh).items():
             arrays.update({f"{name}/{k}": v for k, v in res.items()})
+        if world == 2:
+            arrays.update({f"bf16/{k}": v for k, v in
+                           spatial_cases.bf16_step(mesh).items()})
     np.savez(out_path, **arrays)
     torch.distributed.destroy_process_group()
 
