@@ -52,8 +52,9 @@ exception:
                    CUDA-graph replays);
                    kernel A's weight pass is held bit for bit against its
                    plain version (kernel B's plan among its plans), two
-                   launches of kernels C, D, F, G, J and K on the same
-                   inputs against each other, and J and K against their
+                   launches of every kernel and bf16 instance on the same
+                   inputs against each other under torch.equal
+                   ("repeat_bit_identical"), and J and K against their
                    plain versions bit for bit on integer-valued inputs;
                    the bf16 instances at their recorded shapes (each timed
                    beside its float32 instance on the upcast arguments,
@@ -254,22 +255,50 @@ exception:
                    ten metrics, the reloaded checkpoint reproducing row 1;
                    (c) cli --variant depth --eval-only of the committed
                    checkpoint;
- 13. report        one JSON line of the route phase ("route": its figures
+ 13. repro         reproducible training: every train builder (make_train_
+                   step on both paths in float32 and bf16, the supernet's,
+                   the stereo and depth op search's, the selfsup, depth and
+                   depth supernet steps, the router's Adam step) takes a
+                   step twice from one state, REPRO_PAIRS times; first
+                   under the parent's switches (full_fp32 in place of
+                   models.stereo.reproducible: cuDNN free to pick its
+                   algorithms), printing how many pairs differ, which
+                   leaves, the first gradient in the backward's order that
+                   differs, the ops torch.use_deterministic_algorithms(
+                   True, warn_only=True) names, and each 2D conv whose
+                   backward, replayed from its inputs and output gradient,
+                   differs twice running (with the cuDNN kernels of one
+                   replay in each mode); then as the port takes it, every
+                   leaf equal under torch.equal (hard); the scope's cost on
+                   a task-0 step (wall, CUDA events, profiled busy time
+                   and the kernels that moved) and a supernet step (wall,
+                   CUDA events); a task-0 step at maxdisp 190 (D = 63:
+                   kernels C's and G's general instance) through the
+                   kernels against plain (STEP_RTOL, STATS_RTOL), C and G
+                   launched, their calls against plain and twice against
+                   themselves; a 2-task ContinualDriver.run on synthetic
+                   192x384 scenes on the card killed in task 1's fine-tune
+                   after epoch 1's stage file and resumed, its whole
+                   forgetting matrix and every leaf of the network and the
+                   router equal to the uninterrupted run's (hard);
+ 14. report        one JSON line of the route phase ("route": its figures
                    and the card's name and power limit), one of the learn
                    phase ("learn"), one of the cli phase ("cli"), one of
                    the selfsup phase ("selfsup"), one of the depth phase
                    ("depth"), one of the dp phase and the float32 probe
                    ("dp"), one of the sp phase ("sp"), one of the scenes
                    phase ("scenes"), one of the bf16 phase ("bf16"), one
-                   of kernels (launches:
-                   the serve, route, train, dp, sp, learn, scenes, cli and
-                   selfsup runs; a bf16 instance's: the bf16 phase and
-                   the cli's --bf16 evaluation), the card's name and
+                   of the repro phase ("repro"), one of kernels (launches:
+                   the serve, route, train, dp, sp, learn, scenes, cli,
+                   selfsup and repro runs; a bf16 instance's: the bf16
+                   phase, the cli's --bf16 evaluation and the repro
+                   phase's bf16 steps), the card's name and
                    power limit, and as the last line {"ok": true,
                    "device": {...}}.
 
 --small-only runs phases 1, 2 and 5 at the small shapes alone (a quick
-build-and-check) and prints no report.
+build-and-check) and prints no report; --repro-only runs phases 1, 2 and
+13 and prints no report.
 
 Float32 throughout but the bf16 runs: TF32 is off for cuDNN and matmuls; kernel A's tensor-core
 products are 3xTF32, which keeps float32 accuracy (its lines also carry
@@ -301,6 +330,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -350,9 +380,11 @@ from rag_tpu_torch.metrics.depth import DEPTH_METRIC_NAMES  # noqa: E402
 from rag_tpu_torch.metrics.meters import AverageMeterDict  # noqa: E402
 from rag_tpu_torch.metrics.stereo import stereo_metrics  # noqa: E402
 from rag_tpu_torch.models.depth import depth_forward  # noqa: E402
+from rag_tpu_torch.models import router as router_mod  # noqa: E402
 from rag_tpu_torch.models.stereo import (  # noqa: E402
     SITE_NAMES,
     disparity_rows,
+    full_fp32,
     stereo_forward,
 )
 from rag_tpu_torch.models.growable import GrowableDepthNet  # noqa: E402
@@ -1209,7 +1241,7 @@ KERNELS = {
         sig=lambda x, maxdisp, scale=3: (tuple(x.shape), maxdisp, scale),
         bound=lambda x, maxdisp, scale=3: disp_bound(x.shape, maxdisp, scale),
         library=None, plan=_head_plan, tol="disp", path="default",
-        serving=True, bitwise=True),
+        serving=True),
     "conv3d_dw_cf": dict(
         site=(conv3d_mod, "conv3d_dw_cf"),
         plain=conv3d_mod.conv3d_dw_cf_plain,
@@ -1222,7 +1254,7 @@ KERNELS = {
         library=_dw_library, beside=_dw_beside, plan=_dw_plan, tol="bwd",
         vec=lambda x, dz: conv3d_mod.stages_in_pieces(
             x, dz, n=conv3d_mod.dw_piece(x.element_size())),
-        path="default", serving=False, bitwise=True, per_shape=True),
+        path="default", serving=False, per_shape=True),
     "cvstem_dxy": dict(
         site=(cvstem_mod, "cvstem_dxy"),
         plain=cvstem_mod.cvstem_dxy_plain,
@@ -1247,8 +1279,7 @@ KERNELS = {
         library=_cvstem_dw_library, beside=_cvstem_dw_beside,
         plan=_cvstem_dw_plan, tol="bwd", path="default", serving=False,
         vec=lambda x, y, dz, nd: conv3d_mod.stages_in_pieces(
-            x, y, dz, n=conv3d_mod.dw_piece(x.element_size())),
-        bitwise=True),
+            x, y, dz, n=conv3d_mod.dw_piece(x.element_size()))),
     "soft_argmin_bwd": dict(
         site=(disparity_mod, "soft_argmin_bwd"),
         plain=disparity_mod.soft_argmin_bwd_plain,
@@ -1258,8 +1289,7 @@ KERNELS = {
         bound=lambda x, g, maxdisp, scale=3:
             disp_bwd_bound(x.shape, maxdisp, scale),
         library=None, beside=_head_bwd_beside, beside_graph=True,
-        plan=_head_bwd_plan, tol="bwd", path="default", serving=False,
-        bitwise=True),
+        plan=_head_bwd_plan, tol="bwd", path="default", serving=False),
     "conv3d_dblock_cf": dict(
         site=(conv3d_mod, "conv3d_dblock_cf"),
         plain=conv3d_mod.conv3d_brc_cf_plain,
@@ -1294,7 +1324,7 @@ KERNELS = {
             shear_bound(px.shape, nd, relu, eb=px.element_size()),
         library=None, beside=_shear_beside, plan=_shear_plan, tol="conv",
         vec=lambda px, py, *a, **kw: conv3d_mod.stages_in_pieces(px, py),
-        path="variants", serving=True, bitwise=True),
+        path="variants", serving=True),
     "shear_adjoint": dict(
         site=(shear_mod, "shear_adjoint"),
         plain=shear_mod.shear_adjoint_plain,
@@ -1307,7 +1337,7 @@ KERNELS = {
         library=None, beside=_shear_adj_beside, plan=_shear_adj_plan,
         vec=lambda dz, nd: shear_mod.adj_piece(
             dz.shape[-1], dz.data_ptr(), dz.element_size()) > 1,
-        tol="bwd", path="variants", serving=False, bitwise=True),
+        tol="bwd", path="variants", serving=False),
 }
 for _k in KERNELS.values():
     _k["wrapper"] = getattr(*_k["site"])
@@ -1745,14 +1775,12 @@ def check_kernel(name, args, kw, reps, beside, exact=False):
                 out32 if isinstance(out32, tuple) else (out32,)))
             del out32
         ref = k["plain"](*args, **kw)
-        # a kernel that sums in a fixed order gives the same bits twice
-        same = True
-        if k.get("bitwise"):
-            again = k["wrapper"](*args, **kw)
-            same = all(torch.equal(o, a) for o, a in zip(
-                out if isinstance(out, tuple) else (out,),
-                again if isinstance(again, tuple) else (again,)))
-            del again
+        # every kernel sums in a fixed order: the same bits twice
+        again = k["wrapper"](*args, **kw)
+        same = all(torch.equal(o, a) for o, a in zip(
+            out if isinstance(out, tuple) else (out,),
+            again if isinstance(again, tuple) else (again,)))
+        del again
         torch.cuda.synchronize()
         err, ref_max = _max_err(out, ref)
         out_max = ref_max
@@ -1850,9 +1878,7 @@ def phase_kernels(args_of, dev, extra_args=None):
                 "max_abs_err": r["err"], "tol": r["tol"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                **r["beside"], **r["plan"]}
-        if ALL_KERNELS[name].get("bitwise"):
-            line["repeat_bit_identical"] = r["same"]
+                "repeat_bit_identical": r["same"], **r["beside"], **r["plan"]}
         if r["vec"] is not None:
             line["vec"] = r["vec"]
         if r["f32_equal"] is not None:
@@ -2691,16 +2717,16 @@ def phase_fp32_probe(dev):
         for mode in ("off", "on", "tf32_backward"):
             _set_tf32(mode != "off")
             Fp32Probe.seen.clear()
-            saved = trainer_mod.full_fp32
+            saved = trainer_mod.reproducible
             if mode == "tf32_backward":
-                trainer_mod.full_fp32 = contextlib.nullcontext
+                trainer_mod.reproducible = contextlib.nullcontext
             try:
                 with probed_first_conv() as first:
                     runs[mode] = case()
                 torch.cuda.synchronize()
                 after = _tf32_flags()
             finally:
-                trainer_mod.full_fp32 = saved
+                trainer_mod.reproducible = saved
                 _set_tf32(False)
             seen = list(Fp32Probe.seen)
             want = [(True, True)] if mode == "tf32_backward" \
@@ -2731,6 +2757,574 @@ def phase_fp32_probe(dev):
         raise SystemExit("chip_smoke: float32 probe failed:\n  "
                          + "\n  ".join(failures))
     return report
+
+
+# -- reproducible training ---------------------------------------------------
+
+REPRO_PAIRS = 3          # step pairs from one state, per train builder and mode
+REPRO_REPS = 5           # timed steps a mode, in turns: the scope's cost
+REPRO_MAXDISP = 190      # D = 63: kernels C's and G's general instance
+REPRO_SCENE = (16, 8, 4)  # train, valid, test pairs a scene, all 192x384
+REPRO_CFG = ExperimentConfig(
+    cell=CellSearchConfig(epochs=2, batch=4, lr=0.002, lr_a=0.01),
+    op=OpSearchConfig(epochs=2, batch=4, lr=0.001, lr_a=0.01, o_size=10),
+    train=TrainConfig(epochs=3, batch=4, lr=0.001, weight_decay=0.003),
+    num_tasks=2, seed=0, maxdisp=MAXDISP, use_router=True, router_epochs=1,
+    router_batch=4)
+REPRO_KILL_AT = "[train t1] epoch 2 "  # task 1's fine-tune, after epoch 1's file
+
+
+def switches():
+    """(cudnn.deterministic, cudnn.benchmark, both TF32 switches)."""
+    return (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark, *_tf32_flags())
+
+
+@contextlib.contextmanager
+def parent_switches():
+    """The train steps as the parent tree took them: in float32, with
+    cuDNN free to pick any algorithm (full_fp32 in reproducible's place)."""
+    saved = trainer_mod.reproducible, router_mod.reproducible
+    trainer_mod.reproducible = router_mod.reproducible = full_fp32
+    try:
+        yield
+    finally:
+        trainer_mod.reproducible, router_mod.reproducible = saved
+
+
+def flat_leaves(**trees):
+    """{'name/site/leaf': tensor} over named trees of nested dicts."""
+    return {f"{name}/{k}": v for name, tree in trees.items()
+            for k, v in leaves(tree)}
+
+
+def repro_cases(dev):
+    """name -> a function taking one step of that train builder from one
+    fixed state and batch and returning every leaf the step leaves:
+    params, BatchNorm statistics and optimizer state. The stereo builders
+    on task 0's stage of the committed checkpoint (batch 4, 192x384,
+    maxdisp 192), make_train_step on each path in float32 and bf16; the
+    depth net's task 0, the two supernets, the op searches' steps (every
+    BatchNorm frozen) and the router's Adam step."""
+    specs, params, stats, sites = train_configs(dev)["task0"]
+    batch = train_batch(dev)
+    rng = np.random.default_rng(3)
+    depth_gt = torch.from_numpy(rng.uniform(1, 10, (TRAIN_B, TRAIN_H, TRAIN_W))
+                                .astype(np.float32)).to(dev)
+    dnet = GrowableDepthNet.initial(default_genotype(), 0, dev)
+    dspecs, dparams, dstats = dnet.path(dnet.archis[0])
+    dsites = dnet.trainable_sites(0)
+    ops = [np.zeros(NUM_EDGES, np.int32), np.ones(NUM_EDGES, np.int32)]
+    sup = init_supernet(torch.Generator().manual_seed(0), dev)
+    dsup = init_depth_supernet(torch.Generator().manual_seed(0), dev)
+    lr = cosine_lr(LR, TRAIN_EPOCHS, 0)
+    opt = make_optimizer(WD)
+
+    def run(step, params, stats, *args):
+        params = clone_tree(params)  # the step updates it in place
+        p, st, o, _ = step(params, stats, opt.init(params), lr, *args)
+        return flat_leaves(params=p, stats=st, momentum=o)
+
+    cases = {}
+    for path, variants in PATHS.items():
+        for dtype, prec in (("float32", Precision()),
+                            ("bf16", Precision(torch.bfloat16))):
+            step = make_train_step(specs, sites, opt, maxdisp=MAXDISP,
+                                   variants=variants, precision=prec)
+            cases[f"make_train_step {path} {dtype}"] = (
+                lambda step=step: run(step, params, stats, *batch))
+    supernet = make_supernet_train_step(opt, MAXDISP)
+    op_stereo, _ = growth_mod.VARIANTS["stereo"][0](
+        specs, sites, opt, MAXDISP, KernelVariants(), None)
+    op_depth, _ = growth_mod.VARIANTS["depth"][0](
+        dspecs, dsites, opt, MAXDISP, KernelVariants(), None)
+    selfsup = make_selfsup_train_step(specs, sites, opt, maxdisp=MAXDISP)
+    depth = make_depth_train_step(dspecs, dsites, opt)
+    dsupernet = make_depth_supernet_train_step(opt)
+    router = SceneRouter(4, seed=0, device=dev)
+    router_step = make_router_train_step(router.optimizer)
+    labels = torch.arange(TRAIN_B, device=dev) % 4
+    cases.update({
+        "make_supernet_train_step": lambda: run(supernet, *sup, *batch, *ops),
+        "op search _stereo_steps": lambda: run(op_stereo, params, stats,
+                                               *batch),
+        "op search _depth_steps": lambda: run(op_depth, dparams, dstats,
+                                              batch[0], depth_gt),
+        "make_selfsup_train_step": lambda: run(selfsup, params, stats,
+                                               *batch),
+        "make_depth_train_step": lambda: run(depth, dparams, dstats,
+                                             batch[0], depth_gt),
+        "make_depth_supernet_train_step": lambda: run(
+            dsupernet, *dsup, batch[0], depth_gt, *ops),
+        "router Adam step": lambda: flat_leaves(**dict(zip(
+            ("params", "adam"), router_step(router.params, router.opt_state,
+                                            batch[0], labels)[:2]))),
+    })
+    return cases
+
+
+def step_diff(a, b):
+    """The leaves of two step results whose bits differ, and the largest
+    difference among them."""
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max((float((a[k].double() - b[k].double()).abs().max())
+                 for k in bad), default=0.0)
+    return bad, worst
+
+
+@contextlib.contextmanager
+def grads_in_order(out):
+    """Every train step's gradients, appended to out as (leaf, gradient)
+    in the order its backward produces them."""
+    orig = trainer_mod.differentiable
+
+    def keep(params, sites):
+        handles, p = orig(params, sites)
+        for path, h in handles.items():
+            h.register_hook(lambda g, path=path: out.append(
+                (path, g.detach().clone())))
+        return handles, p
+
+    trainer_mod.differentiable = keep
+    try:
+        yield
+    finally:
+        trainer_mod.differentiable = orig
+
+
+class ConvTap(torch.autograd.Function):
+    """The identity on a 2D conv's output; its backward keeps the output's
+    gradient in the conv's record."""
+
+    @staticmethod
+    def forward(ctx, y, rec):
+        ctx.rec = rec
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.rec["g"] = g.detach().clone()
+        return g, None
+
+
+@contextlib.contextmanager
+def tapped_convs(recs):
+    """Every F.conv2d without bias whose output needs a gradient (the
+    feature nets', the depth net's and the router's) appends its inputs,
+    layout kept, and after the backward its output's gradient to recs."""
+    conv = F.conv2d
+
+    def tapped(x, w, bias=None, stride=1, padding=0, *a, **kw):
+        y = conv(x, w, bias, stride, padding, *a, **kw)
+        if y.requires_grad and bias is None and not a and not kw:
+            rec = {"x": x.detach(), "w": w.detach(), "dx": x.requires_grad,
+                   "stride": stride, "padding": padding}
+            recs.append(rec)
+            y = ConvTap.apply(y, rec)
+        return y
+
+    F.conv2d = tapped
+    try:
+        yield
+    finally:
+        F.conv2d = conv
+
+
+def conv_backward(rec, deterministic):
+    """dX (where the step took it) and dW of one tapped conv from its
+    inputs and output gradient, in float32, with cuDNN's deterministic
+    switch as given."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        with full_fp32(), torch.enable_grad():
+            x = rec["x"].clone().requires_grad_(rec["dx"])
+            w = rec["w"].clone().requires_grad_()
+            y = F.conv2d(x, w, None, rec["stride"], rec["padding"])
+            return torch.autograd.grad(y, (x, w) if rec["dx"] else (w,),
+                                       rec["g"])
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def device_kernels(fn):
+    """{device kernel name: ms} of one call of fn under torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    return {e.key: getattr(e, key) / 1e3 for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def conv_suspects(case, profiled):
+    """The 2D convs of one step (parent switches) whose backward, replayed
+    twice from the same inputs and output gradient, gives other bits; for
+    each, the two replays with cuDNN's deterministic switch on, and for
+    the first of a shape not in ``profiled`` (added to it) the device
+    kernels of one replay in each mode (the algorithms cuDNN picked)."""
+    recs = []
+    with tapped_convs(recs):
+        case()
+    out = []
+    for rec in recs:
+        if "g" not in rec:
+            continue
+        runs = [conv_backward(rec, False) for _ in range(2)]
+        differ = [n for n, a, b in zip(("dX", "dW") if rec["dx"] else
+                                       ("dW",), *runs) if not torch.equal(a, b)]
+        if not differ:
+            continue
+        fixed = [conv_backward(rec, True) for _ in range(2)]
+        entry = {"x": list(rec["x"].shape), "x_dtype": str(rec["x"].dtype),
+                 "w": list(rec["w"].shape), "stride": rec["stride"],
+                 "padding": rec["padding"], "differ": differ,
+                 "deterministic_equal": all(
+                     torch.equal(a, b) for a, b in zip(*fixed))}
+        key = (entry["x"], entry["x_dtype"], entry["w"], entry["stride"])
+        if not out and str(key) not in profiled:
+            profiled.add(str(key))
+            entry["kernels"] = {
+                m: sorted(device_kernels(lambda d=d: conv_backward(rec, d)))
+                for m, d in (("parent", False), ("deterministic", True))}
+        out.append(entry)
+    return out, len(recs)
+
+
+def warned_ops(case):
+    """The ops of one step that warn under torch.use_deterministic_
+    algorithms(True, warn_only=True): each message's head (cuDNN is
+    deterministic in that mode and never warns)."""
+    det = getattr(torch.utils, "deterministic", None)
+    fill = getattr(det, "fill_uninitialized_memory", None)
+    if fill is not None:
+        det.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            case()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if fill is not None:
+            det.fill_uninitialized_memory = fill
+    heads = set()
+    for w in caught:
+        msg = str(w.message)
+        if "CuBLAS" in msg:
+            heads.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
+        elif "deterministic" in msg:
+            heads.add(msg.split(" does not have")[0][:120])
+    return sorted(heads)
+
+
+def repro_parent(name, case, profiled):
+    """REPRO_PAIRS step pairs of one builder under the parent's switches:
+    how many pairs differ, which leaves, the first gradient (in the
+    backward's order) that differs, the ops that warn in deterministic
+    mode and, where a pair differed, the conv replays."""
+    t0 = time.perf_counter()
+    unequal, bad_leaves, worst, first_grad = 0, set(), 0.0, None
+    with parent_switches():
+        for _ in range(REPRO_PAIRS):
+            ga, gb = [], []
+            with grads_in_order(ga):
+                a = case()
+            with grads_in_order(gb):
+                b = case()
+            bad, w = step_diff(a, b)
+            if bad:
+                unequal += 1
+                bad_leaves.update(bad)
+                worst = max(worst, w)
+                if first_grad is None:
+                    first_grad = next((k for (k, g), (_, h) in zip(ga, gb)
+                                       if not torch.equal(g, h)), None)
+            n_leaves = len(a)
+            del a, b, ga, gb
+        ops = warned_ops(case)
+        convs, n_convs = (conv_suspects(case, profiled) if unequal
+                          else ([], None))
+    out = dict(pairs=REPRO_PAIRS, unequal_pairs=unequal, leaves=n_leaves,
+               differing_leaves=len(bad_leaves),
+               first_differing_leaves=sorted(bad_leaves)[:6],
+               max_abs_diff=worst, first_differing_grad=first_grad,
+               warn_only_ops=ops, convs_tapped=n_convs,
+               conv_backward_differs=convs, s=time.perf_counter() - t0)
+    log(f"[repro] {name}, parent's switches: {json.dumps(out)}")
+    return out
+
+
+def repro_scope(name, case):
+    """REPRO_PAIRS step pairs of one builder as the port takes them: every
+    leaf must be equal under torch.equal, and the caller's switches as
+    they were after the steps."""
+    t0 = time.perf_counter()
+    before, failures, unequal = switches(), [], 0
+    for i in range(REPRO_PAIRS):
+        a, b = case(), case()
+        bad, worst = step_diff(a, b)
+        if bad:
+            unequal += 1
+            failures.append(f"{name} pair {i}: {len(bad)} of {len(a)} leaves "
+                            f"differ (first {bad[0]}, max |diff| {worst:.3g})")
+        n_leaves = len(a)
+        del a, b
+    if switches() != before:
+        failures.append(f"{name}: switches {switches()} after the steps, "
+                        f"{before} before")
+    out = dict(pairs=REPRO_PAIRS, unequal_pairs=unequal, leaves=n_leaves,
+               all_equal=unequal == 0, s=time.perf_counter() - t0)
+    log(f"[repro] {name}, reproducible(): {json.dumps(out)}")
+    return out, failures
+
+
+def scope_cost(name, case, profiled=False):
+    """One builder's step with the scope and with the parent's switches:
+    REPRO_REPS steps a mode in turns on the host clock (synchronized), the
+    device time of REPRO_REPS steps back to back (CUDA events,
+    utils.timing.cuda_ms) and, where profiled, the device kernels of one
+    step in each mode under the profiler (busy ms, and the kernels whose
+    time moved most)."""
+    modes = {"scope": contextlib.nullcontext, "parent": parent_switches}
+    wall = {m: [] for m in modes}
+    for i in range(REPRO_REPS):
+        for m in (("scope", "parent") if i % 2 == 0 else ("parent", "scope")):
+            with modes[m]():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                case()
+                torch.cuda.synchronize()
+                wall[m].append((time.perf_counter() - t0) * 1e3)
+    out, kernels = {}, {}
+    for m, ctx in modes.items():
+        with ctx():
+            out[m] = dict(wall_ms=wall[m],
+                          wall_ms_median=float(np.median(wall[m])),
+                          device_ms=cuda_ms(case, REPRO_REPS, warmup=0))
+            if profiled:
+                kernels[m] = device_kernels(case)
+                out[m]["busy_ms"] = sum(kernels[m].values())
+    out["device_cost"] = (out["scope"]["device_ms"]
+                          / out["parent"]["device_ms"] - 1)
+    if profiled:
+        moved = {k: kernels["scope"].get(k, 0.0)
+                 - kernels["parent"].get(k, 0.0)
+                 for k in set(kernels["scope"]) | set(kernels["parent"])}
+        out["kernels_moved_ms"] = {k[:100]: v for k, v in sorted(
+            moved.items(), key=lambda kv: -abs(kv[1]))[:6] if v}
+        out["busy_cost"] = (out["scope"]["busy_ms"]
+                            / out["parent"]["busy_ms"] - 1)
+    log(f"[repro] cost of reproducible(), {name}: {json.dumps(out)}")
+    return out
+
+
+def repro_maxdisp(dev):
+    """One task-0 step at maxdisp REPRO_MAXDISP (D = 63: kernels C and G
+    take their general instance) through the kernels against the same
+    step with the plain versions (STEP_RTOL, STATS_RTOL), C's and G's
+    launches in it, and each of their calls there against its plain
+    version and twice against itself."""
+    specs, params, stats, sites = train_configs(dev)["task0"]
+    batch = train_batch(dev)
+    lr = cosine_lr(LR, TRAIN_EPOCHS, 0)
+    opt = make_optimizer(WD)
+    step = make_train_step(specs, sites, opt, maxdisp=REPRO_MAXDISP)
+    d = REPRO_MAXDISP // 3
+
+    def one():
+        before = dict(leaves(params))
+        p = clone_tree(params)  # the step updates it in place
+        p, st, _, _ = step(p, stats, opt.init(p), lr, *batch)
+        return ({k: (v - before[k]) / lr for k, v in leaves(p)
+                 if k.split("/")[0] in sites}, dict(leaves(st)))
+
+    calls, args_of = [], {}
+    with recording(calls, args_of):
+        plain = one()
+    zero_launches()
+    delta, new_stats = one()
+    torch.cuda.synchronize()
+    n = read_launches()
+    cmp, failures = compare_step(f"maxdisp {REPRO_MAXDISP} task0", delta,
+                                 new_stats, plain)
+    instance = disparity_mod.head_instance(d, REPRO_MAXDISP)
+    if instance != 0:
+        failures.append(f"maxdisp {REPRO_MAXDISP}: instance {instance}, not "
+                        "the general one")
+    failures += [f"maxdisp {REPRO_MAXDISP}: {k} never launched"
+                 for k in (KC, KG) if n[k] < 1]
+    kernels = []
+    for (name, sig), (args, kw) in args_of.items():
+        if name not in (KC, KG):
+            continue
+        r = check_kernel(name, args, kw, 5, False)
+        line = {"kernel": name, "at": f"train maxdisp {REPRO_MAXDISP}",
+                "sig": str(sig), "max_abs_err": r["err"], "tol": r["tol"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "repeat_bit_identical": r["same"], **r["plan"]}
+        log(f"[kernels] {json.dumps(line)}")
+        kernels.append(line)
+        if not r["ok"]:
+            failures.append(f"maxdisp {REPRO_MAXDISP}: {name} {sig} "
+                            f"max_abs_err {r['err']:.3g} (tolerance "
+                            f"{r['tol']:.3g}), bit-identical twice: "
+                            f"{r['same']}")
+    out = dict(maxdisp=REPRO_MAXDISP, d=d, instance=instance,
+               general_launches={k: n[k] for k in (KC, KG)},
+               launches={k: c for k, c in n.items() if c}, **cmp,
+               kernels=kernels)
+    log(f"[repro] maxdisp {REPRO_MAXDISP}: {json.dumps(out)}")
+    return out, failures
+
+
+def net_leaves(drv):
+    """Every leaf of a driver's network (units' and heads' params and
+    statistics) and of its router's state, by name."""
+    out = {}
+    for kind in ("units", "heads"):
+        for name, units in getattr(drv.net, kind).items():
+            for i, u in enumerate(units):
+                out.update(flat_leaves(**{
+                    f"{kind}/{name}/{i}/params": u.params,
+                    f"{kind}/{name}/{i}/stats": u.stats}))
+    if drv.router is not None:
+        out.update({f"router/{k}": torch.from_numpy(np.asarray(v))
+                    for k, v in drv.router.state_arrays().items()})
+    return out
+
+
+def repro_resume(dev):
+    """A 2-task ContinualDriver.run on synthetic scenes held on the card
+    (REPRO_SCENE pairs of 192x384 a scene, REPRO_CFG: batch 4, stage
+    files every epoch, the router), killed in task 1's fine-tune right
+    after epoch 1's stage file (an exception from its log callback), then
+    run(resume=True): the whole forgetting matrix and every leaf of the
+    network and the router must equal the uninterrupted run's bit for
+    bit."""
+    cache = DeviceCache()
+    scenes = tuple(
+        [SyntheticStereoDataset(n, TRAIN_H, TRAIN_W, seed=seed + t,
+                                max_disp=LEARN_SCENE_DISP,
+                                style=WEATHER_STYLES[t], device=dev,
+                                cache=cache) for t in range(2)]
+        for n, seed in zip(REPRO_SCENE, (10, 20, 30)))
+
+    def run(ckpt, kill_at=None, resume=False):
+        lines = []
+
+        def log_line(msg):
+            lines.append(str(msg))
+            if kill_at is not None and str(msg).startswith(kill_at):
+                raise Killed(msg)
+
+        drv = ContinualDriver(REPRO_CFG, log=log_line,
+                              checkpoint_dir=str(ckpt), device=dev)
+        drv.stage_checkpoint_every = 1
+        t0 = time.perf_counter()
+        try:
+            matrix = drv.run(*scenes, resume=resume)
+        except Killed:
+            matrix = None
+        torch.cuda.synchronize()
+        return drv, matrix, lines, time.perf_counter() - t0
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, m_whole, _, s_whole = run(Path(tmp) / "whole")
+        ckpt = Path(tmp) / "killed"
+        _, m_killed, _, s_killed = run(ckpt, kill_at=REPRO_KILL_AT)
+        stage = ckpt / "finetune_t1.npz"
+        epoch = int(np.load(stage)["epoch"]) if stage.exists() else None
+        if m_killed is not None or epoch != 1:
+            failures.append(f"resume: the run was not killed after epoch 1's "
+                            f"stage file (finished {m_killed is not None}, "
+                            f"stage file epoch {epoch})")
+        resumed, m_resumed, lines, s_resumed = run(ckpt, resume=True)
+    if not any("resumed at epoch" in m for m in lines):
+        failures.append("resume: the fine-tune did not re-enter from its "
+                        "stage file")
+    bad_metrics = [k for k in m_whole.m
+                   if not np.array_equal(m_resumed.m[k], m_whole.m[k],
+                                         equal_nan=True)]
+    a, b = net_leaves(resumed), net_leaves(whole)
+    bad = sorted(set(a) ^ set(b)) + [k for k in b if k in a
+                                     and not torch.equal(a[k], b[k])]
+    if resumed.net.archis != whole.net.archis:
+        bad.append("archis")
+    if resumed.net.genotypes != whole.net.genotypes:
+        bad.append("genotypes")
+    if bad_metrics or bad:
+        failures.append(f"resume: metrics {bad_metrics} and {len(bad)} "
+                        f"leaves (first {bad[:4]}) differ from the "
+                        "uninterrupted run")
+    out = dict(tasks=2, pairs_per_scene=list(REPRO_SCENE),
+               hw=[TRAIN_H, TRAIN_W], kill_at=REPRO_KILL_AT,
+               stage_file_epoch=epoch, leaves=len(b),
+               metrics=sorted(m_whole.m), matrix_equal=not bad_metrics,
+               leaves_equal=not bad,
+               matrix={k: m_whole.m[k].tolist() for k in ("D1", "EPE")},
+               seconds={"uninterrupted": s_whole, "killed": s_killed,
+                        "resumed": s_resumed})
+    log(f"[repro] kill and resume on the card: {json.dumps(out)}")
+    return out, failures
+
+
+def phase_repro(dev):
+    """Reproducible training: every train builder's step twice from one
+    state, REPRO_PAIRS times, first under the parent's switches (what
+    differs, and the op behind it), then as the port takes it (every leaf
+    equal: hard); the scope's cost on a task-0 step and a supernet step;
+    a task-0 step at maxdisp REPRO_MAXDISP through the kernels against
+    plain (kernels C's and G's general instance); a killed and resumed
+    2-task continual run against the uninterrupted one (bit for bit).
+    Every launch count is set to 0 first; returns them with the report."""
+    t0 = time.perf_counter()
+    cases = repro_cases(dev)
+    builders, failures, profiled = {}, [], set()
+    zero_launches()
+    for name, case in cases.items():
+        parent = repro_parent(name, case, profiled)
+        scope, bad = repro_scope(name, case)
+        failures += bad
+        builders[name] = {"parent": parent, "scope": scope}
+    t1 = time.perf_counter()
+    cost = {name: scope_cost(name, cases[name], profiled)
+            for name, profiled in (("make_train_step default float32", True),
+                                   ("make_supernet_train_step", False))}
+    cost["s"] = time.perf_counter() - t1
+    n = read_launches()
+    del cases
+    torch.cuda.empty_cache()
+    maxdisp, bad = repro_maxdisp(dev)
+    failures += bad
+    torch.cuda.empty_cache()
+    zero_launches()
+    resume, bad = repro_resume(dev)
+    failures += bad
+    n = {k: c + maxdisp["launches"].get(k, 0) + launch_count(k)
+         for k, c in n.items()}
+    report = dict(builders=builders, cost=cost, maxdisp=maxdisp,
+                  resume=resume, wall_s=time.perf_counter() - t0)
+    differed = [k for k, b in builders.items()
+                if b["parent"]["unequal_pairs"]]
+    log(f"[repro] unequal bits in {REPRO_PAIRS} pairs: under the parent's "
+        f"switches {len(differed)} of {len(builders)} builders "
+        f"({differed}); with reproducible() "
+        f"{sum(b['scope']['unequal_pairs'] > 0 for b in builders.values())};"
+        f" wall time {report['wall_s']:.1f} s")
+    if failures:
+        raise SystemExit("chip_smoke: reproducible training failed:\n  "
+                         + "\n  ".join(failures))
+    return n, report
 
 
 def phase_dp(dev, plain, train_turns, smi, profile_dir=None):
@@ -3787,9 +4381,8 @@ def eval_only_check(dev, lists, maxdisp, failures):
                 "sig": str(sig), "max_abs_err": r["err"], "tol": r["tol"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "library_ms": r["lib_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], **r["plan"]}
-        if ALL_KERNELS[name].get("bitwise"):
-            line["repeat_bit_identical"] = r["same"]
+                "bound_by": r["bound_by"], "repeat_bit_identical": r["same"],
+                **r["plan"]}
         log(f"[kernels] {json.dumps(line)}")
         kernels.append(line)
         ALL_KERNELS[name]["max_err"] = max(
@@ -4504,6 +5097,10 @@ def main() -> int:
     ap.add_argument("--small-only", action="store_true",
                     help="build and check every kernel at the small shapes "
                          "only; no report")
+    ap.add_argument("--repro-only", action="store_true",
+                    help="build, then run the repro phase alone (every "
+                         "train step twice from one state, the scope's "
+                         "cost, maxdisp 190, kill and resume); no report")
     # one rank of the sp phase, started by it: RANK ADDRESS DIR
     ap.add_argument("--sp-rank", nargs=3, help=argparse.SUPPRESS)
     opts = ap.parse_args()
@@ -4518,6 +5115,10 @@ def main() -> int:
         phase_kernels({}, dev)
         log(f"[small-only] all kernels agree at the small shapes; "
             f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if opts.repro_only:
+        phase_repro(dev)
+        log(f"[repro-only] done; {time.perf_counter() - t_start:.1f} s")
         return 0
 
     t0 = time.perf_counter()
@@ -4611,6 +5212,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     depth_report = phase_depth(dev, smi)
     torch.cuda.empty_cache()
+    # last, after every phase that times the host: it opens profiler
+    # sessions of its own
+    n, repro = phase_repro(dev)
+    launches = {k: launches[k] + n.get(k, 0) for k in ALL_KERNELS}
+    torch.cuda.empty_cache()
     if opts.profile is not None:
         phase_profile(ris, requests, dev, opts.profile)
 
@@ -4643,9 +5249,9 @@ def main() -> int:
         "and averaged over the task paths of their path; every kernel's "
         "\"train_step\" or own numbers: per step of task 0's stage; "
         "launches: every serve, route and train run of both paths, the "
-        "dp run, the learn run, the cli runs and the selfsup phase (its "
+        "dp run, the learn run, the cli runs, the selfsup phase (its "
         "compared step, its timed steps, its driver run and its round "
-        "trip); the depth phase launches none")
+        "trip) and the repro phase; the depth phase launches none")
     log("[report] ms/request (default turns 1, 4 / variants turns 2, 3): "
         + side_by_side(per_task, "ms_per_request"))
     log("[report] peak GB per request (default / variants): "
@@ -4670,6 +5276,7 @@ def main() -> int:
     print(json.dumps({"sp": sp}))
     print(json.dumps({"scenes": scenes}))
     print(json.dumps({"bf16": bf16_report}))
+    print(json.dumps({"repro": repro}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rag_tpu_torch.models.stereo import full_fp32
+from rag_tpu_torch.models.stereo import full_fp32, reproducible
 
 CONVS = ("c0", "c1", "c2")
 PARAM_KEYS = ("b", "c0", "c1", "c2", "w")   # sorted, as jax flattens a dict
@@ -117,9 +117,10 @@ class Adam:
 def make_router_train_step(optimizer: Adam):
     """step(params, opt_state, images, labels) -> (params, opt_state, loss):
     softmax cross-entropy with integer labels, mean over the batch, then
-    one optimizer update."""
+    one optimizer update. The forward and backward run in
+    ``reproducible()``, as the stereo train steps' do."""
     def step(params, opt_state, images, labels):
-        with full_fp32(), torch.enable_grad():
+        with reproducible(), torch.enable_grad():
             handles = {k: v.detach().requires_grad_(True)
                        for k, v in params.items()}
             loss = F.cross_entropy(router_logits(handles, images),

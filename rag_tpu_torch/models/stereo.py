@@ -300,6 +300,25 @@ def full_fp32():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+@contextlib.contextmanager
+def reproducible():
+    """``full_fp32`` with cuDNN held to its deterministic algorithms and
+    its autotuner off, for the scope: every train step's forward and
+    backward run in it, so that a step taken twice from one state gives
+    the same bits (cuDNN's heuristics may otherwise pick a conv backward
+    whose split reduction adds in no fixed order). ATen reads the switches
+    when each op runs, the backward's included. Serving does not enter
+    it."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with full_fp32():
+            yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def stereo_forward(specs: Mapping[str, Spec], params, stats,
                    left: torch.Tensor, right: torch.Tensor,
                    train_sites=frozenset(), maxdisp: int = MAXDISP,

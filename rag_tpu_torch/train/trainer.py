@@ -16,10 +16,13 @@ add_decayed_weights(wd), trace(0.9))`` written out, with the reference's
 freeze mask applied to the gradients before it and to the updates after
 it.
 
-Every step takes its gradients inside ``full_fp32()``: ATen reads the
-TF32 switches when the backward runs, so a backward taken after the
-forward's scope closed would run its convs in TF32 wherever the caller
-left them on.
+Every step runs its forward and takes its gradients inside
+``reproducible()`` (``models.stereo``): full float32 and cuDNN's
+deterministic algorithms. ATen reads those switches when the backward
+runs, so a backward taken after the forward's scope closed would run its
+convs in TF32 wherever the caller left them on, and in whatever
+algorithm cuDNN's heuristics pick; inside the scope a step taken twice
+from one state gives the same bits.
 
 Data parallelism: every step builder takes ``mesh=None``. With a mesh
 (``parallel.mesh.make_mesh``), the step takes the global batch on every
@@ -57,7 +60,7 @@ from rag_tpu_torch.models.depth import depth_forward
 from rag_tpu_torch.models.stereo import (
     MAXDISP,
     disparity_rows,
-    full_fp32,
+    reproducible,
     stereo_forward,
 )
 from rag_tpu_torch.ops.precision import FP32, Precision
@@ -182,11 +185,10 @@ def differentiable(params, sites):
 
 def grads_of(loss, handles) -> Dict[str, torch.Tensor]:
     """d loss / d handle for every handle; zeros where the loss does not
-    depend on it (an unsampled edge), as jax.grad gives them. The
-    backward runs in full float32 (``full_fp32``)."""
-    with full_fp32():
-        grads = torch.autograd.grad(loss, list(handles.values()),
-                                    allow_unused=True)
+    depend on it (an unsampled edge), as jax.grad gives them. The caller
+    holds the switches (``train_update`` runs it in ``reproducible()``)."""
+    grads = torch.autograd.grad(loss, list(handles.values()),
+                                allow_unused=True)
     return {path: torch.zeros_like(handles[path]) if g is None else g
             for path, g in zip(handles, grads)}
 
@@ -221,9 +223,9 @@ def train_update(params, sites, optimizer: SGDMomentum, opt_state, lr: float,
     BatchNorm reducing over ``bn_group`` (default ``group``); then the
     gradients of loss / world, summed over the ranks of ``group``, take
     the masked SGD step in place. Returns the detached (loss, output) and
-    new_stats."""
+    new_stats. The forward and the backward run in ``reproducible()``."""
     handles, p_diff = differentiable(params, sites)
-    with torch.enable_grad():
+    with torch.enable_grad(), reproducible():
         with bn_collective(group if bn_group is None else bn_group):
             loss, out, new_stats = forward(p_diff)
         grads = grads_of(loss / world_size(group), handles)

@@ -12,7 +12,10 @@ on the same numpy inputs (weights reach the port through
   (c) an op-search-style step: every BatchNorm frozen, a few sites
       trainable, ``stem_3d0`` among them (the folded-BN backwards of
       kernels A and B);
-  (d) ``write_back`` commits a path's trained tensors to its units.
+  (d) ``write_back`` commits a path's trained tensors to its units;
+  (e) (a) at maxdisp 47 (47 mod 3 = 2, D = 15): the head's upsample of
+      15 levels to 47, the shape kernels C and G take their general
+      instance at on the card.
 
 JAX runs ``make_train_step(specs, bn, make_optimizer(0.003),
 forward=partial(stereo_forward, cf_matching=True))``; on the CPU its Pallas
@@ -248,6 +251,16 @@ def test_train_step_random_weights_all_sites():
     pair = _Pair(specs_j, specs_t, params, stats, specs_j, specs_j, 48,
                  np.float64)
     sc = pair.step_and_compare(LR, *_batch(rng, 2, 48, 96, 48))
+    assert np.isfinite(float(sc["loss"]))
+
+
+def test_train_step_maxdisp_not_multiple_of_3():
+    """(e) maxdisp 47, every site BN-train and trainable: D = 15 levels
+    upsampled to 47, no period for the head's periodic instance."""
+    specs_j, specs_t, params, stats, rng = _random_state(2)
+    pair = _Pair(specs_j, specs_t, params, stats, specs_j, specs_j, 47,
+                 np.float64)
+    sc = pair.step_and_compare(LR, *_batch(rng, 2, 48, 96, 47))
     assert np.isfinite(float(sc["loss"]))
 
 
