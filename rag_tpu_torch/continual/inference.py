@@ -5,6 +5,14 @@ Counterpart of rag_tpu/continual/inference.py::RoutedInference. A frame
 runs through its task's path: the task is given, or (task=None) the
 router picks it per frame, and without a router every frame goes to task
 0, as in the reference.
+
+While a profiler records, ``predict`` opens the spans of a request
+(``utils.profiling.span``): the root ``serve.request``, and in it
+``serve.copy_in`` (wait: the frames' copies to the device),
+``serve.route`` (with ``serve.route.fetch``, a wait, in the router), a
+``serve.path`` per routed task, and in each ``serve.forward``
+(``stereo_forward``) and ``serve.copy_out`` (wait: the disparity's copy
+to the host).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from rag_tpu_torch.models.stereo import stereo_forward
 from rag_tpu_torch.ops.precision import FP32, Precision
 from rag_tpu_torch.ops.variants import DEFAULT, KernelVariants
 from rag_tpu_torch.train.trainer import make_eval_step
+from rag_tpu_torch.utils.profiling import span
 
 
 class RoutedInference:
@@ -65,22 +74,29 @@ class RoutedInference:
 
     @torch.inference_mode()
     def _predict_task(self, t: int, left, right) -> np.ndarray:
-        specs, params, stats = self.net.path(self.net.archis[t])
-        disp, _ = stereo_forward(specs, params, stats, left, right,
-                                 maxdisp=self.maxdisp, variants=self.variants,
-                                 precision=self.precision)
-        return disp.cpu().numpy()
+        with span("serve.forward"):
+            specs, params, stats = self.net.path(self.net.archis[t])
+            disp, _ = stereo_forward(specs, params, stats, left, right,
+                                     maxdisp=self.maxdisp,
+                                     variants=self.variants,
+                                     precision=self.precision)
+        with span("serve.copy_out", wait=True):
+            return disp.cpu().numpy()
 
     def predict(self, left, right, task: Optional[int] = None) -> np.ndarray:
         """Disparity (B,H,W) for a batch; task=None -> per-frame routing."""
-        left, right = self._tensor(left), self._tensor(right)
-        if task is not None:
-            return self._predict_task(task, left, right)
-        tasks = self.route(left)
-        out = np.zeros(tuple(left.shape[:3]), np.float32)
-        for t, idx, (lt, rt) in self._groups(tasks, left, right):
-            out[idx] = self._predict_task(t, lt, rt)
-        return out
+        with span("serve.request", root=True):
+            with span("serve.copy_in", wait=True):
+                left, right = self._tensor(left), self._tensor(right)
+            if task is not None:
+                return self._predict_task(task, left, right)
+            with span("serve.route"):
+                tasks = self.route(left)
+            out = np.zeros(tuple(left.shape[:3]), np.float32)
+            for t, idx, (lt, rt) in self._groups(tasks, left, right):
+                with span("serve.path"):
+                    out[idx] = self._predict_task(t, lt, rt)
+            return out
 
     def evaluate(self, dataset, task: Optional[int] = None,
                  batch: int = 1) -> Dict[str, float]:

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from rag_tpu_torch.models.stereo import full_fp32, reproducible
+from rag_tpu_torch.utils.profiling import span
 
 CONVS = ("c0", "c1", "c2")
 PARAM_KEYS = ("b", "c0", "c1", "c2", "w")   # sorted, as jax flattens a dict
@@ -195,8 +196,11 @@ class SceneRouter:
 
     @torch.inference_mode()
     def predict(self, images) -> np.ndarray:
-        """(B,) task ids (int64) of a batch of frames (B,H,W,3)."""
-        return route(self.params, self._tensor(images)).cpu().numpy()
+        """(B,) task ids (int64) of a batch of frames (B,H,W,3); the ids'
+        fetch to the host is the wait span ``serve.route.fetch``."""
+        ids = route(self.params, self._tensor(images))
+        with span("serve.route.fetch", wait=True):
+            return ids.cpu().numpy()
 
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """Flat {router_leaf_i: np.ndarray} of params + Adam state."""

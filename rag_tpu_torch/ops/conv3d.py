@@ -623,17 +623,18 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     its ``launches_bf16`` for a bf16 x."""
     b, d, cin, h, wd = x.shape
     cout = w.shape[4]
-    frag = torch.empty(fragment_floats(plan), device=x.device,
-                       dtype=torch.float32)
-    out = torch.empty((b, d, cout, h, wd), device=x.device, dtype=x.dtype)
-    rc = cuda_lib.entry("rag_conv3d_brc_cf", x.dtype)(
-        x.data_ptr(), w.data_ptr(), frag.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, d, cin, h, wd, cout, int(relu),
-        plan.mt, plan.nt, plan.tw, plan.n_split, plan.cc, plan.db,
-        cuda_lib.stream_ptr(x))
     counter = counter or conv3d_affine_cf
-    cuda_lib.count(counter, x.dtype)
-    cuda_lib.check(rc, counter.__name__)
+    with cuda_lib.launch(counter, x.dtype):
+        frag = torch.empty(fragment_floats(plan), device=x.device,
+                           dtype=torch.float32)
+        out = torch.empty((b, d, cout, h, wd), device=x.device,
+                          dtype=x.dtype)
+        rc = cuda_lib.entry("rag_conv3d_brc_cf", x.dtype)(
+            x.data_ptr(), w.data_ptr(), frag.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, d, cin, h, wd, cout,
+            int(relu), plan.mt, plan.nt, plan.tw, plan.n_split, plan.cc,
+            plan.db, cuda_lib.stream_ptr(x))
+        cuda_lib.check(rc, counter.__name__)
     return out
 
 
@@ -653,6 +654,7 @@ def pack_weights_cuda(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
 
 
 conv3d_affine_cf.launches = conv3d_affine_cf.launches_bf16 = 0
+conv3d_affine_cf.span = "kernel.A"
 
 
 def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -674,6 +676,7 @@ def conv3d_dblock_cf(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 conv3d_dblock_cf.launches = conv3d_dblock_cf.launches_bf16 = 0
+conv3d_dblock_cf.span = "kernel.H"
 
 
 def _conv_kernel(dblock: bool):
@@ -698,6 +701,7 @@ def conv3d_dw_cf(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
 
 
 conv3d_dw_cf.launches = conv3d_dw_cf.launches_bf16 = 0
+conv3d_dw_cf.span = "kernel.D"
 
 
 def launch_dw_plan(x: torch.Tensor, dz: torch.Tensor, plan: DwPlan,
@@ -709,15 +713,17 @@ def launch_dw_plan(x: torch.Tensor, dz: torch.Tensor, plan: DwPlan,
     the sum pass alone reads a workspace left unwritten."""
     b, d, cin, h, w = x.shape
     cout = dz.shape[2]
-    partial = torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
-    out = torch.empty((3, 3, 3, cin, cout), device=x.device,
-                      dtype=torch.float32)
-    rc = cuda_lib.entry("rag_conv3d_dw_cf", x.dtype)(
-        x.data_ptr(), dz.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        b, d, cin, cout, h, w, plan.ci, plan.co_t, plan.kh_t, plan.groups,
-        plan.th, plan.tw, plan.db, passes, cuda_lib.stream_ptr(x))
-    cuda_lib.count(conv3d_dw_cf, x.dtype)
-    cuda_lib.check(rc, "conv3d_dw_cf")
+    with cuda_lib.launch(conv3d_dw_cf, x.dtype):
+        partial = torch.empty(plan.workspace, device=x.device,
+                              dtype=torch.float32)
+        out = torch.empty((3, 3, 3, cin, cout), device=x.device,
+                          dtype=torch.float32)
+        rc = cuda_lib.entry("rag_conv3d_dw_cf", x.dtype)(
+            x.data_ptr(), dz.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            b, d, cin, cout, h, w, plan.ci, plan.co_t, plan.kh_t,
+            plan.groups, plan.th, plan.tw, plan.db, passes,
+            cuda_lib.stream_ptr(x))
+        cuda_lib.check(rc, "conv3d_dw_cf")
     return out
 
 

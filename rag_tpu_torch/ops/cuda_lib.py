@@ -155,16 +155,22 @@ def entry(name: str, dtype):
     return getattr(lib(), name)
 
 
-def count(wrapper, dtype) -> None:
-    """One launch of a kernel wrapper's instance for ``dtype``: on
+def launch(wrapper, dtype):
+    """One launch of a kernel wrapper's instance for ``dtype``, counted on
     ``wrapper.launches`` for float32, ``wrapper.launches_bf16`` for the
-    bf16 instance."""
+    bf16 instance; returns its span, ``wrapper.span`` (``kernel.<letter>``,
+    ``utils.profiling.span``), which the launch's allocations, argument
+    packing and call run in. Every launch of a hand-written kernel is
+    counted and spanned here."""
     import torch
+
+    from rag_tpu_torch.utils.profiling import span
 
     if dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
+    return span(wrapper.span)
 
 
 def check(rc: int, name: str) -> None:

@@ -449,21 +449,23 @@ def launch_cvstem(x_cf: torch.Tensor, y_cf: torch.Tensor, w3: torch.Tensor,
     ``cvstem_affine``."""
     b, c, h, w = x_cf.shape
     cout = w3.shape[4]
-    frag = torch.empty(fragment_floats(plan), device=x_cf.device,
-                       dtype=torch.float32)
-    out = torch.empty((b, num_disp, cout, h, w), device=x_cf.device,
-                      dtype=x_cf.dtype)
-    rc = cuda_lib.entry("rag_cvstem_brc", x_cf.dtype)(
-        x_cf.data_ptr(), y_cf.data_ptr(), w3.data_ptr(), frag.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w,
-        num_disp, cout, int(relu), plan.mt, plan.nt, plan.tw, plan.n_split,
-        plan.cc, plan.db, cuda_lib.stream_ptr(x_cf))
-    cuda_lib.count(cvstem_affine, x_cf.dtype)
-    cuda_lib.check(rc, "cvstem_affine")
+    with cuda_lib.launch(cvstem_affine, x_cf.dtype):
+        frag = torch.empty(fragment_floats(plan), device=x_cf.device,
+                           dtype=torch.float32)
+        out = torch.empty((b, num_disp, cout, h, w), device=x_cf.device,
+                          dtype=x_cf.dtype)
+        rc = cuda_lib.entry("rag_cvstem_brc", x_cf.dtype)(
+            x_cf.data_ptr(), y_cf.data_ptr(), w3.data_ptr(),
+            frag.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, c, h, w, num_disp, cout, int(relu), plan.mt,
+            plan.nt, plan.tw, plan.n_split, plan.cc, plan.db,
+            cuda_lib.stream_ptr(x_cf))
+        cuda_lib.check(rc, "cvstem_affine")
     return out
 
 
 cvstem_affine.launches = cvstem_affine.launches_bf16 = 0
+cvstem_affine.span = "kernel.B"
 
 
 def cvstem_dxy(dz: torch.Tensor, w3: torch.Tensor, num_disp: int):
@@ -487,21 +489,23 @@ def launch_dxy(dz: torch.Tensor, w3: torch.Tensor, plan: DxyPlan):
     Counts one launch on ``cvstem_dxy``."""
     b, d, cout, h, w = dz.shape
     c = w3.shape[3] // 2
-    wpk = pack_dxy_weights(w3, plan.ct, plan.n_cc)
-    partial = torch.empty(plan.workspace, device=dz.device,
-                          dtype=torch.float32)
-    dx = torch.empty((b, c, h, w), device=dz.device, dtype=dz.dtype)
-    dy = torch.empty_like(dx)
-    rc = cuda_lib.entry("rag_cvstem_dxy", dz.dtype)(
-        dz.data_ptr(), wpk.data_ptr(), partial.data_ptr(), dx.data_ptr(),
-        dy.data_ptr(), b, d, cout, c, h, w, plan.ct, plan.n_cc, plan.chunk,
-        plan.n_chunks, plan.kc, cuda_lib.stream_ptr(dz))
-    cuda_lib.count(cvstem_dxy, dz.dtype)
-    cuda_lib.check(rc, "cvstem_dxy")
+    with cuda_lib.launch(cvstem_dxy, dz.dtype):
+        wpk = pack_dxy_weights(w3, plan.ct, plan.n_cc)
+        partial = torch.empty(plan.workspace, device=dz.device,
+                              dtype=torch.float32)
+        dx = torch.empty((b, c, h, w), device=dz.device, dtype=dz.dtype)
+        dy = torch.empty_like(dx)
+        rc = cuda_lib.entry("rag_cvstem_dxy", dz.dtype)(
+            dz.data_ptr(), wpk.data_ptr(), partial.data_ptr(),
+            dx.data_ptr(), dy.data_ptr(), b, d, cout, c, h, w, plan.ct,
+            plan.n_cc, plan.chunk, plan.n_chunks, plan.kc,
+            cuda_lib.stream_ptr(dz))
+        cuda_lib.check(rc, "cvstem_dxy")
     return dx, dy
 
 
 cvstem_dxy.launches = cvstem_dxy.launches_bf16 = 0
+cvstem_dxy.span = "kernel.E"
 
 
 def cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
@@ -522,6 +526,7 @@ def cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
 
 
 cvstem_dw.launches = cvstem_dw.launches_bf16 = 0
+cvstem_dw.span = "kernel.F"
 
 
 def launch_cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
@@ -532,17 +537,17 @@ def launch_cvstem_dw(x_cf: torch.Tensor, y_cf: torch.Tensor, dz: torch.Tensor,
     ``cvstem_dw``."""
     b, c, h, w = x_cf.shape
     d, cout = dz.shape[1], dz.shape[2]
-    partial = torch.empty(plan.workspace, device=dz.device,
+    with cuda_lib.launch(cvstem_dw, dz.dtype):
+        partial = torch.empty(plan.workspace, device=dz.device,
+                              dtype=torch.float32)
+        out = torch.empty((3, 3, 3, 2 * c, cout), device=dz.device,
                           dtype=torch.float32)
-    out = torch.empty((3, 3, 3, 2 * c, cout), device=dz.device,
-                      dtype=torch.float32)
-    rc = cuda_lib.entry("rag_cvstem_dw", dz.dtype)(
-        x_cf.data_ptr(), y_cf.data_ptr(), dz.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), b, d, c, cout, h, w, plan.ci, plan.co_t, plan.kh_t,
-        plan.groups, plan.th, plan.tw, plan.db, passes,
-        cuda_lib.stream_ptr(dz))
-    cuda_lib.count(cvstem_dw, dz.dtype)
-    cuda_lib.check(rc, "cvstem_dw")
+        rc = cuda_lib.entry("rag_cvstem_dw", dz.dtype)(
+            x_cf.data_ptr(), y_cf.data_ptr(), dz.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), b, d, c, cout, h, w, plan.ci,
+            plan.co_t, plan.kh_t, plan.groups, plan.th, plan.tw, plan.db,
+            passes, cuda_lib.stream_ptr(dz))
+        cuda_lib.check(rc, "cvstem_dw")
     return out
 
 

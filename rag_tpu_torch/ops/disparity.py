@@ -276,21 +276,22 @@ def soft_argmin_fwd(x: torch.Tensor, maxdisp: int = 192, scale: int = 3) -> torc
         return soft_argmin_disparity(x, maxdisp, scale)
     b, d, h, w = x.shape
     check_f32("soft_argmin_fwd", x)
-    plan = head_plan(b, d, h, w, maxdisp, scale)
-    tab_i, tab_w = tap_tables(d, h, w, maxdisp, scale, x.device)
-    res = residue_table(d, maxdisp, x.device)
-    ho, wo = h * scale, w * scale
-    out = torch.empty((b, ho, wo), device=x.device, dtype=torch.float32)
-    rc = cuda_lib.lib().rag_soft_argmin(
-        x.data_ptr(), tab_i.data_ptr(), tab_w.data_ptr(), res.data_ptr(),
-        out.data_ptr(), b, d, h, w, maxdisp, ho, wo, plan.instance,
-        cuda_lib.stream_ptr(x))
-    soft_argmin_fwd.launches += 1
-    cuda_lib.check(rc, "soft_argmin_fwd")
+    with cuda_lib.launch(soft_argmin_fwd, x.dtype):
+        plan = head_plan(b, d, h, w, maxdisp, scale)
+        tab_i, tab_w = tap_tables(d, h, w, maxdisp, scale, x.device)
+        res = residue_table(d, maxdisp, x.device)
+        ho, wo = h * scale, w * scale
+        out = torch.empty((b, ho, wo), device=x.device, dtype=torch.float32)
+        rc = cuda_lib.lib().rag_soft_argmin(
+            x.data_ptr(), tab_i.data_ptr(), tab_w.data_ptr(), res.data_ptr(),
+            out.data_ptr(), b, d, h, w, maxdisp, ho, wo, plan.instance,
+            cuda_lib.stream_ptr(x))
+        cuda_lib.check(rc, "soft_argmin_fwd")
     return out
 
 
 soft_argmin_fwd.launches = 0
+soft_argmin_fwd.span = "kernel.C"
 
 
 def launch_head_bwd(x: torch.Tensor, g: torch.Tensor, maxdisp: int,
@@ -301,18 +302,18 @@ def launch_head_bwd(x: torch.Tensor, g: torch.Tensor, maxdisp: int,
     pass alone is for timing: pass 2 alone reads a workspace left
     unwritten."""
     b, d, h, w = x.shape
-    tab_i, tab_w = tap_tables(d, h, w, maxdisp, 3, x.device)
-    res = residue_table(d, maxdisp, x.device)
-    fold = fold_tables(h, w, x.device)
-    ew = torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
-    dx = torch.empty_like(x)
-    rc = cuda_lib.lib().rag_soft_argmin_bwd(
-        x.data_ptr(), g.data_ptr(), tab_i.data_ptr(), tab_w.data_ptr(),
-        res.data_ptr(), fold.data_ptr(), ew.data_ptr(), dx.data_ptr(),
-        b, d, h, w, maxdisp, 3 * h, 3 * w, plan.instance, passes,
-        cuda_lib.stream_ptr(x))
-    soft_argmin_bwd.launches += 1
-    cuda_lib.check(rc, "soft_argmin_bwd")
+    with cuda_lib.launch(soft_argmin_bwd, x.dtype):
+        tab_i, tab_w = tap_tables(d, h, w, maxdisp, 3, x.device)
+        res = residue_table(d, maxdisp, x.device)
+        fold = fold_tables(h, w, x.device)
+        ew = torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
+        dx = torch.empty_like(x)
+        rc = cuda_lib.lib().rag_soft_argmin_bwd(
+            x.data_ptr(), g.data_ptr(), tab_i.data_ptr(), tab_w.data_ptr(),
+            res.data_ptr(), fold.data_ptr(), ew.data_ptr(), dx.data_ptr(),
+            b, d, h, w, maxdisp, 3 * h, 3 * w, plan.instance, passes,
+            cuda_lib.stream_ptr(x))
+        cuda_lib.check(rc, "soft_argmin_bwd")
     return dx
 
 
@@ -333,6 +334,7 @@ def soft_argmin_bwd(x: torch.Tensor, g: torch.Tensor, maxdisp: int = 192,
 
 
 soft_argmin_bwd.launches = 0
+soft_argmin_bwd.span = "kernel.G"
 
 
 class _FusedSoftArgmin(torch.autograd.Function):

@@ -448,16 +448,18 @@ def resize_taps_cf(x: torch.Tensor, d2: int, h2: int, w2: int,
     if not x.is_cuda:
         return resize_taps_plain(x, d2, h2, w2, align_corners, transposed)
     check_dtypes("resize_taps_cf", (x,))
-    plan, itab, ftab = resize_setup(tuple(x.shape), d2, h2, w2,
-                                    align_corners, transposed, x.device)
-    b, _, c, _, _ = x.shape
-    out = torch.empty((b, d2, c, h2, w2), device=x.device, dtype=x.dtype)
-    launch_resize(x, itab, ftab, out, plan)
-    cuda_lib.count(resize_taps_cf, x.dtype)
+    with cuda_lib.launch(resize_taps_cf, x.dtype):
+        plan, itab, ftab = resize_setup(tuple(x.shape), d2, h2, w2,
+                                        align_corners, transposed, x.device)
+        b, _, c, _, _ = x.shape
+        out = torch.empty((b, d2, c, h2, w2), device=x.device,
+                          dtype=x.dtype)
+        launch_resize(x, itab, ftab, out, plan)
     return out
 
 
 resize_taps_cf.launches = resize_taps_cf.launches_bf16 = 0
+resize_taps_cf.span = "kernel.I"
 
 
 class _ResizeCF(torch.autograd.Function):

@@ -190,18 +190,19 @@ def shear_forward(px: torch.Tensor, py: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"shear_forward: px {tuple(px.shape)}, py "
                          f"{tuple(py.shape)}, num_disp {num_disp}")
     check_dtypes("shear_forward", (px, py), (scale, bias))
-    out = torch.empty((b, num_disp, co, h, w), device=px.device,
-                      dtype=px.dtype)
-    rc = cuda_lib.entry("rag_shear_fwd", px.dtype)(
-        px.data_ptr(), py.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, num_disp, co, h, w, int(relu),
-        cuda_lib.stream_ptr(px))
-    cuda_lib.count(shear_forward, px.dtype)
-    cuda_lib.check(rc, "shear_forward")
+    with cuda_lib.launch(shear_forward, px.dtype):
+        out = torch.empty((b, num_disp, co, h, w), device=px.device,
+                          dtype=px.dtype)
+        rc = cuda_lib.entry("rag_shear_fwd", px.dtype)(
+            px.data_ptr(), py.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, num_disp, co, h, w, int(relu),
+            cuda_lib.stream_ptr(px))
+        cuda_lib.check(rc, "shear_forward")
     return out
 
 
 shear_forward.launches = shear_forward.launches_bf16 = 0
+shear_forward.span = "kernel.J"
 
 
 def shear_adjoint(dz: torch.Tensor, num_disp: int):
@@ -215,17 +216,19 @@ def shear_adjoint(dz: torch.Tensor, num_disp: int):
         raise ValueError(f"shear_adjoint: dz {tuple(dz.shape)}, num_disp "
                          f"{num_disp}")
     check_dtypes("shear_adjoint", (dz,))
-    dpx = torch.empty((b, 9, co, h, w), device=dz.device, dtype=torch.float32)
-    dpy = torch.empty_like(dpx)
-    rc = cuda_lib.entry("rag_shear_adj", dz.dtype)(
-        dz.data_ptr(), dpx.data_ptr(), dpy.data_ptr(), b, nd, co, h, w,
-        cuda_lib.stream_ptr(dz))
-    cuda_lib.count(shear_adjoint, dz.dtype)
-    cuda_lib.check(rc, "shear_adjoint")
+    with cuda_lib.launch(shear_adjoint, dz.dtype):
+        dpx = torch.empty((b, 9, co, h, w), device=dz.device,
+                          dtype=torch.float32)
+        dpy = torch.empty_like(dpx)
+        rc = cuda_lib.entry("rag_shear_adj", dz.dtype)(
+            dz.data_ptr(), dpx.data_ptr(), dpy.data_ptr(), b, nd, co, h, w,
+            cuda_lib.stream_ptr(dz))
+        cuda_lib.check(rc, "shear_adjoint")
     return dpx, dpy
 
 
 shear_adjoint.launches = shear_adjoint.launches_bf16 = 0
+shear_adjoint.span = "kernel.K"
 
 
 class ShearPlan(NamedTuple):

@@ -45,10 +45,19 @@ gradient is summed over the world once. The feature net's BatchNorm
 statistics reduce over the data axis only, the matching net's over the
 world, and the metrics add up each image's pieces over the world. The
 other builders take a data-parallel mesh only.
+
+Spans (``utils.profiling.span``, recorded while a profiler records): a
+train step is the root ``train.step``; ``train_update`` opens
+``train.forward`` (the forward and its loss), ``train.backward``
+(``grads_of``) and ``train.optimizer`` (the gradients' sum over the
+ranks and the SGD tail, also timed on the device: from the end of the
+backward's kernels to the end of the tail's), and the step's scalars are
+``train.metrics``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Optional
 
@@ -72,7 +81,7 @@ from rag_tpu_torch.parallel.axis import (
     world_size,
 )
 from rag_tpu_torch.parallel.mesh import rank_slice
-from rag_tpu_torch.utils.profiling import check_finite
+from rag_tpu_torch.utils.profiling import check_finite, span
 from rag_tpu_torch.train.losses import (
     photometric_loss,
     silog_loss,
@@ -224,15 +233,28 @@ def train_update(params, sites, optimizer: SGDMomentum, opt_state, lr: float,
     gradients of loss / world, summed over the ranks of ``group``, take
     the masked SGD step in place. Returns the detached (loss, output) and
     new_stats. The forward and the backward run in ``reproducible()``."""
-    handles, p_diff = differentiable(params, sites)
     with torch.enable_grad(), reproducible():
-        with bn_collective(group if bn_group is None else bn_group):
-            loss, out, new_stats = forward(p_diff)
-        grads = grads_of(loss / world_size(group), handles)
-    grads = all_sum_tree(grads, group)
-    check_finite(loss=loss, output=out, **grads)
-    sgd_apply(optimizer, params, grads, opt_state, lr)
+        with span("train.forward"):
+            handles, p_diff = differentiable(params, sites)
+            with bn_collective(group if bn_group is None else bn_group):
+                loss, out, new_stats = forward(p_diff)
+        with span("train.backward"):
+            grads = grads_of(loss / world_size(group), handles)
+    with span("train.optimizer", device=True):
+        grads = all_sum_tree(grads, group)
+        check_finite(loss=loss, output=out, **grads)
+        sgd_apply(optimizer, params, grads, opt_state, lr)
     return loss.detach(), out.detach(), new_stats
+
+
+def step_span(step):
+    """``step`` with each call in the root span ``train.step``."""
+    @functools.wraps(step)
+    def spanned(*args, **kwargs):
+        with span("train.step", root=True):
+            return step(*args, **kwargs)
+
+    return spanned
 
 
 def supervised_loss(disp, disp_gt, maxdisp: int = MAXDISP, group=None):
@@ -288,13 +310,13 @@ def make_train_step(specs: Mapping, bn_sites: frozenset,
         loss, disp, new_stats = train_update(
             params, trainable_sites, optimizer, opt_state, lr, group, forward,
             None if mesh is None else mesh.data_group)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.metrics"):
             mask = (disp_gt > 0) & (disp_gt < maxdisp)
             scalars = {"loss": loss,
                        **stereo_metrics(disp, disp_gt, mask, mesh)}
         return params, new_stats, opt_state, scalars
 
-    return step
+    return step_span(step)
 
 
 def make_eval_step(specs: Mapping, maxdisp: int = MAXDISP,
@@ -347,13 +369,13 @@ def make_selfsup_train_step(specs: Mapping, bn_sites: frozenset,
         loss, disp, new_stats = train_update(params, trainable_sites,
                                              optimizer, opt_state, lr, group,
                                              forward)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.metrics"):
             mask = (disp_gt > 0) & (disp_gt < maxdisp)
             scalars = {"loss": loss,
                        **stereo_metrics(disp, disp_gt, mask, mesh)}
         return params, new_stats, opt_state, scalars
 
-    return step
+    return step_span(step)
 
 
 def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
@@ -381,12 +403,12 @@ def make_depth_train_step(specs: Mapping, bn_sites: frozenset,
         loss, pred, new_stats = train_update(params, trainable_sites,
                                              optimizer, opt_state, lr, group,
                                              forward)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.metrics"):
             scalars = {"loss": loss,
                        **depth_metrics(pred, depth_gt, mask, group)}
         return params, new_stats, opt_state, scalars
 
-    return step
+    return step_span(step)
 
 
 def make_depth_eval_step(specs: Mapping, mesh=None,

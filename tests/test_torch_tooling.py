@@ -1,6 +1,7 @@
 """The port's tooling modules on the CPU: rag_tpu_torch.utils.flops
-against rag_tpu.utils.flops, utils.profiling (StepTimer's arithmetic,
-trace sessions, the debug_nans switch) and utils.timing."""
+against rag_tpu.utils.flops, utils.profiling (trace sessions, the
+debug_nans switch; its spans are test_torch_spans.py's) and
+utils.timing."""
 
 import ast
 import json
@@ -48,20 +49,6 @@ def test_summarize_against_h100_peaks():
     assert flops.H100_PEAK_HBM_BPS == 3.35e12
     src = (ROOT / "rag_tpu_torch" / "utils" / "flops.py").read_text()
     assert "V5E" not in src and "197e12" not in src and "819e9" not in src
-
-
-def test_step_timer_rate_and_ema(monkeypatch):
-    clock = iter([10.0, 10.5, 20.0, 20.25])
-    monkeypatch.setattr(profiling.time, "time", lambda: next(clock))
-    t = profiling.StepTimer(items_per_step=4, ema=0.9)
-    t.start()
-    r = t.stop(torch.zeros(2))
-    assert r == {"step_s": 0.5, "items_per_s": 8.0, "items_per_s_ema": 8.0}
-    t.start()
-    r = t.stop({"x": [torch.ones(1)]})
-    assert r["step_s"] == 0.25 and r["items_per_s"] == 16.0
-    assert r["items_per_s_ema"] == pytest.approx(0.9 * 8.0 + 0.1 * 16.0,
-                                                 rel=1e-15)
 
 
 def test_trace_writes_and_closes(tmp_path):
